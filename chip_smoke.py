@@ -1,0 +1,432 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``tpukernels_torch``) on one GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
+``tpukernels_torch/_build/``), then:
+
+1. prints the card (``nvidia-smi`` name and power limit) and toolchain,
+   and turns TF32 off for float32 matmuls;
+2. builds every kernel, in parallel, and prints the build times;
+3. holds each kernel against its plain PyTorch version on the card at
+   the sizes of the main path and at ragged ones, with the tolerance
+   stated beside each check;
+4. drives the main path end to end — ``registry.dispatch`` of
+   ``vector_add``, ``sgemm`` and ``stencil2d`` at the configurations of
+   record and at the canary configurations — checks each result against
+   the port's oracle, and shows from the launch counters that every
+   kernel ran;
+5. times each kernel, its plain version and, where one exists, the
+   single PyTorch call computing the same function, with CUDA events,
+   beside the least time the card could take (``bound_ms``).
+
+It prints one JSON line of per-kernel results before the last line,
+and as the last line ``{"ok": true, "device": {...}}``. Any failed
+check raises: the script then exits non-zero and prints no result. It
+needs a CUDA device and the repository's ``tpukernels_torch`` package;
+it imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+# published dense peaks (NVIDIA data sheets): bytes/s of device memory,
+# bf16 tensor-core flop/s, fp32 (non-tensor) flop/s
+PEAKS = (
+    ("H100 PCIe", 2.0e12, 756e12, 51e12),
+    ("H100 NVL", 3.9e12, 835e12, 60e12),
+    ("H100", 3.35e12, 989e12, 67e12),  # SXM
+)
+
+SAXPY_ALPHA = 0.7
+GEMM_ALPHA, GEMM_BETA = 1.5, 0.5
+
+
+def log(msg=""):
+    print(msg, flush=True)
+
+
+def peaks_for(name):
+    for key, bw, bf16, fp32 in PEAKS:
+        if key in name:
+            return key, bw, bf16, fp32
+    key, bw, bf16, fp32 = PEAKS[-1]
+    log(f"note: no peak table for {name!r}; using the {key} SXM peaks")
+    return key, bw, bf16, fp32
+
+
+def bound(nbytes, ops, op_rate, bw):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate
+    and operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / op_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_err(got, want):
+    d = (got.double() - want.double()).abs()
+    both_nan = got.isnan() & want.isnan()
+    d = d.masked_fill(both_nan, 0.0)
+    return float(d.max()) if d.numel() else 0.0
+
+
+def check(label, got, want, rtol, atol):
+    """Fail unless |got - want| <= atol + rtol·|want| everywhere (NaN
+    where the reference has NaN); returns the largest |got - want|."""
+    import torch
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    ok = torch.isclose(got, want, rtol=rtol, atol=atol, equal_nan=True)
+    err = max_abs_err(got, want)
+    bitwise = bool(torch.equal(got, want))
+    if not bool(ok.all()):
+        bad = int((~ok).sum())
+        raise AssertionError(
+            f"{label}: {bad}/{got.numel()} elements outside rtol={rtol:g} "
+            f"atol={atol:g}; max_abs_err={err:.3e}"
+        )
+    log(f"PASS {label}: max_abs_err={err:.3e} (rtol={rtol:g}, "
+        f"atol={atol:.3g}){' bitwise' if bitwise else ''}")
+    return err
+
+
+def time_ms(fn, reps, warmup=2):
+    """Mean ms per call of ``fn`` over ``reps`` calls, CUDA events,
+    after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def run(cmd):
+    try:
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+    except FileNotFoundError:
+        return None
+    return p.stdout.strip()
+
+
+def phase_toolchain(torch):
+    log("== phase 1: card and toolchain")
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"])
+    if not smi:
+        raise RuntimeError("nvidia-smi gave no card name and power limit")
+    card = smi.splitlines()[0]
+    log(f"card: {card}")
+    from tpukernels_torch import _build
+
+    nvcc = run([_build.nvcc(), "--version"]) or ""
+    try:
+        import triton
+
+        triton_version = triton.__version__
+    except ImportError:
+        triton_version = "absent"
+    cutlass = os.path.isdir(os.path.join(
+        os.environ.get("CUTLASS_PATH", "/usr/local/cutlass"), "include",
+        "cutlass"))
+    log(f"torch {torch.__version__}, torch.version.cuda "
+        f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)} "
+        f"x{torch.cuda.device_count()}")
+    log(f"nvcc: {nvcc.splitlines()[-1] if nvcc else 'absent'}")
+    log(f"triton: {triton_version}; CUTLASS headers: "
+        f"{'present' if cutlass else 'absent'}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("torch.backends.cuda.matmul.allow_tf32 = False (float32 matmuls "
+        "of the plain versions and yardsticks run in full fp32)")
+    return card
+
+
+def phase_build():
+    log("== phase 2: build")
+    from tpukernels_torch import _build
+
+    t0 = time.perf_counter()
+    secs = _build.build()
+    wall = time.perf_counter() - t0
+    for name, s in secs.items():
+        log(f"built {name}.cu in {s:.1f} s")
+    log(f"build wall: {wall:.1f} s ({len(secs)} compiled, "
+        f"{len(_build.SOURCES) - len(secs)} already built)")
+    for name in _build.SOURCES:
+        logf = _build.library_path(name).with_suffix(".log")
+        if logf.exists():
+            for line in logf.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"ptxas {name}: {line.strip()}")
+
+
+def phase_kernels(torch, gen):
+    """Each kernel against its plain version; returns max_abs_err at the
+    main-path sizes."""
+    log("== phase 3: kernels against their plain versions")
+    from tpukernels_torch.kernels import sgemm as S, stencil as J
+    from tpukernels_torch.kernels import vector_add as V
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def unif(*shape):  # the C golden checker's [-1, 1) operands
+        return torch.rand(*shape, device=dev, generator=gen) * 2 - 1
+
+    errs = {}
+    for n in (1000, 1 << 20, 1 << 26):
+        x, y = randn(n), randn(n)
+        e = check(f"saxpy n={n}", V.saxpy(SAXPY_ALPHA, x, y),
+                  V.saxpy_reference(SAXPY_ALPHA, x, y), 1e-5, 1e-6)
+        errs.setdefault("saxpy", {})[n] = e
+        del x, y
+    x, y = randn(1001), randn(1001)  # offset views: the unaligned path
+    check("saxpy n=1000 unaligned", V.saxpy(SAXPY_ALPHA, x[1:], y[1:]),
+          V.saxpy_reference(SAXPY_ALPHA, x[1:], y[1:]), 1e-5, 1e-6)
+
+    for m, k, n in ((1024, 1024, 1024), (1000, 1042, 2176), (40, 72, 56)):
+        a, b, c = unif(m, k), unif(k, n), unif(m, n)
+        ref = S.sgemm_reference(GEMM_ALPHA, a, b, GEMM_BETA, c)
+        for prec in S.PRECISIONS:
+            rtol, atol = S.contract(prec, k, GEMM_ALPHA)
+            got = S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c, precision=prec)
+            plain = S.sgemm_plain(GEMM_ALPHA, a, b, GEMM_BETA, c, prec)
+            e = check(f"sgemm[{prec}] {m}x{k}x{n} vs plain", got, plain,
+                      rtol, atol)
+            check(f"sgemm[{prec}] {m}x{k}x{n} vs oracle", got, ref, rtol,
+                  atol)
+            if (m, k, n) == (1024, 1024, 1024):
+                errs[f"sgemm_{prec}"] = e
+    a, b = unif(128, 128), unif(128, 128)
+    c = torch.full((128, 128), float("nan"), device=dev)
+    for prec in S.PRECISIONS:
+        got = S.sgemm(1.0, a, b, 0.0, c, precision=prec)
+        if not bool(got.isnan().all()):
+            raise AssertionError(f"sgemm[{prec}] beta=0: NaN in C did not "
+                                 "propagate")
+        log(f"PASS sgemm[{prec}] beta=0 with NaN in C: all NaN, as the "
+            "oracle")
+
+    for (h, w), iters, k in (((40, 200), 4, None), ((1024, 1536), 13, 1),
+                              ((1024, 1536), 13, 8),
+                              ((4096, 4096), 1000, None)):
+        x = randn(h, w)
+        e = check(f"jacobi2d {h}x{w} iters={iters} k={k or 'default'}",
+                  J.jacobi2d(x, iters, k=k), J.jacobi2d_plain(x, iters),
+                  1e-4, 1e-5)
+        if (h, w) == (4096, 4096):
+            errs["jacobi2d"] = e
+    return errs
+
+
+def phase_main_path(torch, gen):
+    log("== phase 4: main path end to end (registry.dispatch)")
+    from tpukernels_torch import interop, registry
+    from tpukernels_torch.kernels import LAUNCHES, reset_launches
+    from tpukernels_torch.kernels import sgemm as S
+    from tpukernels_torch.resilience import integrity
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def unif(*shape):  # the C golden checker's [-1, 1) operands
+        return torch.rand(*shape, device=dev, generator=gen) * 2 - 1
+
+    def against_oracle(label, name, args, out, statics, band=None):
+        _, rtol, atol = integrity.tolerance(name)
+        if band is not None:
+            rtol, atol = band
+        statics = {k: v for k, v in statics.items() if k != "precision"}
+        want = integrity.oracle(name)(*args, **statics)
+        check(f"dispatch {label}", out, want, rtol, atol)
+
+    record = []
+    for n in (1 << 20, 1 << 26):
+        record.append(("vector_add", f"n={n}",
+                       (SAXPY_ALPHA, randn(n), randn(n)), {}, None))
+    gemm = (GEMM_ALPHA, unif(1024, 1024), unif(1024, 1024), GEMM_BETA,
+            unif(1024, 1024))
+    record.append(("sgemm", "1024^3 (precision of record)", gemm, {}, None))
+    for prec in ("float32", "default"):
+        record.append(("sgemm", f"1024^3 precision={prec}", gemm,
+                       {"precision": prec},
+                       S.contract(prec, 1024, GEMM_ALPHA)))
+    record.append(("stencil2d", "4096^2 iters=1000", (randn(4096, 4096),),
+                   {"iters": 1000}, None))
+    canaries = [
+        (name, "canary", interop.to_port(name, integrity.build_args(name)),
+         integrity.CANARY_CONFIGS[name]["statics"], None)
+        for name in ("vector_add", "sgemm", "stencil2d")
+    ]
+    torch.cuda.synchronize()
+
+    reset_launches()
+    registry.reset_calls()
+    outs = [registry.dispatch(name, *args, **st)
+            for name, _, args, st, _ in record + canaries]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    calls = registry.calls()
+
+    for (name, label, args, st, band), out in zip(record + canaries, outs):
+        against_oracle(f"{name} {label}", name, args, out, st, band)
+    log("kernels: " + json.dumps(launches))
+    log("dispatch calls: " + json.dumps(calls))
+    idle = [k for k, v in launches.items() if v <= 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on the main path: {idle}")
+    return launches
+
+
+def phase_times(torch, gen, peaks):
+    log("== phase 5: times (CUDA events, after warm-up)")
+    from tpukernels_torch.kernels import sgemm as S, stencil as J
+    from tpukernels_torch.kernels import vector_add as V
+
+    _, bw, bf16, fp32 = peaks
+    dev = torch.device("cuda")
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    for n, reps in ((1 << 20, 200), (1 << 26, 20)):
+        x, y = randn(n), randn(n)
+        row = {
+            "n": n,
+            "ms": time_ms(lambda: V.saxpy(SAXPY_ALPHA, x, y), reps),
+            "plain_ms": time_ms(
+                lambda: V.saxpy_reference(SAXPY_ALPHA, x, y), reps),
+            "library_ms": time_ms(
+                lambda: torch.add(y, x, alpha=SAXPY_ALPHA), reps),
+            "launches_per_call": 1,
+        }
+        row["bound_ms"], row["bound_by"] = bound(12 * n, 2 * n, fp32, bw)
+        out[f"saxpy n={n}"] = row
+        del x, y
+
+    m = k = n = 1024
+    a, b, c = (torch.rand(*s, device=dev, generator=gen) * 2 - 1
+               for s in ((m, k), (k, n), (m, n)))
+    lib = time_ms(lambda: torch.addmm(c, a, b, beta=GEMM_BETA,
+                                      alpha=GEMM_ALPHA), 20)
+    for prec, work, rate in (("high", 3 * 2 * m * n * k, bf16),
+                             ("float32", 2 * m * n * k, fp32),
+                             ("default", 2 * m * n * k, bf16)):
+        row = {
+            "shape": [m, k, n],
+            "ms": time_ms(lambda: S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
+                                          precision=prec), 20),
+            "plain_ms": time_ms(lambda: S.sgemm_plain(
+                GEMM_ALPHA, a, b, GEMM_BETA, c, prec), 20),
+            "library_ms": lib,
+            "launches_per_call": 1,
+        }
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * (m * k + k * n + 2 * m * n), work, rate, bw)
+        out[f"sgemm[{prec}]"] = row
+
+    h = w = 4096
+    iters = 1000
+    x = randn(h, w)
+    kk = J.resolve_k()
+    row = {
+        "shape": [h, w], "iters": iters, "k": kk,
+        "ms": time_ms(lambda: J.jacobi2d(x, iters), 3, warmup=1),
+        "plain_ms": time_ms(lambda: J.jacobi2d_plain(x, iters), 1,
+                            warmup=1),
+        "library_ms": None,
+        "launches_per_call": len(J.passes(iters, kk)),
+    }
+    row["bound_ms"], row["bound_by"] = bound(
+        8 * h * w, 5 * (h - 2) * (w - 2) * iters, fp32, bw)
+    # the k-sweep pass structure moves 8 bytes per cell per launch
+    row["pass_bytes_ms"] = 8 * h * w * row["launches_per_call"] / bw * 1e3
+    out["jacobi2d"] = row
+
+    for label, r in out.items():
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"time {label}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches/call "
+            f"{r['launches_per_call']}")
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    import tpukernels_torch  # noqa: F401  (fails outside the repository)
+    from tpukernels_torch.kernels import TPU_KERNELS
+
+    card = phase_toolchain(torch)
+    peaks = peaks_for(torch.cuda.get_device_name(0))
+    phase_build()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    errs = phase_kernels(torch, gen)
+    launches = phase_main_path(torch, gen)
+    times = phase_times(torch, gen, peaks)
+
+    rows = {r.port_entry: r for r in TPU_KERNELS if r.status == "ported"}
+    sg, jc, sx = rows["tpkt_sgemm"], rows["tpkt_jacobi2d_pass"], \
+        rows["tpkt_saxpy"]
+    b3 = next(r for r in TPU_KERNELS if r.id == "B3")
+
+    def entry(name, row, t, err, **extra):
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return {"name": name, "route": "cuda", "source": row.port_source,
+                "replaces": row.where, "launches": launches[name],
+                "max_abs_err": err, **{k: t[k] for k in keys}, **extra}
+
+    kernels = [
+        entry("saxpy", sx, times[f"saxpy n={1 << 20}"],
+              errs["saxpy"][1 << 20], n=1 << 20,
+              stream={k: times[f"saxpy n={1 << 26}"][k] for k in
+                      ("n", "ms", "plain_ms", "library_ms", "bound_ms",
+                       "bound_by")}),
+    ]
+    for prec, name in (("high", "sgemm_split3"), ("float32", "sgemm_float32"),
+                       ("default", "sgemm_bf16")):
+        kernels.append(entry(name, sg, times[f"sgemm[{prec}]"],
+                             errs[f"sgemm_{prec}"], precision=prec,
+                             shape=[1024, 1024, 1024]))
+    kernels.append(entry("jacobi2d", jc, times["jacobi2d"], errs["jacobi2d"],
+                         also_replaces=b3.where, shape=[4096, 4096],
+                         iters=1000))
+    log(f"card: {card}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
