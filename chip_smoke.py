@@ -13,10 +13,11 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    the sizes of the main path and at ragged ones, with the tolerance
    stated beside each check;
 4. drives the main path end to end — ``registry.dispatch`` of
-   ``vector_add``, ``sgemm`` and ``stencil2d`` at the configurations of
-   record and at the canary configurations — checks each result against
-   the port's oracle, and shows from the launch counters that every
-   kernel ran;
+   ``vector_add``, ``sgemm``, ``stencil2d``, ``stencil3d`` and ``nbody``
+   at the configurations of record and at the canary configurations —
+   checks each result against the port's oracle (N-body at 65 536
+   bodies against its chunked plain version), and shows from the launch
+   counters that every kernel ran;
 5. times each kernel, its plain version and, where one exists, the
    single PyTorch call computing the same function, with CUDA events,
    beside the least time the card could take (``bound_ms``).
@@ -47,6 +48,13 @@ PEAKS = (
 
 SAXPY_ALPHA = 0.7
 GEMM_ALPHA, GEMM_BETA = 1.5, 0.5
+NBODY_N = 1 << 16  # the configuration of record: dt 1e-3, eps 1e-2, 1 step
+STENCIL3D_N, STENCIL3D_ITERS = 384, 8
+# the C golden checkers' bars: c/stencil.c (Jacobi, bitwise expected),
+# c/nbody.c (N-body against its plain version; rsqrtf and the sum order
+# differ)
+JACOBI_BAND = (1e-4, 1e-5)
+NBODY_BAND = (2e-3, 2e-4)
 
 
 def log(msg=""):
@@ -96,6 +104,22 @@ def check(label, got, want, rtol, atol):
     log(f"PASS {label}: max_abs_err={err:.3e} (rtol={rtol:g}, "
         f"atol={atol:.3g}){' bitwise' if bitwise else ''}")
     return err
+
+
+def bodies(gen, n):
+    """Seven float32 SoA arrays on the card: positions and velocities
+    normal, masses uniform in [0.5, 1.5), as the reference's canary."""
+    import torch
+
+    arrs = [torch.randn(n, device="cuda", generator=gen) for _ in range(6)]
+    return arrs + [torch.rand(n, device="cuda", generator=gen) + 0.5]
+
+
+def stacked(out):
+    """A tuple-valued result (N-body's six arrays) as one tensor."""
+    import torch
+
+    return torch.stack(out) if isinstance(out, tuple) else out
 
 
 def time_ms(fn, reps, warmup=2):
@@ -180,6 +204,7 @@ def phase_kernels(torch, gen):
     """Each kernel against its plain version; returns max_abs_err at the
     main-path sizes."""
     log("== phase 3: kernels against their plain versions")
+    from tpukernels_torch.kernels import nbody as NB
     from tpukernels_torch.kernels import sgemm as S, stencil as J
     from tpukernels_torch.kernels import vector_add as V
 
@@ -234,6 +259,38 @@ def phase_kernels(torch, gen):
                   1e-4, 1e-5)
         if (h, w) == (4096, 4096):
             errs["jacobi2d"] = e
+
+    n3 = STENCIL3D_N
+    for shape, iters, k in (((8, 24, 132), 2, None), ((33, 70, 130), 9, 1),
+                            ((33, 70, 130), 9, 2), ((33, 70, 130), 9, None),
+                            ((n3, n3, n3), STENCIL3D_ITERS, None)):
+        x = randn(*shape)
+        e = check(f"jacobi3d {'x'.join(map(str, shape))} iters={iters} "
+                  f"k={k or 'default'}", J.jacobi3d(x, iters, k=k),
+                  J.jacobi3d_plain(x, iters), *JACOBI_BAND)
+        if shape[0] == n3:
+            errs["jacobi3d"] = e
+        del x
+
+    for n, steps in ((192, 1), (1000, 2), (4096, 1), (NBODY_N, 1)):
+        b = bodies(gen, n)
+        got = stacked(NB.nbody_step(*b, steps=steps))
+        e = check(f"nbody n={n} steps={steps} vs chunked plain", got,
+                  stacked(NB.nbody_plain(*b, steps=steps)), *NBODY_BAND)
+        if n <= 4096:  # the pairwise oracle makes (n, n) temporaries
+            check(f"nbody n={n} steps={steps} vs oracle", got,
+                  stacked(NB.nbody_reference(*b, steps=steps)), 1e-3, 1e-3)
+        if n == NBODY_N:
+            errs["nbody_forces"] = e
+        del b, got
+    b = bodies(gen, 192)
+    for label, out in (("kernel", NB.nbody_step(*b, eps=0.0)),
+                       ("plain", NB.nbody_plain(*b, eps=0.0))):
+        if not bool(stacked(out).isnan().all()):
+            raise AssertionError(f"nbody {label} eps=0: self-pairs did not "
+                                 "give NaN everywhere")
+    log("PASS nbody eps=0: every output NaN in kernel and plain version "
+        "(self-pairs 0*inf), as the reference")
     return errs
 
 
@@ -241,7 +298,7 @@ def phase_main_path(torch, gen):
     log("== phase 4: main path end to end (registry.dispatch)")
     from tpukernels_torch import interop, registry
     from tpukernels_torch.kernels import LAUNCHES, reset_launches
-    from tpukernels_torch.kernels import sgemm as S
+    from tpukernels_torch.kernels import nbody as NB, sgemm as S
     from tpukernels_torch.resilience import integrity
 
     dev = torch.device("cuda")
@@ -252,44 +309,59 @@ def phase_main_path(torch, gen):
     def unif(*shape):  # the C golden checker's [-1, 1) operands
         return torch.rand(*shape, device=dev, generator=gen) * 2 - 1
 
-    def against_oracle(label, name, args, out, statics, band=None):
+    def against_oracle(label, name, args, out, statics, band=None,
+                       oracle=None):
         _, rtol, atol = integrity.tolerance(name)
         if band is not None:
             rtol, atol = band
         statics = {k: v for k, v in statics.items() if k != "precision"}
-        want = integrity.oracle(name)(*args, **statics)
-        check(f"dispatch {label}", out, want, rtol, atol)
+        want = (oracle or integrity.oracle(name))(*args, **statics)
+        check(f"dispatch {label}", stacked(out), stacked(want), rtol, atol)
 
+    # (key, label, operands, statics, band or None, oracle or None)
     record = []
     for n in (1 << 20, 1 << 26):
         record.append(("vector_add", f"n={n}",
-                       (SAXPY_ALPHA, randn(n), randn(n)), {}, None))
+                       (SAXPY_ALPHA, randn(n), randn(n)), {}, None, None))
     gemm = (GEMM_ALPHA, unif(1024, 1024), unif(1024, 1024), GEMM_BETA,
             unif(1024, 1024))
-    record.append(("sgemm", "1024^3 (precision of record)", gemm, {}, None))
+    record.append(("sgemm", "1024^3 (precision of record)", gemm, {}, None,
+                   None))
     for prec in ("float32", "default"):
         record.append(("sgemm", f"1024^3 precision={prec}", gemm,
                        {"precision": prec},
-                       S.contract(prec, 1024, GEMM_ALPHA)))
+                       S.contract(prec, 1024, GEMM_ALPHA), None))
     record.append(("stencil2d", "4096^2 iters=1000", (randn(4096, 4096),),
-                   {"iters": 1000}, None))
+                   {"iters": 1000}, None, None))
+    n3 = STENCIL3D_N
+    record.append(("stencil3d", f"{n3}^3 iters={STENCIL3D_ITERS}",
+                   (randn(n3, n3, n3),), {"iters": STENCIL3D_ITERS}, None,
+                   None))
+    # the pairwise oracle would need (n, n) temporaries of 16 GiB: the
+    # chunked plain version at the C checker's bar stands in for it
+    record.append(("nbody", f"n={NBODY_N} steps=1", tuple(bodies(gen,
+                                                               NBODY_N)),
+                   dict(integrity.CANARY_CONFIGS["nbody"]["statics"]),
+                   NBODY_BAND, NB.nbody_plain))
     canaries = [
         (name, "canary", interop.to_port(name, integrity.build_args(name)),
-         integrity.CANARY_CONFIGS[name]["statics"], None)
-        for name in ("vector_add", "sgemm", "stencil2d")
+         integrity.CANARY_CONFIGS[name]["statics"], None, None)
+        for name in ("vector_add", "sgemm", "stencil2d", "stencil3d",
+                     "nbody")
     ]
     torch.cuda.synchronize()
 
     reset_launches()
     registry.reset_calls()
     outs = [registry.dispatch(name, *args, **st)
-            for name, _, args, st, _ in record + canaries]
+            for name, _, args, st, _, _ in record + canaries]
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     calls = registry.calls()
 
-    for (name, label, args, st, band), out in zip(record + canaries, outs):
-        against_oracle(f"{name} {label}", name, args, out, st, band)
+    for (name, label, args, st, band, oracle), out in zip(record + canaries,
+                                                          outs):
+        against_oracle(f"{name} {label}", name, args, out, st, band, oracle)
     log("kernels: " + json.dumps(launches))
     log("dispatch calls: " + json.dumps(calls))
     idle = [k for k, v in launches.items() if v <= 0]
@@ -300,6 +372,7 @@ def phase_main_path(torch, gen):
 
 def phase_times(torch, gen, peaks):
     log("== phase 5: times (CUDA events, after warm-up)")
+    from tpukernels_torch.kernels import nbody as NB
     from tpukernels_torch.kernels import sgemm as S, stencil as J
     from tpukernels_torch.kernels import vector_add as V
 
@@ -309,6 +382,24 @@ def phase_times(torch, gen, peaks):
 
     def randn(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
+
+    def canary(label, fn, plain, shape, iters, k, flops_per_cell):
+        """A Jacobi kernel at its canary shape, where the reference took
+        its small, whole-grid-in-VMEM kernel."""
+        x = randn(*shape)
+        interior = 1
+        for s in shape:
+            interior *= s - 2
+        row = {
+            "shape": list(shape), "iters": iters, "k": k,
+            "ms": time_ms(lambda: fn(x, iters), 200),
+            "plain_ms": time_ms(lambda: plain(x, iters), 200),
+            "library_ms": None,
+            "launches_per_call": len(J.passes(iters, k)),
+        }
+        row["bound_ms"], row["bound_by"] = bound(
+            8 * x.numel(), flops_per_cell * interior * iters, fp32, bw)
+        out[label] = row
 
     for n, reps in ((1 << 20, 200), (1 << 26, 20)):
         x, y = randn(n), randn(n)
@@ -364,12 +455,60 @@ def phase_times(torch, gen, peaks):
     row["pass_bytes_ms"] = 8 * h * w * row["launches_per_call"] / bw * 1e3
     out["jacobi2d"] = row
 
+    canary("jacobi2d canary", J.jacobi2d, J.jacobi2d_plain, (40, 200), 4,
+           kk, 5)
+
+    n3, iters = STENCIL3D_N, STENCIL3D_ITERS
+    x = randn(n3, n3, n3)
+    k3 = J.resolve_k(None, 3)
+    row = {
+        "shape": [n3] * 3, "iters": iters, "k": k3,
+        "ms": time_ms(lambda: J.jacobi3d(x, iters), 10),
+        "plain_ms": time_ms(lambda: J.jacobi3d_plain(x, iters), 2, warmup=1),
+        "library_ms": None,
+        "launches_per_call": len(J.passes(iters, k3)),
+    }
+    row["bound_ms"], row["bound_by"] = bound(
+        8 * n3 ** 3, 6 * (n3 - 2) ** 3 * iters, fp32, bw)
+    row["pass_bytes_ms"] = 8 * n3 ** 3 * row["launches_per_call"] / bw * 1e3
+    # every fusion depth the kernel takes: the default is the fastest
+    row["per_k_ms"] = {kk3: time_ms(lambda: J.jacobi3d(x, iters, k=kk3), 10)
+                       for kk3 in range(1, J.HALO3D_MAX + 1)}
+    out["jacobi3d"] = row
+    del x
+    canary("jacobi3d canary", J.jacobi3d, J.jacobi3d_plain, (8, 24, 132), 2,
+           k3, 6)
+
+    n = NBODY_N
+    b = bodies(gen, n)
+    bi, bj = NB._tiles()
+    eps2 = NB._eps2(1e-2)  # the configuration of record
+    row = {
+        "n": n, "steps": 1, "bi": bi, "bj": bj,
+        "ms": time_ms(lambda: NB.nbody_step(*b), 10),
+        "plain_ms": time_ms(lambda: NB.nbody_plain(*b), 1, warmup=1),
+        "library_ms": None,
+        "launches_per_call": 1,
+        # the forces launch alone, without the six integration ops
+        "forces_ms": time_ms(lambda: NB._forces_cuda(
+            b[0], b[1], b[2], b[6], eps2, bi, bj), 10),
+    }
+    # 20 flops per pair, the reference's CostEstimate; 7 arrays in, 6 out
+    row["bound_ms"], row["bound_by"] = bound(4 * 13 * n, 20 * n * n, fp32,
+                                             bw)
+    out["nbody"] = row
+
     for label, r in out.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        extra = (f", forces launch alone {r['forces_ms']:.4f} ms"
+                 if "forces_ms" in r else "")
+        if "per_k_ms" in r:
+            extra += ", per k: " + ", ".join(
+                f"k={kk} {ms:.4f} ms" for kk, ms in r["per_k_ms"].items())
         log(f"time {label}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches/call "
-            f"{r['launches_per_call']}")
+            f"{r['bound_ms']:.6g} ms ({r['bound_by']}), launches/call "
+            f"{r['launches_per_call']}{extra}")
     return out
 
 
@@ -394,10 +533,13 @@ def main(argv=None):
     launches = phase_main_path(torch, gen)
     times = phase_times(torch, gen, peaks)
 
+    # B3/B4 and B5/B6 share an entry: the dict keeps B4 and B6, and the
+    # small kernels stand in also_replaces
     rows = {r.port_entry: r for r in TPU_KERNELS if r.status == "ported"}
     sg, jc, sx = rows["tpkt_sgemm"], rows["tpkt_jacobi2d_pass"], \
         rows["tpkt_saxpy"]
-    b3 = next(r for r in TPU_KERNELS if r.id == "B3")
+    j3, nb = rows["tpkt_jacobi3d_pass"], rows["tpkt_nbody_forces"]
+    b3, b5 = (next(r for r in TPU_KERNELS if r.id == i) for i in ("B3", "B5"))
 
     def entry(name, row, t, err, **extra):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -417,9 +559,24 @@ def main(argv=None):
         kernels.append(entry(name, sg, times[f"sgemm[{prec}]"],
                              errs[f"sgemm_{prec}"], precision=prec,
                              shape=[1024, 1024, 1024]))
+    def canary(label):  # the small kernel's shape, timed
+        return {k: times[label][k] for k in ("shape", "iters", "ms",
+                                            "plain_ms", "bound_ms",
+                                            "bound_by")}
+
     kernels.append(entry("jacobi2d", jc, times["jacobi2d"], errs["jacobi2d"],
                          also_replaces=b3.where, shape=[4096, 4096],
-                         iters=1000))
+                         iters=1000, canary=canary("jacobi2d canary")))
+    t3 = times["jacobi3d"]
+    kernels.append(entry("jacobi3d", j3, t3, errs["jacobi3d"],
+                         also_replaces=b5.where, shape=t3["shape"],
+                         iters=t3["iters"], k=t3["k"],
+                         per_k_ms=t3["per_k_ms"],
+                         canary=canary("jacobi3d canary")))
+    tn = times["nbody"]
+    kernels.append(entry("nbody_forces", nb, tn, errs["nbody_forces"],
+                         n=tn["n"], steps=tn["steps"],
+                         forces_ms=tn["forces_ms"]))
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

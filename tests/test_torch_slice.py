@@ -1,5 +1,5 @@
-"""Port slice 1 end to end on the CPU: the port's registry against the
-JAX kernel functions, on the reference's canary operands.
+"""The port's slices end to end on the CPU: the port's registry against
+the JAX kernel functions, on the reference's canary operands.
 
 The JAX functions are called directly (no registry, journal or tuning
 cache state is touched); the port goes through its own registry and
@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from tpukernels.kernels import nbody as J_nbody
 from tpukernels.kernels import sgemm as J_sgemm
 from tpukernels.kernels import stencil as J_stencil
 from tpukernels.kernels import vector_add as J_vector_add
@@ -17,18 +18,33 @@ from tpukernels.resilience import integrity as J_integrity
 from tpukernels_torch import interop, registry
 from tpukernels_torch.resilience import integrity
 
-PORTED = ("vector_add", "sgemm", "stencil2d")
+PORTED = ("vector_add", "sgemm", "stencil2d", "stencil3d", "nbody")
 JAX_FN = {
     "vector_add": J_vector_add.saxpy,
     "sgemm": J_sgemm.sgemm,
     "stencil2d": J_stencil.jacobi2d,
+    "stencil3d": J_stencil.jacobi3d,
+    "nbody": J_nbody.nbody_step,
 }
 
 
 def _jax_call(name, np_args, statics):
     args = [jnp.asarray(a) if isinstance(a, np.ndarray) else a
             for a in np_args]
-    return np.asarray(JAX_FN[name](*args, **statics))
+    out = JAX_FN[name](*args, **statics)
+    if isinstance(out, tuple):
+        return tuple(np.asarray(a) for a in out)
+    return np.asarray(out)
+
+
+def _assert_close(got, want, rtol, atol):
+    """Element by element for a tuple-valued result (``nbody``)."""
+    if not isinstance(want, tuple):
+        got, want = (got,), (want,)
+    assert isinstance(got, tuple) and len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == np.float32
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -40,8 +56,7 @@ def test_dispatch_canary_matches_jax(name):
     got = interop.from_port(out)
     want = _jax_call(name, np_args, statics)
     _, rtol, atol = integrity.tolerance(name)
-    assert got.shape == want.shape and got.dtype == np.float32
-    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+    _assert_close(got, want, rtol, atol)
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -51,7 +66,7 @@ def test_dispatch_canary_matches_port_oracle(name):
     got = interop.from_port(registry.dispatch(name, *args, **statics))
     want = interop.from_port(integrity.oracle(name)(*args, **statics))
     _, rtol, atol = integrity.tolerance(name)
-    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+    _assert_close(got, want, rtol, atol)
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -103,3 +118,8 @@ def test_interop_round_trip():
         interop.to_port("any", (f.astype(np.float64),), "cpu")
     with pytest.raises(ValueError):
         interop.to_port("sgemm", (1.0, f, f, 0.0), "cpu")
+    with pytest.raises(ValueError):
+        interop.to_port("nbody", (f[0],) * 6, "cpu")
+    pair = interop.from_port((tf, ti))
+    assert isinstance(pair, tuple) and len(pair) == 2
+    np.testing.assert_array_equal(pair[0], f)

@@ -18,5 +18,5 @@ names follow the reference so each counterpart is easy to find:
 
 Importing the package is lazy: it imports no submodule and builds no
 kernel. A kernel is compiled the first time its wrapper is called on a
-CUDA tensor (or when ``_build.build_all()`` is called).
+CUDA tensor (or when ``_build.build()`` is called).
 """

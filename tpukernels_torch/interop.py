@@ -15,7 +15,8 @@ import torch
 from tpukernels_torch.utils import pick_device
 
 # array operands each registry key takes, in order
-_N_ARRAYS = {"vector_add": 2, "sgemm": 3, "stencil2d": 1}
+_N_ARRAYS = {"vector_add": 2, "sgemm": 3, "stencil2d": 1, "stencil3d": 1,
+             "nbody": 7}
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int32): torch.int32}
 
@@ -42,6 +43,9 @@ def to_port(name: str, np_args, device=None) -> tuple:
     return tuple(out)
 
 
-def from_port(out) -> np.ndarray:
-    """A port result -> numpy on the host."""
+def from_port(out):
+    """A port result -> numpy on the host; a tuple of tensors (``nbody``)
+    -> a tuple of arrays."""
+    if isinstance(out, tuple):
+        return tuple(from_port(t) for t in out)
     return out.detach().cpu().numpy()

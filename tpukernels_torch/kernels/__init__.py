@@ -51,9 +51,11 @@ TPU_KERNELS = (
               "ported", "tpkt_jacobi2d_pass", _CSRC + "jacobi2d.cu",
               ("jacobi2d",)),
     TpuKernel("B5", _K + "stencil.py", 325, "_jacobi3d_small_kernel",
-              "pending"),
+              "ported", "tpkt_jacobi3d_pass", _CSRC + "jacobi3d.cu",
+              ("jacobi3d",)),
     TpuKernel("B6", _K + "stencil.py", 334, "_jacobi3d_blocked_kernel",
-              "pending"),
+              "ported", "tpkt_jacobi3d_pass", _CSRC + "jacobi3d.cu",
+              ("jacobi3d",)),
     TpuKernel("B7", _K + "vector_add.py", 62, "_saxpy_kernel", "ported",
               "tpkt_saxpy", _CSRC + "saxpy.cu", ("saxpy",)),
     TpuKernel("B8", _K + "scan.py", 149, "_scan_kernel", "pending"),
@@ -62,7 +64,8 @@ TPU_KERNELS = (
     TpuKernel("B10", _K + "histogram.py", 189, "_hist_kernel", "pending"),
     TpuKernel("B11", _K + "scan_histogram.py", 71, "_fused_kernel",
               "pending"),
-    TpuKernel("B12", _K + "nbody.py", 70, "_forces_kernel", "pending"),
+    TpuKernel("B12", _K + "nbody.py", 70, "_forces_kernel", "ported",
+              "tpkt_nbody_forces", _CSRC + "nbody.cu", ("nbody_forces",)),
 )
 
 LAUNCHES = {
@@ -71,6 +74,8 @@ LAUNCHES = {
     "sgemm_float32": 0,
     "sgemm_bf16": 0,
     "jacobi2d": 0,
+    "jacobi3d": 0,
+    "nbody_forces": 0,
 }
 
 

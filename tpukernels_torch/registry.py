@@ -18,12 +18,10 @@ from tpukernels_torch.tuning import space as _space
 
 # reference keys not ported yet -> where ROADMAP.md queues them
 PENDING = {
-    "stencil3d": "Queue A item 4 (slice 2), kernels B5/B6",
     "scan": "Queue A item 6, kernel B8",
     "scan_exclusive": "Queue A item 6, kernel B8",
     "histogram": "Queue A item 6, kernels B9/B10",
     "scan_histogram": "Queue A item 6, kernel B11",
-    "nbody": "Queue A item 7, kernel B12",
 }
 
 _REGISTRY: Dict[str, Callable] = {}
@@ -50,11 +48,18 @@ def _populate():
     _spaces(_vector_add)
     _spaces(_sgemm)
 
-    # stencil group: stencil2d now, stencil3d pending
+    # stencil group
     import tpukernels_torch.kernels.stencil as _stencil
 
     _REGISTRY["stencil2d"] = _stencil.jacobi2d
+    _REGISTRY["stencil3d"] = _stencil.jacobi3d
     _spaces(_stencil)
+
+    # nbody group
+    import tpukernels_torch.kernels.nbody as _nbody
+
+    _REGISTRY["nbody"] = _nbody.nbody_step
+    _spaces(_nbody)
     _POPULATED = True
 
 
@@ -90,7 +95,7 @@ def tunables(name: str) -> "_space.SearchSpace":
 def dispatch(name: str, *args, **statics):
     """Run one kernel call through its wrapper: positional array
     operands and host scalars, keyword statics (``iters``, ``k``,
-    ``precision``)."""
+    ``depth``, ``precision``, ``dt``, ``eps``, ``steps``)."""
     fn = lookup(name)
     out = fn(*args, **statics)
     _CALLS[name] = _CALLS.get(name, 0) + 1

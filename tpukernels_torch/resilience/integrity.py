@@ -17,6 +17,11 @@ CANARY_CONFIGS = {
     "vector_add": {"statics": {}, "rtol": 1e-5, "atol": 1e-5},
     "sgemm": {"statics": {}, "rtol": 1e-3, "atol": 1e-2},
     "stencil2d": {"statics": {"iters": 4}, "rtol": 1e-4, "atol": 1e-4},
+    "stencil3d": {"statics": {"iters": 2}, "rtol": 1e-4, "atol": 1e-4},
+    "nbody": {
+        "statics": {"dt": 1e-3, "eps": 1e-2, "steps": 1},
+        "rtol": 1e-3, "atol": 1e-3,
+    },
 }
 
 SEED = 20260804
@@ -42,6 +47,12 @@ def build_args(name: str):
         return (1.25, f32(40, 72), f32(72, 56), -0.5, f32(40, 56))
     if name == "stencil2d":
         return (f32(40, 200),)
+    if name == "stencil3d":
+        return (f32(8, 24, 132),)
+    if name == "nbody":
+        return tuple(f32(192) for _ in range(6)) + (
+            np.asarray(rng.uniform(0.5, 1.5, 192), np.float32),
+        )
     raise KeyError(f"no canary operands for kernel {name!r}")
 
 
@@ -59,4 +70,12 @@ def oracle(name: str):
         from tpukernels_torch.kernels.stencil import jacobi2d_reference
 
         return jacobi2d_reference
+    if name == "stencil3d":
+        from tpukernels_torch.kernels.stencil import jacobi3d_reference
+
+        return jacobi3d_reference
+    if name == "nbody":
+        from tpukernels_torch.kernels.nbody import nbody_reference
+
+        return nbody_reference
     raise KeyError(f"no oracle for kernel {name!r}")
