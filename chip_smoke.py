@@ -13,14 +13,18 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    the sizes of the main path and at ragged ones, with the tolerance
    stated beside each check;
 4. drives the main path end to end — ``registry.dispatch`` of
-   ``vector_add``, ``sgemm``, ``stencil2d``, ``stencil3d`` and ``nbody``
-   at the configurations of record and at the canary configurations —
-   checks each result against the port's oracle (N-body at 65 536
-   bodies against its chunked plain version), and shows from the launch
-   counters that every kernel ran;
+   ``vector_add``, ``sgemm``, ``stencil2d``, ``stencil3d``, ``nbody``,
+   ``scan``, ``scan_exclusive``, ``histogram`` and ``scan_histogram``
+   (fuse off, then on) at the configurations of record and at the
+   canary configurations — checks each result against the port's oracle
+   (N-body at 65 536 bodies against its chunked plain version; the
+   int32 keys bitwise), and shows from the launch counters that every
+   kernel ran;
 5. times each kernel, its plain version and, where one exists, the
    single PyTorch call computing the same function, with CUDA events,
-   beside the least time the card could take (``bound_ms``).
+   beside the least time the card could take (``bound_ms``); for scan
+   and histogram also the device time alone (``device_ms``: calls
+   captured in a CUDA graph and replayed) and the scan's tile sizes.
 
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -32,6 +36,7 @@ it imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -55,6 +60,17 @@ STENCIL3D_N, STENCIL3D_ITERS = 384, 8
 # differ)
 JACOBI_BAND = (1e-4, 1e-5)
 NBODY_BAND = (2e-3, 2e-4)
+# scan + histogram: the configuration of record (scan_hist_melem_s,
+# 2^22 int32 in [0, 256), 256 bins), which fits in the 50 MB L2, and a
+# size that streams device memory
+SCAN_N, SCAN_NBINS, STREAM_N = 1 << 22, 256, 1 << 26
+# the reference's float32 scan band (tests/test_scan_histogram.py)
+SCAN_F32_BAND = (1e-4, 1e-2)
+# more bins than a block keeps in shared memory (TPKT_SMEM_BINS, 32768,
+# csrc/bins.cuh): the kernels count with global atomics
+GLOBAL_NBINS = 40000
+# a histogram above 256 bins, where the reference took its VPU kernel
+WIDE_NBINS = 1024
 
 
 def log(msg=""):
@@ -106,6 +122,39 @@ def check(label, got, want, rtol, atol):
     return err
 
 
+def check_exact(label, got, want):
+    """Fail unless got equals want element for element, with the same
+    shape and dtype; returns the largest |got - want|, 0."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(
+            f"{label}: {bad}/{got.numel()} elements differ; "
+            f"max_abs_err={max_abs_err(got, want):.3e}")
+    log(f"PASS {label}: bitwise")
+    return 0.0
+
+
+@contextlib.contextmanager
+def knobs(**values):
+    """Set environment knobs (``TPKT_*``) for the body, then restore
+    them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def bodies(gen, n):
     """Seven float32 SoA arrays on the card: positions and velocities
     normal, masses uniform in [0.5, 1.5), as the reference's canary."""
@@ -138,6 +187,23 @@ def time_ms(fn, reps, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls, reps=10):
+    """Device time of one call of ``fn``, without the host's cost per
+    call: ``calls`` calls captured in one CUDA graph, the graph replayed
+    ``reps`` times after warm-up."""
+    import torch
+
+    fn()  # builds, loads and warms the allocator outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, reps) / calls
+    del graph
+    return ms
 
 
 def run(cmd):
@@ -291,6 +357,102 @@ def phase_kernels(torch, gen):
                                  "give NaN everywhere")
     log("PASS nbody eps=0: every output NaN in kernel and plain version "
         "(self-pairs 0*inf), as the reference")
+    errs.update(scan_kernels(torch, gen))
+    return errs
+
+
+def scan_kernels(torch, gen):
+    """Phase 3 for scan, histogram and the fused pair: int32 and counts
+    bitwise, float32 in the reference's band."""
+    from tpukernels_torch.kernels import histogram as H, scan as SC
+    from tpukernels_torch.kernels import scan_histogram as SH
+
+    dev = torch.device("cuda")
+
+    def ints(n, lo, hi):
+        return torch.randint(lo, hi, (n,), device=dev, generator=gen,
+                             dtype=torch.int32)
+
+    errs = {}
+    for n in (1, 7, 4093, 1_000_003, SCAN_N, STREAM_N):
+        x = ints(n, -1000, 1000)
+        got = SC.inclusive_scan(x)
+        e = check_exact(f"scan int32 n={n} vs plain", got, SC.scan_plain(x))
+        check_exact(f"scan int32 n={n} vs oracle", got,
+                    SC.inclusive_scan_reference(x))
+        if n == SCAN_N:
+            errs["scan"] = e
+        del x, got
+    x = ints(1 << 20, (1 << 30) - 1000, 1 << 30)
+    check_exact("scan int32 n=2^20 near 2^30 (wraps mod 2^32) vs oracle",
+                SC.inclusive_scan(x), SC.inclusive_scan_reference(x))
+    x = ints(1_000_004, -1000, 1000)[1:]  # offset view: no 16-byte loads
+    for tile in SC.TILES:
+        with knobs(TPKT_SCAN_TILE=tile):
+            check_exact(f"scan int32 n=1000003 unaligned tile={tile} vs "
+                        "plain", SC.inclusive_scan(x), SC.scan_plain(x))
+    for n in (7, 1000, 1 << 17):
+        x = torch.randn(n, device=dev, generator=gen)
+        got = SC.inclusive_scan(x)
+        check(f"scan float32 n={n} vs float64 cumsum", got.double(),
+              torch.cumsum(x.double(), 0), *SCAN_F32_BAND)
+        check(f"scan float32 n={n} vs plain", got, SC.scan_plain(x),
+              *SCAN_F32_BAND)
+    for n in (0, 1, 4093):
+        x = ints(n, -1000, 1000)
+        check_exact(f"exclusive scan n={n} vs oracle", SC.exclusive_scan(x),
+                    SC.exclusive_scan_reference(x))
+
+    # negative values and values >= nbins mixed in: they count nothing
+    for nbins in (4, 16, 200, 256, 1024, GLOBAL_NBINS):
+        x = ints(1 << 20, -max(nbins // 8, 2), nbins + max(nbins // 8, 2))
+        check_exact(f"histogram n=2^20 nbins={nbins} (out-of-range mixed "
+                    "in) vs plain", H.histogram(x, nbins),
+                    H.histogram_plain(x, nbins))
+    for n in (SCAN_N, STREAM_N):
+        x = ints(n, 0, SCAN_NBINS)
+        got = H.histogram(x, SCAN_NBINS)
+        e = check_exact(f"histogram n={n} nbins=256 vs plain", got,
+                        H.histogram_plain(x, SCAN_NBINS))
+        check_exact(f"histogram n={n} nbins=256 vs oracle", got,
+                    H.histogram_reference(x, SCAN_NBINS))
+        if n == SCAN_N:
+            errs["histogram"] = e
+        del x, got
+    x = torch.full((SCAN_N,), 7, dtype=torch.int32, device=dev)
+    check_exact("histogram n=2^22 all one value (skew) vs plain",
+                H.histogram(x, SCAN_NBINS), H.histogram_plain(x, SCAN_NBINS))
+    x = ints(4098, 0, 200)[1:]
+    check_exact("histogram n=4097 unaligned nbins=200 vs plain",
+                H.histogram(x, 200), H.histogram_plain(x, 200))
+    check_exact("histogram n=0", H.histogram(ints(0, 0, 1), 16),
+                torch.zeros(16, dtype=torch.int32, device=dev))
+
+    cases = [(SCAN_N, SCAN_NBINS, None), (999, 16, None), (4093, 1024, None),
+             (1 << 20, GLOBAL_NBINS, None), (STREAM_N, SCAN_NBINS, None)]
+    cases += [(1_000_003, nb, t) for nb in (SCAN_NBINS, GLOBAL_NBINS)
+              for t in SC.TILES]
+    for n, nbins, tile in cases:
+        label = f"scan_histogram[on] n={n} nbins={nbins}" + (
+            f" tile={tile}" if tile else "")
+        x = ints(n, -max(nbins // 8, 2), nbins + max(nbins // 8, 2))
+        with knobs(TPKT_SCANHIST_FUSE="off"):
+            off = SH.scan_histogram(x, nbins)
+        tiles = {"TPKT_SCAN_TILE": tile} if tile else {}
+        with knobs(TPKT_SCANHIST_FUSE="on", **tiles):
+            got = SH.scan_histogram(x, nbins)
+        for part, g, p, o in zip(("scan", "histogram"), got,
+                                 SH.scan_histogram_plain(x, nbins), off):
+            e = check_exact(f"{label} {part} vs plain", g, p)
+            check_exact(f"{label} {part} vs fuse=off", g, o)
+            if (n, nbins) == (SCAN_N, SCAN_NBINS):
+                errs["scan_histogram"] = e
+        del x, got, off
+    with knobs(TPKT_SCANHIST_FUSE="on"):
+        s, h = SH.scan_histogram(ints(0, 0, 1), 16)
+    check_exact("scan_histogram[on] n=0 scan", s, ints(0, 0, 1))
+    check_exact("scan_histogram[on] n=0 histogram", h,
+                torch.zeros(16, dtype=torch.int32, device=dev))
     return errs
 
 
@@ -311,56 +473,86 @@ def phase_main_path(torch, gen):
 
     def against_oracle(label, name, args, out, statics, band=None,
                        oracle=None):
-        _, rtol, atol = integrity.tolerance(name)
+        kind, rtol, atol = integrity.tolerance(name)
         if band is not None:
-            rtol, atol = band
+            kind, (rtol, atol) = "band", band
         statics = {k: v for k, v in statics.items() if k != "precision"}
         want = (oracle or integrity.oracle(name))(*args, **statics)
-        check(f"dispatch {label}", stacked(out), stacked(want), rtol, atol)
+        if kind == "band":
+            check(f"dispatch {label}", stacked(out), stacked(want), rtol,
+                  atol)
+            return
+        # exact: element by element (scan_histogram's parts differ in
+        # shape)
+        pairs = zip(out, want) if isinstance(want, tuple) else [(out, want)]
+        for i, (g, w) in enumerate(pairs):
+            part = f" [{i}]" if isinstance(want, tuple) else ""
+            check_exact(f"dispatch {label}{part}", g, w)
 
-    # (key, label, operands, statics, band or None, oracle or None)
+    # (key, label, operands, statics, band or None, oracle or None,
+    # knobs set for the call)
     record = []
     for n in (1 << 20, 1 << 26):
         record.append(("vector_add", f"n={n}",
-                       (SAXPY_ALPHA, randn(n), randn(n)), {}, None, None))
+                       (SAXPY_ALPHA, randn(n), randn(n)), {}, None, None,
+                       {}))
     gemm = (GEMM_ALPHA, unif(1024, 1024), unif(1024, 1024), GEMM_BETA,
             unif(1024, 1024))
     record.append(("sgemm", "1024^3 (precision of record)", gemm, {}, None,
-                   None))
+                   None, {}))
     for prec in ("float32", "default"):
         record.append(("sgemm", f"1024^3 precision={prec}", gemm,
                        {"precision": prec},
-                       S.contract(prec, 1024, GEMM_ALPHA), None))
+                       S.contract(prec, 1024, GEMM_ALPHA), None, {}))
     record.append(("stencil2d", "4096^2 iters=1000", (randn(4096, 4096),),
-                   {"iters": 1000}, None, None))
+                   {"iters": 1000}, None, None, {}))
     n3 = STENCIL3D_N
     record.append(("stencil3d", f"{n3}^3 iters={STENCIL3D_ITERS}",
                    (randn(n3, n3, n3),), {"iters": STENCIL3D_ITERS}, None,
-                   None))
+                   None, {}))
     # the pairwise oracle would need (n, n) temporaries of 16 GiB: the
     # chunked plain version at the C checker's bar stands in for it
     record.append(("nbody", f"n={NBODY_N} steps=1", tuple(bodies(gen,
                                                                NBODY_N)),
                    dict(integrity.CANARY_CONFIGS["nbody"]["statics"]),
-                   NBODY_BAND, NB.nbody_plain))
+                   NBODY_BAND, NB.nbody_plain, {}))
+    # scan + histogram at the configuration of record: fuse off (the path
+    # of record), then the fused kernel
+    x = torch.randint(0, SCAN_NBINS, (SCAN_N,), device=dev, generator=gen,
+                      dtype=torch.int32)
+    hist = {"nbins": SCAN_NBINS}
+    for name, st, env in (("scan", {}, {}), ("scan_exclusive", {}, {}),
+                          ("histogram", hist, {}),
+                          ("scan_histogram", hist,
+                           {"TPKT_SCANHIST_FUSE": "off"}),
+                          ("scan_histogram", hist,
+                           {"TPKT_SCANHIST_FUSE": "on"})):
+        label = "n=2^22" + (" nbins=256" if st else "") + "".join(
+            f" fuse={v}" for v in env.values())
+        record.append((name, label, (x,), st, None, None, env))
     canaries = [
         (name, "canary", interop.to_port(name, integrity.build_args(name)),
-         integrity.CANARY_CONFIGS[name]["statics"], None, None)
+         integrity.CANARY_CONFIGS[name]["statics"], None, None, {})
         for name in ("vector_add", "sgemm", "stencil2d", "stencil3d",
-                     "nbody")
+                     "nbody", "scan", "scan_exclusive", "histogram",
+                     "scan_histogram")
     ]
     torch.cuda.synchronize()
 
+    def run(name, args, st, env):
+        with knobs(**env):
+            return registry.dispatch(name, *args, **st)
+
     reset_launches()
     registry.reset_calls()
-    outs = [registry.dispatch(name, *args, **st)
-            for name, _, args, st, _, _ in record + canaries]
+    outs = [run(name, args, st, env)
+            for name, _, args, st, _, _, env in record + canaries]
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     calls = registry.calls()
 
-    for (name, label, args, st, band, oracle), out in zip(record + canaries,
-                                                          outs):
+    for (name, label, args, st, band, oracle, _), out in zip(
+            record + canaries, outs):
         against_oracle(f"{name} {label}", name, args, out, st, band, oracle)
     log("kernels: " + json.dumps(launches))
     log("dispatch calls: " + json.dumps(calls))
@@ -497,6 +689,7 @@ def phase_times(torch, gen, peaks):
     row["bound_ms"], row["bound_by"] = bound(4 * 13 * n, 20 * n * n, fp32,
                                              bw)
     out["nbody"] = row
+    out.update(scan_times(torch, gen, peaks))
 
     for label, r in out.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -505,10 +698,92 @@ def phase_times(torch, gen, peaks):
         if "per_k_ms" in r:
             extra += ", per k: " + ", ".join(
                 f"k={kk} {ms:.4f} ms" for kk, ms in r["per_k_ms"].items())
+        if "device_ms" in r:
+            extra += f", device alone {r['device_ms']:.4f} ms"
+        if "per_tile_device_ms" in r:
+            extra += ", device per tile: " + ", ".join(
+                f"{t} {ms:.4f} ms"
+                for t, ms in r["per_tile_device_ms"].items())
+        if "scan_hist_melem_s" in r:
+            extra += (f", scan_hist_melem_s {r['scan_hist_melem_s']:.1f}, "
+                      f"passes' bytes {r['pass_bytes_ms']:.6g} ms")
         log(f"time {label}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{r['bound_ms']:.6g} ms ({r['bound_by']}), launches/call "
             f"{r['launches_per_call']}{extra}")
+    return out
+
+
+def scan_times(torch, gen, peaks):
+    """Phase 5 for scan, histogram and scan_histogram (fuse off and on),
+    int32 in [0, 256) with 256 bins, at 2^22 (the configuration of
+    record; in L2) and 2^26 (streams device memory)."""
+    from tpukernels_torch.kernels import histogram as H, scan as SC
+    from tpukernels_torch.kernels import scan_histogram as SH
+
+    _, bw, _, fp32 = peaks
+    # Hopper issues int32 adds and compares on 64 of each SM's 128 lanes
+    int32 = fp32 / 2
+    nb = SCAN_NBINS
+    out = {}
+    for n, reps, calls in ((SCAN_N, 200, 20), (STREAM_N, 20, 4)):
+        x = torch.randint(0, nb, (n,), device="cuda", generator=gen,
+                          dtype=torch.int32)
+        xw = torch.randint(0, WIDE_NBINS, (n,), device="cuda", generator=gen,
+                           dtype=torch.int32)
+        plain_reps = max(reps // 10, 2)
+        rows = {
+            # (wrapper, plain version, one library call, launches per
+            # call, bytes the function moves, int32 ops, knobs)
+            "scan": (lambda: SC.inclusive_scan(x), lambda: SC.scan_plain(x),
+                     lambda: torch.cumsum(x, 0, dtype=torch.int32), 1,
+                     8 * n, n, {}),
+            "histogram": (lambda: H.histogram(x, nb),
+                          lambda: H.histogram_plain(x, nb),
+                          lambda: torch.bincount(x, minlength=nb), 1,
+                          4 * n + 4 * nb, 2 * n, {}),
+            f"histogram[{WIDE_NBINS}]": (
+                lambda: H.histogram(xw, WIDE_NBINS),
+                lambda: H.histogram_plain(xw, WIDE_NBINS),
+                lambda: torch.bincount(xw, minlength=WIDE_NBINS), 1,
+                4 * n + 4 * WIDE_NBINS, 2 * n, {}),
+        }
+        for fuse, launches in (("off", 2), ("on", 1)):
+            rows[f"scan_histogram[{fuse}]"] = (
+                lambda: SH.scan_histogram(x, nb),
+                lambda: SH.scan_histogram_plain(x, nb),
+                lambda: (torch.cumsum(x, 0, dtype=torch.int32),
+                         torch.bincount(x, minlength=nb)),
+                launches, 8 * n + 4 * nb, 3 * n,
+                {"TPKT_SCANHIST_FUSE": fuse})
+        for name, (fn, plain, lib, launches, nbytes, ops, env) in rows.items():
+            with knobs(**env):
+                row = {
+                    "n": n,
+                    "nbins": (WIDE_NBINS if name == f"histogram[{WIDE_NBINS}]"
+                              else nb),
+                    "ms": time_ms(fn, reps),
+                    "device_ms": graph_ms(fn, calls),
+                    "plain_ms": time_ms(plain, plain_reps),
+                    "library_ms": time_ms(lib, reps),
+                    "launches_per_call": launches,
+                }
+                if name in ("scan", "scan_histogram[on]"):
+                    # device time at every tile size the kernel takes
+                    row["per_tile_device_ms"] = {}
+                    for tile in SC.TILES:
+                        with knobs(TPKT_SCAN_TILE=tile):
+                            row["per_tile_device_ms"][tile] = graph_ms(
+                                fn, calls)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, ops, int32, bw)
+            if name.startswith("scan_histogram"):
+                # the reference's metric (bench.py), and what the path's
+                # passes move: 12 B/elem unfused, 8 fused
+                row["scan_hist_melem_s"] = n / row["ms"] / 1e3
+                row["pass_bytes_ms"] = (4 * n * (launches + 1) + 4 * nb) / bw \
+                    * 1e3
+            out[f"{name} n={n}"] = row
+        del x, xw
     return out
 
 
@@ -533,13 +808,14 @@ def main(argv=None):
     launches = phase_main_path(torch, gen)
     times = phase_times(torch, gen, peaks)
 
-    # B3/B4 and B5/B6 share an entry: the dict keeps B4 and B6, and the
-    # small kernels stand in also_replaces
+    # B3/B4, B5/B6 and B9/B10 share an entry: the dict keeps B4, B6 and
+    # B10, and B3, B5 and B10 stand in also_replaces
     rows = {r.port_entry: r for r in TPU_KERNELS if r.status == "ported"}
     sg, jc, sx = rows["tpkt_sgemm"], rows["tpkt_jacobi2d_pass"], \
         rows["tpkt_saxpy"]
     j3, nb = rows["tpkt_jacobi3d_pass"], rows["tpkt_nbody_forces"]
-    b3, b5 = (next(r for r in TPU_KERNELS if r.id == i) for i in ("B3", "B5"))
+    by_id = {r.id: r for r in TPU_KERNELS}
+    b3, b5 = by_id["B3"], by_id["B5"]
 
     def entry(name, row, t, err, **extra):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -577,6 +853,37 @@ def main(argv=None):
     kernels.append(entry("nbody_forces", nb, tn, errs["nbody_forces"],
                          n=tn["n"], steps=tn["steps"],
                          forces_ms=tn["forces_ms"]))
+
+    def at(label, *keys):  # one timed row, its keys picked
+        keys = keys or ("n", "ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by")
+        return {k: times[label][k] for k in keys}
+
+    big, rec = f"n={STREAM_N}", f"n={SCAN_N}"
+    one = ("n", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+           "bound_by")
+    sh = one + ("pass_bytes_ms", "scan_hist_melem_s", "launches_per_call")
+    t = times[f"scan {rec}"]
+    kernels.append(entry("scan", by_id["B8"], t, errs["scan"], n=SCAN_N,
+                         dtype="int32", device_ms=t["device_ms"],
+                         per_tile_device_ms=t["per_tile_device_ms"],
+                         stream=at(f"scan {big}", *one,
+                                   "per_tile_device_ms")))
+    t = times[f"histogram {rec}"]
+    kernels.append(entry("histogram", by_id["B9"], t, errs["histogram"],
+                         also_replaces=by_id["B10"].where, n=SCAN_N,
+                         nbins=SCAN_NBINS, device_ms=t["device_ms"],
+                         stream=at(f"histogram {big}", *one),
+                         wide=[at(f"histogram[{WIDE_NBINS}] {size}", "nbins",
+                                  *one) for size in (rec, big)]))
+    t = times[f"scan_histogram[on] {rec}"]
+    kernels.append(entry(
+        "scan_histogram", by_id["B11"], t, errs["scan_histogram"], n=SCAN_N,
+        nbins=SCAN_NBINS, fuse="on",
+        **{k: t[k] for k in ("scan_hist_melem_s", "device_ms",
+                             "per_tile_device_ms")},
+        stream=at(f"scan_histogram[on] {big}", *sh, "per_tile_device_ms"),
+        off=[at(f"scan_histogram[off] {size}", *sh) for size in (rec, big)]))
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

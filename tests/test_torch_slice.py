@@ -10,7 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from tpukernels.kernels import histogram as J_histogram
 from tpukernels.kernels import nbody as J_nbody
+from tpukernels.kernels import scan as J_scan
+from tpukernels.kernels import scan_histogram as J_scan_histogram
 from tpukernels.kernels import sgemm as J_sgemm
 from tpukernels.kernels import stencil as J_stencil
 from tpukernels.kernels import vector_add as J_vector_add
@@ -18,13 +21,18 @@ from tpukernels.resilience import integrity as J_integrity
 from tpukernels_torch import interop, registry
 from tpukernels_torch.resilience import integrity
 
-PORTED = ("vector_add", "sgemm", "stencil2d", "stencil3d", "nbody")
+PORTED = ("vector_add", "sgemm", "stencil2d", "stencil3d", "nbody", "scan",
+          "scan_exclusive", "histogram", "scan_histogram")
 JAX_FN = {
     "vector_add": J_vector_add.saxpy,
     "sgemm": J_sgemm.sgemm,
     "stencil2d": J_stencil.jacobi2d,
     "stencil3d": J_stencil.jacobi3d,
     "nbody": J_nbody.nbody_step,
+    "scan": J_scan.inclusive_scan,
+    "scan_exclusive": J_scan.exclusive_scan,
+    "histogram": J_histogram.histogram,
+    "scan_histogram": J_scan_histogram.scan_histogram,
 }
 
 
@@ -38,13 +46,18 @@ def _jax_call(name, np_args, statics):
 
 
 def _assert_close(got, want, rtol, atol):
-    """Element by element for a tuple-valued result (``nbody``)."""
+    """Element by element for a tuple-valued result (``nbody``,
+    ``scan_histogram``); exactly where the tolerance is ``exact`` (rtol
+    None), as for the int32 keys."""
     if not isinstance(want, tuple):
         got, want = (got,), (want,)
     assert isinstance(got, tuple) and len(got) == len(want)
     for g, w in zip(got, want):
-        assert g.shape == w.shape and g.dtype == np.float32
-        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if rtol is None:
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -100,8 +113,11 @@ def test_dispatch_counts_calls():
 
 def test_registry_names_and_tunables():
     assert registry.names() == sorted(PORTED)
+    assert registry.PENDING == {}
     for name in PORTED:
-        assert registry.tunables(name).kernel == name
+        base = registry.DERIVED_KERNELS.get(name, name)
+        assert registry.tunables(name).kernel == base
+    assert registry.tunables("scan_exclusive").kernel == "scan"
 
 
 def test_interop_round_trip():

@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, built by ``nvcc`` for Hopper (``sm_90a``) into
 ``tpukernels_torch/_build/<name>-<hash>.so``. The hash covers the
-source, ``common.cuh`` and the flags, so an edited kernel is rebuilt
-and an unchanged one is loaded as it is. Several missing libraries are
-compiled in parallel, one ``nvcc`` each.
+source, every header of ``csrc/`` and the flags, so an edited kernel
+or header is rebuilt and an unchanged one is loaded as it is. Several
+missing libraries are compiled in parallel, one ``nvcc`` each.
 
 Every C entry takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch;
@@ -28,7 +28,8 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("saxpy", "sgemm", "jacobi2d", "jacobi3d", "nbody")
+SOURCES = ("saxpy", "sgemm", "jacobi2d", "jacobi3d", "nbody", "scan",
+           "histogram", "scan_histogram")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,7 +57,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

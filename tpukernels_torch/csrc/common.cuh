@@ -21,3 +21,24 @@ static inline long long tpkt_cdiv(long long a, long long b) {
 static inline bool tpkt_aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
+
+// Blocks of `kernel` the current device holds at once (`threads` a
+// block, `smem` bytes of dynamic shared memory), at most `cap` a SM when
+// cap > 0: the grid of a kernel whose blocks loop over the work.
+template <typename Kernel>
+static cudaError_t tpkt_resident_blocks(Kernel kernel, int threads,
+                                        size_t smem, int cap,
+                                        long long* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) per_sm = 1;  // the launch then reports what does not fit
+  if (cap > 0 && per_sm > cap) per_sm = cap;
+  *blocks = static_cast<long long>(sms) * per_sm;
+  return cudaSuccess;
+}

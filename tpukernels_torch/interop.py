@@ -16,7 +16,8 @@ from tpukernels_torch.utils import pick_device
 
 # array operands each registry key takes, in order
 _N_ARRAYS = {"vector_add": 2, "sgemm": 3, "stencil2d": 1, "stencil3d": 1,
-             "nbody": 7}
+             "nbody": 7, "scan": 1, "scan_exclusive": 1, "histogram": 1,
+             "scan_histogram": 1}
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int32): torch.int32}
 
@@ -44,8 +45,8 @@ def to_port(name: str, np_args, device=None) -> tuple:
 
 
 def from_port(out):
-    """A port result -> numpy on the host; a tuple of tensors (``nbody``)
-    -> a tuple of arrays."""
+    """A port result -> numpy on the host; a tuple of tensors (``nbody``,
+    ``scan_histogram``) -> a tuple of arrays."""
     if isinstance(out, tuple):
         return tuple(from_port(t) for t in out)
     return out.detach().cpu().numpy()

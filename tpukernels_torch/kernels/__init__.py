@@ -58,12 +58,15 @@ TPU_KERNELS = (
               ("jacobi3d",)),
     TpuKernel("B7", _K + "vector_add.py", 62, "_saxpy_kernel", "ported",
               "tpkt_saxpy", _CSRC + "saxpy.cu", ("saxpy",)),
-    TpuKernel("B8", _K + "scan.py", 149, "_scan_kernel", "pending"),
-    TpuKernel("B9", _K + "histogram.py", 125, "_hist_mxu_kernel",
-              "pending"),
-    TpuKernel("B10", _K + "histogram.py", 189, "_hist_kernel", "pending"),
+    TpuKernel("B8", _K + "scan.py", 149, "_scan_kernel", "ported",
+              "tpkt_scan", _CSRC + "scan.cu", ("scan",)),
+    TpuKernel("B9", _K + "histogram.py", 125, "_hist_mxu_kernel", "ported",
+              "tpkt_histogram", _CSRC + "histogram.cu", ("histogram",)),
+    TpuKernel("B10", _K + "histogram.py", 189, "_hist_kernel", "ported",
+              "tpkt_histogram", _CSRC + "histogram.cu", ("histogram",)),
     TpuKernel("B11", _K + "scan_histogram.py", 71, "_fused_kernel",
-              "pending"),
+              "ported", "tpkt_scan_histogram", _CSRC + "scan_histogram.cu",
+              ("scan_histogram",)),
     TpuKernel("B12", _K + "nbody.py", 70, "_forces_kernel", "ported",
               "tpkt_nbody_forces", _CSRC + "nbody.cu", ("nbody_forces",)),
 )
@@ -76,6 +79,9 @@ LAUNCHES = {
     "jacobi2d": 0,
     "jacobi3d": 0,
     "nbody_forces": 0,
+    "scan": 0,
+    "histogram": 0,
+    "scan_histogram": 0,
 }
 
 

@@ -16,13 +16,13 @@ from typing import Callable, Dict
 
 from tpukernels_torch.tuning import space as _space
 
-# reference keys not ported yet -> where ROADMAP.md queues them
-PENDING = {
-    "scan": "Queue A item 6, kernel B8",
-    "scan_exclusive": "Queue A item 6, kernel B8",
-    "histogram": "Queue A item 6, kernels B9/B10",
-    "scan_histogram": "Queue A item 6, kernel B11",
-}
+# reference keys not ported yet -> where ROADMAP.md queues them (none:
+# every key is ported; B2 has no key of its own)
+PENDING: Dict[str, str] = {}
+
+# keys that ride a base kernel's TUNABLES, as in the reference:
+# scan_exclusive is a one-element shift of scan's result
+DERIVED_KERNELS = {"scan_exclusive": "scan"}
 
 _REGISTRY: Dict[str, Callable] = {}
 _TUNABLES: Dict[str, "_space.SearchSpace"] = {}
@@ -60,6 +60,19 @@ def _populate():
 
     _REGISTRY["nbody"] = _nbody.nbody_step
     _spaces(_nbody)
+
+    # scan group
+    import tpukernels_torch.kernels.histogram as _histogram
+    import tpukernels_torch.kernels.scan as _scan
+    import tpukernels_torch.kernels.scan_histogram as _scan_histogram
+
+    _REGISTRY["scan"] = _scan.inclusive_scan
+    _REGISTRY["scan_exclusive"] = _scan.exclusive_scan
+    _REGISTRY["histogram"] = _histogram.histogram
+    _REGISTRY["scan_histogram"] = _scan_histogram.scan_histogram
+    _spaces(_scan)
+    _spaces(_histogram)
+    _spaces(_scan_histogram)
     _POPULATED = True
 
 
@@ -85,9 +98,10 @@ def names():
 
 
 def tunables(name: str) -> "_space.SearchSpace":
+    """The knobs of a key, or of its base kernel (``DERIVED_KERNELS``)."""
     lookup(name)
     try:
-        return _TUNABLES[name]
+        return _TUNABLES[DERIVED_KERNELS.get(name, name)]
     except KeyError:
         raise KeyError(f"kernel {name!r} exports no TUNABLES") from None
 
@@ -95,7 +109,7 @@ def tunables(name: str) -> "_space.SearchSpace":
 def dispatch(name: str, *args, **statics):
     """Run one kernel call through its wrapper: positional array
     operands and host scalars, keyword statics (``iters``, ``k``,
-    ``depth``, ``precision``, ``dt``, ``eps``, ``steps``)."""
+    ``depth``, ``precision``, ``dt``, ``eps``, ``steps``, ``nbins``)."""
     fn = lookup(name)
     out = fn(*args, **statics)
     _CALLS[name] = _CALLS.get(name, 0) + 1

@@ -11,13 +11,17 @@ from __future__ import annotations
 
 import numpy as np
 
-# statics the canary call runs with, and the comparison band (rtol,
-# atol) — the reference's bands for the same keys
+# statics the canary call runs with, and the comparison: a band (rtol,
+# atol) or exact — the reference's contracts for the same keys
 CANARY_CONFIGS = {
     "vector_add": {"statics": {}, "rtol": 1e-5, "atol": 1e-5},
     "sgemm": {"statics": {}, "rtol": 1e-3, "atol": 1e-2},
     "stencil2d": {"statics": {"iters": 4}, "rtol": 1e-4, "atol": 1e-4},
     "stencil3d": {"statics": {"iters": 2}, "rtol": 1e-4, "atol": 1e-4},
+    "scan": {"statics": {}, "exact": True},
+    "scan_exclusive": {"statics": {}, "exact": True},
+    "histogram": {"statics": {"nbins": 256}, "exact": True},
+    "scan_histogram": {"statics": {"nbins": 256}, "exact": True},
     "nbody": {
         "statics": {"dt": 1e-3, "eps": 1e-2, "steps": 1},
         "rtol": 1e-3, "atol": 1e-3,
@@ -28,8 +32,11 @@ SEED = 20260804
 
 
 def tolerance(name: str):
-    """("band", rtol, atol) for one kernel's canary comparison."""
+    """("exact", None, None) or ("band", rtol, atol) for one kernel's
+    canary comparison."""
     cfg = CANARY_CONFIGS[name]
+    if cfg.get("exact"):
+        return ("exact", None, None)
     return ("band", cfg["rtol"], cfg["atol"])
 
 
@@ -49,6 +56,10 @@ def build_args(name: str):
         return (f32(40, 200),)
     if name == "stencil3d":
         return (f32(8, 24, 132),)
+    if name in ("scan", "scan_exclusive"):
+        return (np.asarray(rng.integers(-1000, 1000, 4093), np.int32),)
+    if name in ("histogram", "scan_histogram"):
+        return (np.asarray(rng.integers(0, 256, 4093), np.int32),)
     if name == "nbody":
         return tuple(f32(192) for _ in range(6)) + (
             np.asarray(rng.uniform(0.5, 1.5, 192), np.float32),
@@ -78,4 +89,22 @@ def oracle(name: str):
         from tpukernels_torch.kernels.nbody import nbody_reference
 
         return nbody_reference
+    if name == "scan":
+        from tpukernels_torch.kernels.scan import inclusive_scan_reference
+
+        return inclusive_scan_reference
+    if name == "scan_exclusive":
+        from tpukernels_torch.kernels.scan import exclusive_scan_reference
+
+        return exclusive_scan_reference
+    if name == "histogram":
+        from tpukernels_torch.kernels.histogram import histogram_reference
+
+        return histogram_reference
+    if name == "scan_histogram":
+        from tpukernels_torch.kernels.scan_histogram import (
+            scan_histogram_reference,
+        )
+
+        return scan_histogram_reference
     raise KeyError(f"no oracle for kernel {name!r}")
