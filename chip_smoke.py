@@ -8,23 +8,28 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
 
 1. prints the card (``nvidia-smi`` name and power limit) and toolchain,
    and turns TF32 off for float32 matmuls;
-2. builds every kernel, in parallel, and prints the build times;
+2. builds every kernel, in parallel, and prints the build times and
+   the registers and spills ptxas reports;
 3. holds each kernel against its plain PyTorch version on the card at
    the sizes of the main path and at ragged ones, with the tolerance
-   stated beside each check;
+   stated beside each check, and the pipelined SGEMM (depth 2/3, both
+   grid orders, two tiles) bitwise against the depth-1 kernel;
 4. drives the main path end to end — ``registry.dispatch`` of
    ``vector_add``, ``sgemm``, ``stencil2d``, ``stencil3d``, ``nbody``,
    ``scan``, ``scan_exclusive``, ``histogram`` and ``scan_histogram``
    (fuse off, then on) at the configurations of record and at the
-   canary configurations — checks each result against the port's oracle
-   (N-body at 65 536 bodies against its chunked plain version; the
-   int32 keys bitwise), and shows from the launch counters that every
-   kernel ran;
+   canary configurations, and SGEMM's tuned path: depth 2 from the env,
+   then depth 3 / order ji from a tuning-cache entry, then the cache
+   off — checks each result against the port's oracle (N-body at 65 536
+   bodies against its chunked plain version; the int32 keys bitwise),
+   shows which kernel each SGEMM call launched and where its knobs came
+   from, and shows from the launch counters that every kernel ran;
 5. times each kernel, its plain version and, where one exists, the
    single PyTorch call computing the same function, with CUDA events,
    beside the least time the card could take (``bound_ms``); for scan
    and histogram also the device time alone (``device_ms``: calls
-   captured in a CUDA graph and replayed) and the scan's tile sizes.
+   captured in a CUDA graph and replayed) and the scan's tile sizes; for
+   SGEMM every depth and order at 1024^3 and each depth at 4096^3.
 
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -39,8 +44,11 @@ import argparse
 import contextlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # published dense peaks (NVIDIA data sheets): bytes/s of device memory,
@@ -53,6 +61,12 @@ PEAKS = (
 
 SAXPY_ALPHA = 0.7
 GEMM_ALPHA, GEMM_BETA = 1.5, 0.5
+# (m, k, n): ragged edges in every dimension, k % 8 != 0 in the last
+GEMM_RAGGED = ((100, 300, 200), (40, 56, 72), (33, 300, 130), (64, 129, 96))
+GEMM_MODES = {"high": "split3", "float32": "float32", "default": "bf16"}
+# the default tile, and one from the other sweep values
+GEMM_TILES = (("tile default", {}),
+              ("tile bm=64 bk=64", {"TPKT_SGEMM_BM": 64, "TPKT_SGEMM_BK": 64}))
 NBODY_N = 1 << 16  # the configuration of record: dt 1e-3, eps 1e-2, 1 step
 STENCIL3D_N, STENCIL3D_ITERS = 384, 8
 # the C golden checkers' bars: c/stencil.c (Jacobi, bitwise expected),
@@ -260,10 +274,15 @@ def phase_build():
         f"{len(_build.SOURCES) - len(secs)} already built)")
     for name in _build.SOURCES:
         logf = _build.library_path(name).with_suffix(".log")
-        if logf.exists():
-            for line in logf.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"ptxas {name}: {line.strip()}")
+        if not logf.exists():
+            continue
+        text = logf.read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        stores = sum(map(int, re.findall(r"(\d+) bytes spill stores", text)))
+        loads = sum(map(int, re.findall(r"(\d+) bytes spill loads", text)))
+        log(f"ptxas {name}: {len(regs)} kernels, registers "
+            f"{min(regs, default=0)}..{max(regs, default=0)} a thread, "
+            f"spill stores {stores} B, spill loads {loads} B")
 
 
 def phase_kernels(torch, gen):
@@ -357,7 +376,66 @@ def phase_kernels(torch, gen):
                                  "give NaN everywhere")
     log("PASS nbody eps=0: every output NaN in kernel and plain version "
         "(self-pairs 0*inf), as the reference")
+    errs.update(sgemm_pipelined_kernels(torch, gen))
     errs.update(scan_kernels(torch, gen))
+    return errs
+
+
+def sgemm_pipelined_kernels(torch, gen):
+    """Phase 3 for the pipelined SGEMM (B2): at every precision, depth 2
+    and 3 and order ij and ji, bitwise against the depth-1 kernel (B1) at
+    the same tile, and within ``sgemm.contract`` of the plain version and
+    the oracle; at 1024^3 and the ragged shapes, at the default tile and
+    at 64 x 128 x 64."""
+    from tpukernels_torch.kernels import sgemm as S
+
+    dev = torch.device("cuda")
+
+    def unif(*shape):
+        return torch.rand(*shape, device=dev, generator=gen) * 2 - 1
+
+    errs = {}
+    for m, k, n in ((1024, 1024, 1024),) + GEMM_RAGGED:
+        a, b, c = unif(m, k), unif(k, n), unif(m, n)
+        ref = S.sgemm_reference(GEMM_ALPHA, a, b, GEMM_BETA, c)
+        for prec in S.PRECISIONS:
+            rtol, atol = S.contract(prec, k, GEMM_ALPHA)
+            plain = S.sgemm_plain(GEMM_ALPHA, a, b, GEMM_BETA, c, prec)
+            for tname, tile in GEMM_TILES:
+                with knobs(**tile):
+                    one = S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
+                                  precision=prec)
+                    if tile:  # B1 at the other tile
+                        check(f"sgemm[{prec}] {m}x{k}x{n} {tname} vs plain",
+                              one, plain, rtol, atol)
+                    for depth in (2, 3):
+                        for order in ("ij", "ji"):
+                            with knobs(TPKT_SGEMM_DEPTH=depth,
+                                       TPKT_SGEMM_ORDER=order):
+                                got = S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
+                                              precision=prec)
+                            label = (f"sgemm_pipelined[{prec}] {m}x{k}x{n} "
+                                     f"depth={depth} order={order} {tname}")
+                            check_exact(f"{label} vs depth 1", got, one)
+                            e = check(f"{label} vs plain", got, plain, rtol,
+                                      atol)
+                            check(f"{label} vs oracle", got, ref, rtol, atol)
+                            if ((m, k, n, depth, order) == (1024, 1024, 1024,
+                                                            2, "ij")
+                                    and not tile):
+                                errs[f"sgemm_pipelined_{prec}"] = e
+        del a, b, c, ref
+    a, b = unif(128, 128), unif(128, 128)
+    c = torch.full((128, 128), float("nan"), device=dev)
+    for prec in S.PRECISIONS:
+        for depth in (2, 3):
+            with knobs(TPKT_SGEMM_DEPTH=depth):
+                got = S.sgemm(1.0, a, b, 0.0, c, precision=prec)
+            if not bool(got.isnan().all()):
+                raise AssertionError(f"sgemm_pipelined[{prec}] depth={depth} "
+                                     "beta=0: NaN in C did not propagate")
+            log(f"PASS sgemm_pipelined[{prec}] depth={depth} beta=0 with NaN "
+                "in C: all NaN, as the oracle")
     return errs
 
 
@@ -462,6 +540,7 @@ def phase_main_path(torch, gen):
     from tpukernels_torch.kernels import LAUNCHES, reset_launches
     from tpukernels_torch.kernels import nbody as NB, sgemm as S
     from tpukernels_torch.resilience import integrity
+    from tpukernels_torch.tuning import cache
 
     dev = torch.device("cuda")
 
@@ -504,6 +583,22 @@ def phase_main_path(torch, gen):
         record.append(("sgemm", f"1024^3 precision={prec}", gemm,
                        {"precision": prec},
                        S.contract(prec, 1024, GEMM_ALPHA), None, {}))
+    # the tuned path (B2): depth 2 from the env in every precision; then,
+    # env clear, depth 3 / order ji from a tuning-cache entry for this
+    # card; then the same entry with the cache off, which is B1 again
+    tuned = tempfile.mkdtemp(prefix="tpkt_tuning_")
+    with knobs(TPKT_TUNING_CACHE_DIR=tuned):
+        cache.put(S.TUNABLES, {"depth": 3, "order": "ji"},
+                  shape=(1024, 1024, 1024), dtype="float32", device=dev)
+    for prec in S.PRECISIONS:
+        record.append(("sgemm", f"1024^3 precision={prec} depth=2 (env)",
+                       gemm, {"precision": prec},
+                       S.contract(prec, 1024, GEMM_ALPHA), None,
+                       {"TPKT_SGEMM_DEPTH": 2}))
+    record.append(("sgemm", "1024^3 depth=3 order=ji (tuning cache)", gemm,
+                   {}, None, None, {"TPKT_TUNING_CACHE_DIR": tuned}))
+    record.append(("sgemm", "1024^3 tuning cache off", gemm, {}, None, None,
+                   {"TPKT_TUNING_CACHE_DIR": tuned, "TPKT_TUNING_CACHE": 0}))
     record.append(("stencil2d", "4096^2 iters=1000", (randn(4096, 4096),),
                    {"iters": 1000}, None, None, {}))
     n3 = STENCIL3D_N
@@ -539,9 +634,15 @@ def phase_main_path(torch, gen):
     ]
     torch.cuda.synchronize()
 
+    deltas = []  # per call: the launch counters it moved
+
     def run(name, args, st, env):
+        before = dict(LAUNCHES)
         with knobs(**env):
-            return registry.dispatch(name, *args, **st)
+            out = registry.dispatch(name, *args, **st)
+        deltas.append({k: v - before[k] for k, v in LAUNCHES.items()
+                       if v != before[k]})
+        return out
 
     reset_launches()
     registry.reset_calls()
@@ -554,12 +655,60 @@ def phase_main_path(torch, gen):
     for (name, label, args, st, band, oracle, _), out in zip(
             record + canaries, outs):
         against_oracle(f"{name} {label}", name, args, out, st, band, oracle)
+
+    # which kernel each SGEMM call of the tuned path launched, and where
+    # each of its knobs came from
+    for (name, label, _, st, _, _, env), moved in zip(record, deltas):
+        if name != "sgemm":
+            continue
+        with knobs(**env):
+            src = registry.knob_sources("sgemm", (1024, 1024, 1024),
+                                        "float32", dev)
+        log(f"sgemm {label}: launched {json.dumps(moved)}, knobs from "
+            f"{json.dumps(src)}")
+        mode = GEMM_MODES[st.get("precision", "high")]
+        b1, b2 = {f"sgemm_{mode}": 1}, {f"sgemm_pipelined_{mode}": 1}
+        default = {k: "default" for k in src}
+        if "TPKT_SGEMM_DEPTH" in env:
+            want = (b2, dict(default, depth="env"))
+        elif "TPKT_TUNING_CACHE" in env or not env:  # the cache off, or none
+            want = (b1, default)
+        else:
+            want = (b2, dict(default, depth="cache", order="cache"))
+        if (moved, src) != want:
+            raise AssertionError(f"sgemm {label}: launched {moved} with knobs "
+                                 f"from {src}; expected {want}")
+        log(f"PASS sgemm {label}: the expected kernel, knobs as expected")
+    shutil.rmtree(tuned)
+    log("tuning cache: " + json.dumps(cache.COUNTS))
+    log(f"host cost of a knob lookup: {lookup_us(cache, S):.2f} us a "
+        f"resolve of sgemm's knobs, {lookup_us(cache, S, stat=True):.2f} "
+        "us a stat of the cache's path")
     log("kernels: " + json.dumps(launches))
     log("dispatch calls: " + json.dumps(calls))
     idle = [k for k, v in launches.items() if v <= 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
     return launches
+
+
+def lookup_us(cache, S, stat=False, calls=2000):
+    """Microseconds a wrapper's knob lookup costs on this host: a resolve
+    of SGEMM's knobs (cache file absent), or one ``os.stat`` of the
+    cache's path, which a lookup without the memo would pay."""
+    from tpukernels_torch.tuning import resolve
+
+    path = cache.path()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        if stat:
+            try:
+                os.stat(path)
+            except OSError:
+                pass
+        else:
+            resolve(S.TUNABLES, (1024, 1024, 1024), "float32", "cuda")
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def phase_times(torch, gen, peaks):
@@ -624,10 +773,12 @@ def phase_times(torch, gen, peaks):
                 GEMM_ALPHA, a, b, GEMM_BETA, c, prec), 20),
             "library_ms": lib,
             "launches_per_call": 1,
+            "knobs": S.plan(m, n, k, prec, dev),
         }
         row["bound_ms"], row["bound_by"] = bound(
             4 * (m * k + k * n + 2 * m * n), work, rate, bw)
         out[f"sgemm[{prec}]"] = row
+    out.update(sgemm_times(torch, gen, peaks))
 
     h = w = 4096
     iters = 1000
@@ -698,6 +849,10 @@ def phase_times(torch, gen, peaks):
         if "per_k_ms" in r:
             extra += ", per k: " + ", ".join(
                 f"k={kk} {ms:.4f} ms" for kk, ms in r["per_k_ms"].items())
+        if "knobs" in r:
+            extra += f", knobs {json.dumps(r['knobs'])}"
+        if "blocks" in r:
+            extra += f", {r['blocks']} blocks"
         if "device_ms" in r:
             extra += f", device alone {r['device_ms']:.4f} ms"
         if "per_tile_device_ms" in r:
@@ -711,6 +866,61 @@ def phase_times(torch, gen, peaks):
             f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{r['bound_ms']:.6g} ms ({r['bound_by']}), launches/call "
             f"{r['launches_per_call']}{extra}")
+    return out
+
+
+def sgemm_times(torch, gen, peaks):
+    """Phase 5 for SGEMM's tuned path: at 1024^3 ``high`` at depth 1/2/3
+    in both grid orders and at the 64-row tile, ``float32`` and
+    ``default`` at each depth; at 4096^3 ``high`` at each depth. Each
+    beside its bound, the plain version and ``torch.addmm``."""
+    from tpukernels_torch.kernels import sgemm as S
+
+    _, bw, bf16, fp32 = peaks
+    dev = torch.device("cuda")
+    passes = {"high": (3, bf16), "float32": (1, fp32), "default": (1, bf16)}
+    bm64 = {"TPKT_SGEMM_BM": 64}
+    out = {}
+    for size, reps in ((1024, 50), (4096, 5)):
+        m = k = n = size
+        a, b, c = (torch.rand(*s, device=dev, generator=gen) * 2 - 1
+                   for s in ((m, k), (k, n), (m, n)))
+        lib = time_ms(lambda: torch.addmm(c, a, b, beta=GEMM_BETA,
+                                          alpha=GEMM_ALPHA), reps)
+        combos = [("high", d, "ij", {}) for d in S.DEPTHS]
+        if size == 1024:
+            combos += [("high", d, "ji", {}) for d in S.DEPTHS]
+            combos += [("high", d, "ij", bm64) for d in S.DEPTHS]
+            combos += [(p, d, "ij", {}) for p in ("float32", "default")
+                       for d in S.DEPTHS]
+        plain = {}
+        for prec, depth, order, tile in combos:
+            if prec not in plain:
+                plain[prec] = time_ms(lambda: S.sgemm_plain(
+                    GEMM_ALPHA, a, b, GEMM_BETA, c, prec), reps, warmup=1)
+            with knobs(TPKT_SGEMM_DEPTH=depth, TPKT_SGEMM_ORDER=order,
+                       **tile):
+                row = {
+                    "shape": [m, k, n], "precision": prec, "depth": depth,
+                    "order": order, "knobs": S.plan(m, n, k, prec, dev),
+                    "ms": time_ms(lambda: S.sgemm(GEMM_ALPHA, a, b,
+                                                  GEMM_BETA, c,
+                                                  precision=prec), reps),
+                    "plain_ms": plain[prec], "library_ms": lib,
+                    "launches_per_call": 1,
+                }
+                row["device_ms"] = graph_ms(
+                    lambda: S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
+                                    precision=prec), 20 if size == 1024 else 2)
+            t = row["knobs"]
+            row["blocks"] = -(-m // t["bm"]) * -(-n // t["bn"])
+            mult, rate = passes[prec]
+            row["bound_ms"], row["bound_by"] = bound(
+                4 * (m * k + k * n + 2 * m * n), mult * 2 * m * n * k, rate,
+                bw)
+            out[f"sgemm[{prec}] {size}^3 depth={depth} order={order}"
+                + (" bm=64" if tile else "")] = row
+        del a, b, c
     return out
 
 
@@ -830,11 +1040,38 @@ def main(argv=None):
                       ("n", "ms", "plain_ms", "library_ms", "bound_ms",
                        "bound_by")}),
     ]
-    for prec, name in (("high", "sgemm_split3"), ("float32", "sgemm_float32"),
-                       ("default", "sgemm_bf16")):
-        kernels.append(entry(name, sg, times[f"sgemm[{prec}]"],
-                             errs[f"sgemm_{prec}"], precision=prec,
-                             shape=[1024, 1024, 1024]))
+    for prec, mode in GEMM_MODES.items():
+        t = times[f"sgemm[{prec}]"]
+        kernels.append(entry(f"sgemm_{mode}", sg, t, errs[f"sgemm_{prec}"],
+                             precision=prec, shape=t["shape"],
+                             knobs=t["knobs"]))
+    # B2: `high` at depth 2 order ij, the env-driven main path; the other
+    # modes at their fastest depth. max_abs_err is against the plain
+    # version at depth 2 order ij (phase 3 holds every depth and order)
+    for prec, mode in GEMM_MODES.items():
+        rows_1024 = {lbl: r for lbl, r in times.items()
+                     if lbl.startswith(f"sgemm[{prec}] 1024^3 depth=")
+                     and not lbl.endswith("bm=64")}
+        t = (times["sgemm[high] 1024^3 depth=2 order=ij"] if prec == "high"
+             else min((r for r in rows_1024.values() if r["depth"] > 1),
+                      key=lambda r: r["ms"]))
+        extra = {"per_depth_order_ms": {f"{r['depth']}/{r['order']}": r["ms"]
+                                        for r in rows_1024.values()}}
+        if prec == "high":
+            extra["bm64_per_depth_ms"] = {
+                r["depth"]: r["ms"] for lbl, r in times.items()
+                if lbl.startswith("sgemm[high] 1024^3") and
+                lbl.endswith("bm=64")}
+            extra["at_4096"] = [
+                {key: r[key] for key in ("depth", "ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_by")}
+                for lbl, r in times.items()
+                if lbl.startswith("sgemm[high] 4096^3")]
+        kernels.append(entry(f"sgemm_pipelined_{mode}", by_id["B2"], t,
+                             errs[f"sgemm_pipelined_{prec}"], precision=prec,
+                             shape=t["shape"], depth=t["depth"],
+                             order=t["order"], knobs=t["knobs"], **extra))
     def canary(label):  # the small kernel's shape, timed
         return {k: times[label][k] for k in ("shape", "iters", "ms",
                                             "plain_ms", "bound_ms",

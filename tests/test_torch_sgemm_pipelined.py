@@ -1,0 +1,148 @@
+"""The port's pipelined SGEMM path (depth 2/3) and its knobs, on the CPU.
+
+The JAX side runs its pipelined Pallas kernel (``TPK_SGEMM_DEPTH=2|3``,
+``TPK_SGEMM_BK=128``, ``TPK_SGEMM_ORDER=ji``) in interpret mode, as its
+own tests do; the port runs under the matching ``TPKT_*`` knobs (its
+largest k block, 64, for the reference's 128) and takes its plain
+version on CPU tensors, after resolving and checking the knobs. That
+the CUDA kernel equals the depth-1 kernel bitwise is checked on the card
+(``chip_smoke.py`` phase 3).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_sgemm import _operands, _tol
+from tpukernels.kernels import sgemm as J
+from tpukernels_torch import _build
+from tpukernels_torch.kernels import LAUNCHES, TPU_KERNELS
+from tpukernels_torch.kernels import sgemm as S
+
+
+@pytest.fixture(autouse=True)
+def _isolated_cache(tmp_path, monkeypatch):
+    monkeypatch.setenv("TPKT_TUNING_CACHE_DIR", str(tmp_path / "tcache"))
+    for knob in ("BM", "BN", "BK", "DEPTH", "ORDER", "PRECISION"):
+        monkeypatch.delenv(f"TPKT_SGEMM_{knob}", raising=False)
+
+
+@pytest.mark.parametrize("precision", S.PRECISIONS)
+@pytest.mark.parametrize("m,n,k", [(128, 256, 384), (100, 200, 300)])
+@pytest.mark.parametrize("depth", [2, 3])
+def test_pipelined_matches_jax(monkeypatch, depth, m, n, k, precision):
+    a, b, c = _operands(m, n, k, seed=5)
+    for env, val in (("SGEMM_DEPTH", depth), ("SGEMM_ORDER", "ji")):
+        monkeypatch.setenv(f"TPK_{env}", str(val))
+        monkeypatch.setenv(f"TPKT_{env}", str(val))
+    monkeypatch.setenv("TPK_SGEMM_BK", "128")
+    monkeypatch.setenv("TPKT_SGEMM_BK", "64")
+    want = np.asarray(J.sgemm(1.5, jnp.asarray(a), jnp.asarray(b), 0.5,
+                              jnp.asarray(c), precision=precision))
+    ta, tb, tc = (torch.from_numpy(t) for t in (a, b, c))
+    assert S.plan(m, n, k, precision, "cpu") == {
+        "bm": 128, "bn": 128, "bk": 64, "depth": depth, "order": "ji"}
+    got = S.sgemm(1.5, ta, tb, 0.5, tc, precision=precision)
+    rtol, atol = _tol(precision, k)
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("precision", S.PRECISIONS)
+@pytest.mark.parametrize("m,n,k", [(100, 200, 300), (40, 72, 56),
+                                   (33, 130, 300), (64, 96, 129)])
+def test_pipelined_operands_hold_the_product(m, n, k, precision):
+    """The operands the pipelined kernel is handed (B^T or A^T, rows
+    padded with zeros to whole 16-byte chunks) give the same product as
+    the unpadded ones: the layout and the pad are right."""
+    a, b, c = (torch.from_numpy(t) for t in _operands(m, n, k, seed=9))
+    ops, kp = S.pipelined_operands(a, b, precision)
+    widths = {"float32": ((k, 4 * -(-m // 4)), (k, 4 * -(-n // 4))),
+              "high": ((m, 8 * -(-k // 8)), (n, 8 * -(-k // 8)))}
+    widths["default"] = widths["high"]
+    assert (tuple(ops[0].shape), tuple(ops[2].shape)) == widths[precision]
+    assert kp == (k if precision == "float32" else widths["high"][0][1])
+    for t in ops:
+        if t is not None:
+            assert t.is_contiguous() and t.data_ptr() % 16 == 0
+    f = [None if t is None else t.float() for t in ops]
+    if precision == "float32":
+        acc = f[0].t()[:m] @ f[2][:, :n]
+    elif precision == "high":
+        acc = f[0] @ f[2].t() + f[0] @ f[3].t() + f[1] @ f[2].t()
+    else:
+        acc = f[0] @ f[2].t()
+    want = S.sgemm_plain(1.0, a, b, 0.0, torch.zeros_like(c), precision)
+    torch.testing.assert_close(acc, want, rtol=1e-6, atol=1e-5)
+
+
+def test_whole_rows_copies_only_when_needed():
+    t = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    assert S._whole_rows(t, 4) is t
+    p = S._whole_rows(t[:, :3], 4)
+    assert p.shape == (3, 4) and torch.equal(p[:, :3], t[:, :3])
+    assert not p[:, 3].any()
+    assert S._whole_rows(t.t(), 4).is_contiguous()
+
+
+@pytest.mark.parametrize("precision", S.PRECISIONS)
+@pytest.mark.parametrize("depth,order", [(2, "ij"), (3, "ji")])
+def test_pipelined_knobs_keep_the_cpu_result(monkeypatch, precision, depth,
+                                             order):
+    a, b, c = (torch.from_numpy(t) for t in _operands(40, 72, 56))
+    base = S.sgemm(1.5, a, b, 0.5, c, precision=precision)
+    monkeypatch.setenv("TPKT_SGEMM_DEPTH", str(depth))
+    monkeypatch.setenv("TPKT_SGEMM_ORDER", order)
+    assert torch.equal(S.sgemm(1.5, a, b, 0.5, c, precision=precision), base)
+
+
+@pytest.mark.parametrize("knob,bad", [("DEPTH", "abc"), ("DEPTH", "0"),
+                                      ("DEPTH", "4"), ("ORDER", "kij"),
+                                      ("BM", "-8"), ("BK", "x")])
+def test_bad_pipeline_knobs_raise_with_the_variable(monkeypatch, knob, bad):
+    a = torch.zeros(16, 16)
+    monkeypatch.setenv(f"TPKT_SGEMM_{knob}", bad)
+    with pytest.raises(ValueError, match=f"TPKT_SGEMM_{knob}"):
+        S.sgemm(1.0, a, a, 0.0, a)
+
+
+@pytest.mark.parametrize("precision", ["high", "float32"])
+def test_knobs_over_the_smem_budget_raise_before_any_launch(monkeypatch,
+                                                            precision):
+    a = torch.zeros(16, 16)
+    monkeypatch.setenv("TPKT_SGEMM_BK", "128")
+    S.sgemm(1.0, a, a, 0.0, a, precision=precision)  # one stage fits
+    monkeypatch.setenv("TPKT_SGEMM_DEPTH", "2")
+    with pytest.raises(ValueError, match="TPKT_SGEMM_BK=128.*DEPTH=2"):
+        S.sgemm(1.0, a, a, 0.0, a, precision=precision)
+
+
+def test_plan_picks_built_tiles(monkeypatch):
+    assert S.plan(1024, 1024, 1024, device="cpu") == {
+        "bm": 128, "bn": 128, "bk": 32, "depth": 1, "order": "ij"}
+    # small or ragged dims: the least padding among the built tiles
+    p = S.plan(40, 72, 56, device="cpu")
+    assert (p["bm"], p["bn"], p["bk"]) == (64, 128, 32)
+    monkeypatch.setenv("TPKT_SGEMM_BM", "64")
+    monkeypatch.setenv("TPKT_SGEMM_BK", "64")
+    monkeypatch.setenv("TPKT_SGEMM_BN", "256")
+    p = S.plan(1024, 1024, 300, device="cpu")
+    assert (p["bm"], p["bn"], p["bk"]) == (64, 128, 64)
+    # a preference under the smallest tile gets the smallest
+    monkeypatch.setenv("TPKT_SGEMM_BM", "8")
+    assert S.plan(1024, 1024, 300, device="cpu")["bm"] == 64
+
+
+def test_b2_row_counters_and_build():
+    row = next(r for r in TPU_KERNELS if r.id == "B2")
+    assert row.status == "ported" and row.port_entry == "tpkt_sgemm_pipelined"
+    assert row.port_source == "tpukernels_torch/csrc/sgemm_pipelined.cu"
+    assert set(row.launches) == {f"sgemm_pipelined_{s}"
+                                 for s in ("split3", "float32", "bf16")}
+    assert set(row.launches) <= set(LAUNCHES)
+    assert "sgemm_pipelined" in _build.SOURCES
+    src = (_build.CSRC / "sgemm_pipelined.cu").read_text()
+    for needle in ("_sgemm_pipelined_kernel", "cp.async.wait_group",
+                   "commit_group", "cudaFuncAttributeMaxDynamicSharedMemorySize",
+                   "tpkt_sgemm_pipelined"):
+        assert needle in src + (_build.CSRC / "sgemm.cuh").read_text(), needle

@@ -28,8 +28,8 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("saxpy", "sgemm", "jacobi2d", "jacobi3d", "nbody", "scan",
-           "histogram", "scan_histogram")
+SOURCES = ("saxpy", "sgemm", "sgemm_pipelined", "jacobi2d", "jacobi3d",
+           "nbody", "scan", "histogram", "scan_histogram")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

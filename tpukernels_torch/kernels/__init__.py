@@ -43,7 +43,9 @@ TPU_KERNELS = (
               "tpkt_sgemm", _CSRC + "sgemm.cu",
               ("sgemm_split3", "sgemm_float32", "sgemm_bf16")),
     TpuKernel("B2", _K + "sgemm.py", 201, "_sgemm_pipelined_kernel",
-              "pending"),
+              "ported", "tpkt_sgemm_pipelined", _CSRC + "sgemm_pipelined.cu",
+              ("sgemm_pipelined_split3", "sgemm_pipelined_float32",
+               "sgemm_pipelined_bf16")),
     TpuKernel("B3", _K + "stencil.py", 149, "_jacobi2d_small_kernel",
               "ported", "tpkt_jacobi2d_pass", _CSRC + "jacobi2d.cu",
               ("jacobi2d",)),
@@ -76,6 +78,9 @@ LAUNCHES = {
     "sgemm_split3": 0,
     "sgemm_float32": 0,
     "sgemm_bf16": 0,
+    "sgemm_pipelined_split3": 0,
+    "sgemm_pipelined_float32": 0,
+    "sgemm_pipelined_bf16": 0,
     "jacobi2d": 0,
     "jacobi3d": 0,
     "nbody_forces": 0,

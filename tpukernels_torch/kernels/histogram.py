@@ -30,6 +30,11 @@ from tpukernels_torch.tuning import SearchSpace, Tunable, resolve
 
 TUNABLES = SearchSpace(
     kernel="histogram",
+    bench_shape=(1 << 22, 256),
+    bench_dtype="int32",
+    sources=("tpukernels_torch/kernels/histogram.py",
+             "tpukernels_torch/csrc/histogram.cu",
+             "tpukernels_torch/csrc/bins.cuh"),
     tunables=(
         # the grid's cap in blocks a SM: each block merges its nbins once
         Tunable("blocks_per_sm", env="TPKT_HIST_BLOCKS_PER_SM", default=2),
@@ -74,10 +79,12 @@ def _histogram_cuda(x, nbins):
     n = x.numel()
     if n == 0:  # a grid of 0 blocks is a launch error
         return out
+    per_sm = resolve(TUNABLES, shape=(n, nbins), dtype="int32",
+                     device=x.device)["blocks_per_sm"]
     fn = _build.function("histogram", "tpkt_histogram", _ARGTYPES)
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), n, nbins,
-                resolve(TUNABLES)["blocks_per_sm"], _build.stream_of(x))
+        rc = fn(x.data_ptr(), out.data_ptr(), n, nbins, per_sm,
+                _build.stream_of(x))
     LAUNCHES["histogram"] += 1
     _build.check(rc, "tpkt_histogram")
     return out

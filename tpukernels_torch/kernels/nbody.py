@@ -27,6 +27,10 @@ from tpukernels_torch.tuning import SearchSpace, Tunable, resolve
 
 TUNABLES = SearchSpace(
     kernel="nbody",
+    bench_shape=(1 << 16,),
+    bench_dtype="float32",
+    sources=("tpukernels_torch/kernels/nbody.py",
+             "tpukernels_torch/csrc/nbody.cu"),
     tunables=(
         # i-bodies (threads) per block, a multiple of 32 up to 1024:
         # at 65 536 bodies 256 gives 256 blocks, about two per SM
@@ -62,8 +66,9 @@ def _check(arrs):
             )
 
 
-def _tiles():
-    t = resolve(TUNABLES)
+def _tiles(n=None, device=None):
+    t = resolve(TUNABLES, shape=None if n is None else (n,),
+                dtype="float32", device=device)
     bi, bj = t["bi"], t["bj"]
     if bi % 32 or bi > 1024:
         raise ValueError(
@@ -85,7 +90,7 @@ def nbody_step(px, py, pz, vx, vy, vz, m, dt=1e-3, eps=1e-2, steps=1):
         return nbody_plain(*arrs, dt=dt, eps=eps, steps=steps)
     if dev != "cuda":
         raise ValueError(f"nbody_step: unsupported device {px.device}")
-    bi, bj = _tiles()
+    bi, bj = _tiles(px.numel(), px.device)
     forces = functools.partial(_forces_cuda, bi=bi, bj=bj)
     return _advance(forces, tuple(a.contiguous() for a in arrs), dt, eps,
                     steps)

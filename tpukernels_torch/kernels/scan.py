@@ -34,6 +34,10 @@ from tpukernels_torch.utils import cdiv
 TILES = (1024, 2048, 4096, 8192, 16384)
 TUNABLES = SearchSpace(
     kernel="scan",
+    bench_shape=(1 << 22,),
+    bench_dtype="int32",
+    sources=("tpukernels_torch/kernels/scan.py",
+             "tpukernels_torch/csrc/scan.cu", "tpukernels_torch/csrc/scan.cuh"),
     tunables=(Tunable("tile", env="TPKT_SCAN_TILE", default=16384),),
 )
 DTYPES = (torch.float32, torch.int32)
@@ -47,8 +51,12 @@ _ARGTYPES = (
 )
 
 
-def resolve_tile() -> int:
-    tile = resolve(TUNABLES)["tile"]
+def resolve_tile(x=None) -> int:
+    """The knob ``tile`` for a scan of ``x`` (its cache key: the
+    reference's ``(n,)`` and dtype)."""
+    key = {} if x is None else {"shape": (x.numel(),), "dtype": x.dtype,
+                                "device": x.device}
+    tile = resolve(TUNABLES, **key)["tile"]
     if tile not in TILES:
         raise ValueError(
             f"TPKT_SCAN_TILE={tile}: expected one of "
@@ -77,7 +85,7 @@ def inclusive_scan(x):
         return scan_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"scan: unsupported device {x.device}")
-    return _scan_cuda(x, resolve_tile())
+    return _scan_cuda(x, resolve_tile(x))
 
 
 def exclusive_scan(x):
@@ -117,7 +125,7 @@ def scan_plain(x, tile: int | None = None):
     """Plain PyTorch version: the kernel's plan of tiles of ``tile``
     elements (``TPKT_SCAN_TILE`` by default) and a ragged last tile, each
     scanned alone, plus the carry of the tiles before it; any device."""
-    tile = resolve_tile() if tile is None else tile
+    tile = resolve_tile(x) if tile is None else tile
     x = x.reshape(-1)
     full = x.numel() // tile * tile
     parts = []

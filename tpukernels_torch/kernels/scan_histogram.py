@@ -31,6 +31,11 @@ from tpukernels_torch.tuning import SearchSpace, Tunable, resolve
 
 TUNABLES = SearchSpace(
     kernel="scan_histogram",
+    bench_shape=(1 << 22, 256),
+    bench_dtype="int32",
+    sources=("tpukernels_torch/kernels/scan_histogram.py",
+             "tpukernels_torch/csrc/scan_histogram.cu",
+             "tpukernels_torch/csrc/scan.cuh", "tpukernels_torch/csrc/bins.cuh"),
     tunables=(
         Tunable("fuse", env="TPKT_SCANHIST_FUSE", default="off",
                 values=("off", "on"), choice=True),
@@ -47,15 +52,16 @@ def scan_histogram(x, nbins: int):
     """``(inclusive_scan(x), histogram(x, nbins))`` of ``x`` cast to
     int32: a new (n,) and a new (nbins,) int32 tensor."""
     nbins = _hist.check_nbins(nbins)
-    fuse = resolve(TUNABLES)["fuse"]
     x = _hist.as_int32(x)
+    fuse = resolve(TUNABLES, shape=(x.numel(), nbins), dtype="int32",
+                   device=x.device)["fuse"]
     if fuse == "off":
         return _scan.inclusive_scan(x), _hist.histogram(x, nbins)
     if x.device.type == "cpu":
         return scan_histogram_plain(x, nbins)
     if x.device.type != "cuda":
         raise ValueError(f"scan_histogram: unsupported device {x.device}")
-    return _fused_cuda(x, nbins, _scan.resolve_tile())
+    return _fused_cuda(x, nbins, _scan.resolve_tile(x))
 
 
 def _fused_cuda(x, nbins, tile):

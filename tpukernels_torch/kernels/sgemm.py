@@ -1,11 +1,27 @@
 """SGEMM: out = alpha * A @ B + beta * C for float32 matrices of any shape.
 
 Port of ``tpukernels/kernels/sgemm.py``. On a CUDA tensor the wrapper
-launches ``csrc/sgemm.cu`` (replaces the TPU's ``_sgemm_kernel``); on a
-CPU tensor it runs :func:`sgemm_plain`, the same arithmetic in plain
-PyTorch. :func:`sgemm_reference` is the oracle.
+launches one of two kernels, as the reference's ``depth`` knob picks:
 
-Precision modes (``precision=`` or env ``TPKT_SGEMM_PRECISION``):
+- depth 1: ``csrc/sgemm.cu`` (replaces the TPU's ``_sgemm_kernel``),
+  one shared-memory stage per K block;
+- depth 2 or 3: ``csrc/sgemm_pipelined.cu`` (replaces
+  ``_sgemm_pipelined_kernel``), the K blocks through a ring of
+  ``depth`` stages filled by cp.async.
+
+Both share their compute step, so at one tile they agree bitwise. On a
+CPU tensor it runs :func:`sgemm_plain`, the same arithmetic in plain
+PyTorch; :func:`sgemm_reference` is the oracle.
+
+Knobs (``TUNABLES``), per knob env ``TPKT_SGEMM_{BM,BN,BK,DEPTH,ORDER}``
+> a tuning-cache entry for (shape, dtype, card) > the default: tile
+preferences ``bm``/``bn``/``bk`` (from which :func:`_pick_block` picks
+among the tiles the kernels are built for), ``depth`` 1/2/3 and the grid
+``order`` ``ij``/``ji``. They are resolved and checked on the CPU too.
+
+Precision modes (``precision=`` or env ``TPKT_SGEMM_PRECISION``, read
+as the reference reads it and never from the tuning cache, so a tuned
+entry cannot change the contract a result is held to):
 
 - ``high`` (default): A and B are split outside the kernel into bf16
   hi/lo halves (``x.to(torch.bfloat16)`` rounds to nearest even, as the
@@ -16,41 +32,93 @@ Precision modes (``precision=`` or env ``TPKT_SGEMM_PRECISION``):
 
 :func:`contract` states each mode's tolerance and its reason.
 
-Ragged shapes are masked inside the kernel, so the wrapper pads
-nothing; the bf16 modes hand the kernel B transposed, (n, k), so both
-operands load along k.
+The bf16 modes hand the kernels B transposed, (n, k), so both operands
+load along k; depth 1 masks ragged edges in its loads, depth 2/3 copies
+whole 16-byte rows, so the wrapper pads k (bf16) or m and n (fp32, A
+handed transposed) with zeros to whole rows.
 
-Bound on the card at 1024³: operations; see the note in ``sgemm.cu``.
+Bound on the card at 1024³: operations; see the notes in ``sgemm.cu``
+and ``sgemm_pipelined.cu``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
 
 from tpukernels_torch import _build
 from tpukernels_torch.kernels import LAUNCHES
-from tpukernels_torch.tuning import SearchSpace, Tunable, resolve
+from tpukernels_torch.tuning import (SMEM_BUDGET_BYTES, SearchSpace, Tunable,
+                                     resolve)
+from tpukernels_torch.utils import cdiv
 
 PRECISIONS = ("high", "float32", "default")
-_MODE = {"high": (0, "sgemm_split3"), "float32": (1, "sgemm_float32"),
-         "default": (2, "sgemm_bf16")}
+_MODE = {"high": (0, "split3"), "float32": (1, "float32"),
+         "default": (2, "bf16")}
+
+# the tiles csrc/sgemm.cuh instantiates; every (bm, bk) pair is built
+# for each mode and depth, so each size added costs build time
+BM_SIZES, BN_SIZES, BK_SIZES = (128, 64), (128,), (32, 64)
+DEPTHS, ORDERS = (1, 2, 3), ("ij", "ji")
+
+
+def _smem_bytes(params, shape=None, precision="high"):
+    """Shared memory a block of the kernels needs for the knob set
+    ``params`` (shape-blind, as the reference's VMEM model): ``depth``
+    stages (one at depth 1) of
+
+    - bf16 modes: NOPS·(bm + bn)·(bk + 8)·2 bytes (NOPS 2 for the hi/lo
+      pairs of ``high``, 1 for ``default``; rows padded by 8);
+    - ``float32``: bk·(bm + 4 + bn)·4 bytes (A^T rows padded by 4).
+
+    ``high`` needs the most, so it is the default the space prunes by.
+    Split3 at 128 x 128 x 32 takes 40 960 B a stage."""
+    bm, bn, bk = params["bm"], params["bn"], params["bk"]
+    if precision == "float32":
+        stage = bk * (bm + 4 + bn) * 4
+    else:
+        stage = (2 if precision == "high" else 1) * (bm + bn) * (bk + 8) * 2
+    return max(1, params.get("depth", 1)) * stage
+
 
 TUNABLES = SearchSpace(
     kernel="sgemm",
+    bench_shape=(1024, 1024, 1024),
+    bench_dtype="float32",
+    sources=("tpukernels_torch/kernels/sgemm.py",
+             "tpukernels_torch/csrc/sgemm.cuh",
+             "tpukernels_torch/csrc/sgemm.cu",
+             "tpukernels_torch/csrc/sgemm_pipelined.cu"),
     tunables=(
-        Tunable("precision", env="TPKT_SGEMM_PRECISION", default="high",
-                values=PRECISIONS, choice=True),
+        # 64 rows give 128 blocks at 1024^2 for 132 SMs, 128 rows 64
+        Tunable("bm", env="TPKT_SGEMM_BM", default=128, values=BM_SIZES),
+        Tunable("bn", env="TPKT_SGEMM_BN", default=128, values=BN_SIZES),
+        Tunable("bk", env="TPKT_SGEMM_BK", default=32, values=BK_SIZES),
+        # 1: sgemm.cu, one stage; 2/3: sgemm_pipelined.cu, a ring
+        Tunable("depth", env="TPKT_SGEMM_DEPTH", default=1, values=DEPTHS,
+                most=DEPTHS[-1]),
+        Tunable("order", env="TPKT_SGEMM_ORDER", default="ij",
+                values=ORDERS, choice=True),
     ),
+    smem_budget_bytes=SMEM_BUDGET_BYTES,
+    smem_bytes=_smem_bytes,
 )
 
 _ARGTYPES = (
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-    ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+)
+_ARGTYPES_PIPELINED = (
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
 )
 
 
@@ -79,14 +147,59 @@ def contract(precision: str, k: int, alpha: float) -> tuple:
 
 
 def _resolve_precision(precision):
+    """``precision``, else env ``TPKT_SGEMM_PRECISION``, else ``high``;
+    anything else raises, naming where it came from."""
     if precision is None:
-        precision = resolve(TUNABLES)["precision"]
+        precision = os.environ.get("TPKT_SGEMM_PRECISION", "high")
+        where = "TPKT_SGEMM_PRECISION"
+    else:
+        where = "precision"
     if precision not in PRECISIONS:
         raise ValueError(
-            f"precision={precision!r}: expected 'high' (bf16 x3 split), "
+            f"{where}={precision!r}: expected 'high' (bf16 x3 split), "
             "'float32' (full fp32), or 'default' (single-pass bf16)"
         )
     return precision
+
+
+def _pick_block(dim: int, preferred: int, sizes) -> int:
+    """Tile size for ``dim`` among ``sizes`` no larger than
+    ``preferred`` (the smallest size when none is): the reference's rule
+    among the sizes the kernels are built for. Of those whose padded
+    total is within ~9 % of the least, the one giving the FEWEST blocks,
+    then the least padding. Given the reference's aligned range
+    (``range(align, ..., align)``) it picks what the reference picks for
+    any dim above ``align``."""
+    cands = sorted(s for s in sizes if s <= preferred) or [min(sizes)]
+    padded = lambda b: cdiv(dim, b) * b  # noqa: E731
+    pad_min = min(padded(b) for b in cands)
+    ok = [b for b in cands if padded(b) <= pad_min * 1.09]
+    nb_min = min(cdiv(dim, b) for b in ok)
+    return min((b for b in ok if cdiv(dim, b) == nb_min), key=padded)
+
+
+def plan(m: int, n: int, k: int, precision: str = "high", device=None):
+    """The resolved knobs of one (m, k) @ (k, n) call: ``bm``/``bn``/
+    ``bk`` the tile picked, ``depth``, ``order``. Raises ValueError
+    when the knob set needs more shared memory than a block has."""
+    prefs = resolve(TUNABLES, shape=(m, k, n), dtype="float32",
+                    device=device)
+    need = _smem_bytes(prefs, precision=precision)
+    if need > SMEM_BUDGET_BYTES:
+        knobs = ", ".join(f"TPKT_SGEMM_{t.upper()}={prefs[t]}"
+                          for t in ("bm", "bn", "bk", "depth"))
+        raise ValueError(
+            f"sgemm: the knobs {knobs} need {need} bytes of shared memory "
+            f"a block in '{precision}' mode, over the {SMEM_BUDGET_BYTES} "
+            "a block of the card can use"
+        )
+    return {
+        "bm": _pick_block(m, prefs["bm"], BM_SIZES),
+        "bn": _pick_block(n, prefs["bn"], BN_SIZES),
+        "bk": _pick_block(k, prefs["bk"], BK_SIZES),
+        "depth": prefs["depth"],
+        "order": prefs["order"],
+    }
 
 
 def _split_bf16(x):
@@ -95,6 +208,19 @@ def _split_bf16(x):
     hi = x.to(torch.bfloat16)
     lo = (x - hi.float()).to(torch.bfloat16)
     return hi, lo
+
+
+def _whole_rows(t, mult):
+    """``t`` (rows, cols) contiguous and 16-byte aligned, its rows padded
+    with zeros to a multiple of ``mult`` elements (a copy only when
+    needed)."""
+    rows, cols = t.shape
+    width = cdiv(cols, mult) * mult
+    if width == cols and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((rows, width))
+    out[:, :cols] = t
+    return out
 
 
 def _check(a, b, c):
@@ -120,21 +246,24 @@ def sgemm(alpha, a, b, beta, c, precision: str | None = None):
     """alpha*A@B + beta*C as a new (m, n) float32 tensor."""
     m, n, k = _check(a, b, c)
     precision = _resolve_precision(precision)
+    p = plan(m, n, k, precision, a.device)
     if a.device.type == "cpu":
         return sgemm_plain(alpha, a, b, beta, c, precision)
     if a.device.type != "cuda":
         raise ValueError(f"sgemm: unsupported device {a.device}")
-    return _sgemm_cuda(float(alpha), a, b, float(beta), c, precision)
-
-
-def _sgemm_cuda(alpha, a, b, beta, c, precision):
-    m, k = a.shape
-    n = b.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out
-    c = c.contiguous()
-    mode, counter = _MODE[precision]
+    launch = _sgemm_cuda if p["depth"] == 1 else _sgemm_pipelined_cuda
+    return launch(float(alpha), a, b, float(beta), c.contiguous(), out,
+                  precision, p)
+
+
+def _sgemm_cuda(alpha, a, b, beta, c, out, precision, p):
+    """B1: one stage, ragged edges masked in the kernel's loads."""
+    m, k = a.shape
+    n = b.shape[1]
+    mode, suffix = _MODE[precision]
     if precision == "float32":
         ops = (a.contiguous(), None, b.contiguous(), None)
     else:
@@ -147,15 +276,57 @@ def _sgemm_cuda(alpha, a, b, beta, c, precision):
     ptrs = [None if t is None else t.data_ptr() for t in ops]
     fn = _build.function("sgemm", "tpkt_sgemm", _ARGTYPES)
     with torch.cuda.device(a.device):
-        rc = fn(mode, *ptrs, c.data_ptr(), out.data_ptr(), m, n, k,
-                alpha, beta, _build.stream_of(a))
-    LAUNCHES[counter] += 1
+        rc = fn(mode, *ptrs, c.data_ptr(), out.data_ptr(), m, n, k, alpha,
+                beta, p["bm"], p["bn"], p["bk"], int(p["order"] == "ji"),
+                _build.stream_of(a))
+    LAUNCHES[f"sgemm_{suffix}"] += 1
     _build.check(rc, f"tpkt_sgemm[{precision}]")
     return out
 
 
+def pipelined_operands(a, b, precision):
+    """``(ops, k)`` as the pipelined kernel takes them: four operands
+    (None where a mode has fewer) whose rows are whole 16-byte chunks,
+    and the inner dimension it walks.
+
+    - bf16 modes: A (m, kp) and B^T (n, kp), bf16 (hi/lo pairs for
+      ``high``), kp = k padded with zeros to a multiple of 8;
+    - ``float32``: A^T (k, m4) and B (k, n4), m and n padded with zeros
+      to multiples of 4; k itself.
+    """
+    if precision == "float32":
+        return (_whole_rows(a.t(), 4), None, _whole_rows(b, 4), None), \
+            a.shape[1]
+    bt = b.t().contiguous()
+    if precision == "high":
+        ops = (*_split_bf16(a.contiguous()), *_split_bf16(bt))
+    else:
+        ops = (a.to(torch.bfloat16), None, bt.to(torch.bfloat16), None)
+    ops = tuple(None if t is None else _whole_rows(t, 8) for t in ops)
+    return ops, ops[0].shape[1]  # the pad adds zero products
+
+
+def _sgemm_pipelined_cuda(alpha, a, b, beta, c, out, precision, p):
+    """B2: a ring of ``depth`` stages copied whole by cp.async."""
+    m = a.shape[0]
+    n = b.shape[1]
+    mode, suffix = _MODE[precision]
+    ops, kp = pipelined_operands(a, b, precision)
+    lda, ldb = ops[0].shape[1], ops[2].shape[1]
+    ptrs = [None if t is None else t.data_ptr() for t in ops]
+    fn = _build.function("sgemm_pipelined", "tpkt_sgemm_pipelined",
+                         _ARGTYPES_PIPELINED)
+    with torch.cuda.device(a.device):
+        rc = fn(mode, *ptrs, c.data_ptr(), out.data_ptr(), m, n, kp, lda,
+                ldb, alpha, beta, p["bm"], p["bn"], p["bk"], p["depth"],
+                int(p["order"] == "ji"), _build.stream_of(a))
+    LAUNCHES[f"sgemm_pipelined_{suffix}"] += 1
+    _build.check(rc, f"tpkt_sgemm_pipelined[{precision}]")
+    return out
+
+
 def sgemm_plain(alpha, a, b, beta, c, precision="high"):
-    """The kernel's arithmetic in plain PyTorch: the same bf16 split or
+    """The kernels' arithmetic in plain PyTorch: the same bf16 split or
     rounding, products taken in float32. On the card this relies on
     ``torch.backends.cuda.matmul.allow_tf32`` being False (PyTorch's
     default)."""

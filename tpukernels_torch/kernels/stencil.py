@@ -42,10 +42,18 @@ HALO3D_MAX = 4
 TUNABLES = (
     SearchSpace(
         kernel="stencil2d",
+        bench_shape=(4096, 4096),
+        bench_dtype="float32",
+        sources=("tpukernels_torch/kernels/stencil.py",
+                 "tpukernels_torch/csrc/jacobi2d.cu"),
         tunables=(Tunable("k", env="TPKT_STENCIL_K", default=8),),
     ),
     SearchSpace(
         kernel="stencil3d",
+        bench_shape=(384, 384, 384),
+        bench_dtype="float32",
+        sources=("tpukernels_torch/kernels/stencil.py",
+                 "tpukernels_torch/csrc/jacobi3d.cu"),
         # 3, not HALO3D_MAX: at 3 the tile takes 73.5 KB of shared
         # memory and three blocks share an SM, at 4 only two, and k = 3
         # is the fastest at 384^3 on the H100 (chip_smoke.py's per_k_ms)
@@ -71,12 +79,14 @@ def passes(iters: int, k: int) -> list:
     return [k] * full + ([rem] if rem else [])
 
 
-def resolve_k(k=None, ndim: int = 2) -> int:
-    """Fusion depth of the ``ndim``-D stencil: ``k`` if given, else
-    ``TPKT_STENCIL_K`` (default 8 in 2-D, 3 in 3-D), clamped to 1..8 in
-    2-D and to 1..:data:`HALO3D_MAX` in 3-D."""
+def resolve_k(k=None, ndim: int = 2, shape=None, device=None) -> int:
+    """Fusion depth of the ``ndim``-D stencil: ``k`` if given, else the
+    knob ``k`` (``TPKT_STENCIL_K`` > the tuning cache's entry for
+    ``shape`` > 8 in 2-D, 3 in 3-D), clamped to 1..8 in 2-D and to
+    1..:data:`HALO3D_MAX` in 3-D."""
     if k is None:
-        k = resolve(TUNABLES[ndim - 2])["k"]
+        k = resolve(TUNABLES[ndim - 2], shape=shape, dtype="float32",
+                    device=device)["k"]
     return max(1, min(int(k), _MOST_K[ndim]))
 
 
@@ -90,7 +100,7 @@ def jacobi2d(x, iters: int, k: int | None = None):
         )
     if int(iters) < 0:
         raise ValueError(f"jacobi2d: iters={iters} is negative")
-    k = resolve_k(k, 2)
+    k = resolve_k(k, 2, tuple(x.shape), x.device)
     if x.device.type == "cpu":
         return jacobi2d_plain(x, iters)
     if x.device.type != "cuda":
@@ -177,7 +187,7 @@ def jacobi3d(x, iters: int, k: int | None = None, depth: int | None = None):
     if depth is not None and (isinstance(depth, bool) or int(depth) != depth
                               or depth < 1):
         raise ValueError(f"jacobi3d: depth={depth!r} is not a positive int")
-    k = resolve_k(k, 3)
+    k = resolve_k(k, 3, tuple(x.shape), x.device)
     if x.device.type == "cpu":
         return jacobi3d_plain(x, iters)
     if x.device.type != "cuda":

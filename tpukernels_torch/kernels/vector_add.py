@@ -24,6 +24,10 @@ from tpukernels_torch.utils import cdiv
 
 TUNABLES = SearchSpace(
     kernel="vector_add",
+    bench_shape=(1 << 20,),
+    bench_dtype="float32",
+    sources=("tpukernels_torch/kernels/vector_add.py",
+             "tpukernels_torch/csrc/saxpy.cu"),
     tunables=(
         # threads per block; a power of two from one warp to the
         # hardware's 1024
@@ -67,7 +71,8 @@ def _saxpy_cuda(alpha, x, y):
     out = torch.empty_like(x)
     if n == 0:
         return out
-    threads = resolve(TUNABLES)["threads"]
+    threads = resolve(TUNABLES, shape=(n,), dtype="float32",
+                      device=x.device)["threads"]
     if threads > 1024 or threads & (threads - 1) or threads < 32:
         raise ValueError(
             f"TPKT_SAXPY_THREADS={threads}: expected a power of two in "

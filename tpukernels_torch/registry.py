@@ -106,6 +106,25 @@ def tunables(name: str) -> "_space.SearchSpace":
         raise KeyError(f"kernel {name!r} exports no TUNABLES") from None
 
 
+def tunable_kernels():
+    _populate()
+    return sorted(_TUNABLES)
+
+
+def resolve_params(name: str, shape=None, dtype=None, device=None) -> dict:
+    """The knob values a ``name`` call at (shape, dtype) on ``device``
+    would resolve, env > tuning cache > default, as its wrapper
+    resolves them."""
+    return _space.resolve(tunables(name), shape, dtype, device)
+
+
+def knob_sources(name: str, shape=None, dtype=None, device=None) -> dict:
+    """Where each knob of that call comes from: ``env``, ``cache`` or
+    ``default``."""
+    return _space.resolve_with_sources(tunables(name), shape, dtype,
+                                       device)[1]
+
+
 def dispatch(name: str, *args, **statics):
     """Run one kernel call through its wrapper: positional array
     operands and host scalars, keyword statics (``iters``, ``k``,

@@ -1,34 +1,49 @@
 """Declarative tunable knobs of the port's kernels.
 
 A kernel's tunable surface is data: a :class:`SearchSpace` names each
-knob (:class:`Tunable`), its ``TPKT_*`` environment spelling and its
-shipped default. :func:`resolve` is the one resolution path every
-wrapper calls, with the precedence
+knob (:class:`Tunable`), its ``TPKT_*`` environment spelling, its
+shipped default and its sweep values, plus an optional model of the
+shared memory a block needs, so that candidates over the card's budget
+are pruned before they are measured. :func:`resolve` is the one
+resolution path every wrapper calls, per knob with the precedence
 
-    env-override  >  shipped-default
+    env-override  >  tuned-cache  >  shipped-default
 
 Env parsing is fail-loud: ``TPKT_SAXPY_THREADS=abc`` raises a
-ValueError naming the variable. A persistent tuned cache between the
-two layers comes with the port's tuning slice.
+ValueError naming the variable. A value from the tuning cache
+(:mod:`tpukernels_torch.tuning.cache`) is checked by the same rules but
+rejected instead (counted, one stderr line, the default used): a bad
+cache file must never take down a kernel call.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
-from dataclasses import dataclass
-from typing import Any, Sequence
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional, Sequence
+
+from tpukernels_torch.tuning import cache
+
+# shared memory one block of an H100 can use (NVIDIA's data sheet)
+SMEM_BUDGET_BYTES = 232_448
 
 
 @dataclass(frozen=True)
 class Tunable:
-    """One knob: a positive int (block sizes, fusion depth) or a
-    categorical choice (``choice=True``, one of ``values``)."""
+    """One knob: a positive int (tile sizes, pipeline depth), at most
+    ``most`` where that is set, or a categorical choice
+    (``choice=True``, one of ``values``)."""
 
     name: str
     env: str
     default: Any
     values: tuple = ()
     choice: bool = False
+    most: Optional[int] = None
+
+    def _int_ok(self, v) -> bool:
+        return 0 < v and (self.most is None or v <= self.most)
 
     def parse_env(self, raw: str):
         if self.choice:
@@ -42,29 +57,119 @@ class Tunable:
             val = int(raw)
         except ValueError:
             val = 0
-        if val <= 0:
+        if not self._int_ok(val):
             raise ValueError(
                 f"{self.env}={raw!r}: expected a positive integer"
+                + ("" if self.most is None else f" up to {self.most}")
             )
         return val
+
+    def coerce_cached(self, v):
+        """(ok, value) for a value from the cache: the rules of
+        :meth:`parse_env`, but it never raises."""
+        if self.choice:
+            return (v in self.values), v
+        ok = isinstance(v, int) and not isinstance(v, bool) and self._int_ok(v)
+        return ok, v
 
 
 @dataclass(frozen=True)
 class SearchSpace:
-    """The knobs of one registry kernel."""
+    """The knobs of one registry kernel.
+
+    ``sources`` are the repo-relative files whose newest commit dates a
+    tuning-cache entry (an entry tuned before it is stale).
+    ``bench_shape``/``bench_dtype`` are the configuration of record, the
+    cache key a sweep writes for. ``smem_bytes(params, shape)`` is the
+    shared memory a block needs; candidates over ``smem_budget_bytes``
+    are pruned (both optional)."""
 
     kernel: str
     tunables: tuple
+    sources: tuple = ()
+    bench_shape: Optional[tuple] = None
+    bench_dtype: Optional[str] = None
+    smem_budget_bytes: Optional[int] = None
+    smem_bytes: Optional[Callable] = field(default=None, repr=False)
+
+    def defaults(self) -> dict:
+        return {t.name: t.default for t in self.tunables}
+
+    def env_for(self, params: dict) -> dict:
+        """Env assignments selecting ``params`` in a subprocess (None
+        values are left unset)."""
+        by_name = {t.name: t for t in self.tunables}
+        return {by_name[k].env: str(v) for k, v in params.items()
+                if k in by_name and v is not None}
+
+    def feasible(self, params: dict, shape=None) -> bool:
+        if self.smem_bytes is None or self.smem_budget_bytes is None:
+            return True
+        return self.smem_bytes(params, shape) <= self.smem_budget_bytes
+
+    def candidates(self, shape=None):
+        """Sweep candidates, shipped defaults first (the control row),
+        then the product of the sweep values in declaration order, each
+        once, those over the budget pruned. Returns (candidates,
+        n_pruned)."""
+        axes = [t.values or (t.default,) for t in self.tunables]
+        names = [t.name for t in self.tunables]
+        out, pruned, seen = [], 0, set()
+        for params in itertools.chain(
+                [self.defaults()],
+                (dict(zip(names, combo)) for combo in itertools.product(*axes))):
+            key = tuple(sorted(params.items()))
+            if key in seen:
+                continue
+            seen.add(key)
+            if self.feasible(params, shape):
+                out.append(params)
+            else:
+                pruned += 1
+        return out, pruned
+
+    def quick_candidates(self, shape=None):
+        """The control plus single-axis probes of the first declared
+        knob, at most 3 rows."""
+        cands, _ = self.candidates(shape=shape)
+        if not cands:
+            return []
+        first, rest = self.tunables[0], self.tunables[1:]
+        probes = [c for c in cands[1:] if c[first.name] != first.default
+                  and all(c[t.name] == t.default for t in rest)]
+        return (cands[:1] + probes)[:3]
 
 
-def resolve(space: SearchSpace) -> dict:
-    """Resolved knob values for one kernel call: a set env var wins
-    (fail-loud parse), else the shipped default."""
-    params = {}
+def resolve_with_sources(space: SearchSpace, shape=None, dtype=None,
+                         device=None):
+    """``(params, sources)`` for one kernel call: per knob a set env var
+    (fail-loud), else a valid tuning-cache entry for (kernel, shape,
+    dtype, the kind of ``device``), else the default; ``sources`` says
+    which (``env``/``cache``/``default``) for each knob."""
+    cached = cache.get(space, shape, dtype, device=device)
+    params, sources = {}, {}
     for t in space.tunables:
         raw = os.environ.get(t.env)
-        params[t.name] = t.default if raw is None else t.parse_env(raw)
-    return params
+        if raw is not None:
+            params[t.name], sources[t.name] = t.parse_env(raw), "env"
+            continue
+        if cached is not None and t.name in cached:
+            ok, v = t.coerce_cached(cached[t.name])
+            if ok:
+                params[t.name], sources[t.name] = v, "cache"
+                continue
+            cache.reject(cache.key_str(space.kernel, shape, dtype,
+                                       cache.device_kind(device)),
+                         f"bad cached value for {t.name}: "
+                         f"{cached[t.name]!r}")
+        params[t.name], sources[t.name] = t.default, "default"
+    return params, sources
+
+
+def resolve(space: SearchSpace, shape=None, dtype=None, device=None) -> dict:
+    """Resolved knob values for one kernel call (see
+    :func:`resolve_with_sources`)."""
+    return resolve_with_sources(space, shape, dtype, device)[0]
 
 
 def spaces_of(module) -> Sequence[SearchSpace]:
