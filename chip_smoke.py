@@ -8,12 +8,14 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
 
 1. prints the card (``nvidia-smi`` name and power limit) and toolchain,
    and turns TF32 off for float32 matmuls;
-2. builds every kernel, in parallel, and prints the build times and
-   the registers and spills ptxas reports;
+2. builds every kernel, in parallel, and prints the build times, the
+   registers and spills ptxas reports, and the count of the SGEMM
+   kernels' tensor-core, TMA and mbarrier instructions in their SASS;
 3. holds each kernel against its plain PyTorch version on the card at
    the sizes of the main path and at ragged ones, with the tolerance
-   stated beside each check, and the pipelined SGEMM (depth 2/3, both
-   grid orders, two tiles) bitwise against the depth-1 kernel;
+   stated beside each check: the depth-1 SGEMM at every tile it builds,
+   the pipelined SGEMM (depth 2/3, both grid orders, two tiles) also
+   bitwise against itself at depth 2 order ij;
 4. drives the main path end to end — ``registry.dispatch`` of
    ``vector_add``, ``sgemm``, ``stencil2d``, ``stencil3d``, ``nbody``,
    ``scan``, ``scan_exclusive``, ``histogram`` and ``scan_histogram``
@@ -26,10 +28,12 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    from, and shows from the launch counters that every kernel ran;
 5. times each kernel, its plain version and, where one exists, the
    single PyTorch call computing the same function, with CUDA events,
-   beside the least time the card could take (``bound_ms``); for scan
-   and histogram also the device time alone (``device_ms``: calls
-   captured in a CUDA graph and replayed) and the scan's tile sizes; for
-   SGEMM every depth and order at 1024^3 and each depth at 4096^3.
+   beside the least time the card could take (``bound_ms``); for SAXPY,
+   SGEMM, scan and histogram also the device time alone (``device_ms``:
+   calls captured in a CUDA graph and replayed), the scan's tile sizes,
+   SAXPY's host path step by step, and for SGEMM every depth, order and
+   depth-1 tile at 1024^3, each depth at 4096^3, and the device time of
+   the depth-1 kernel alone and of its operand preparation.
 
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -283,6 +287,19 @@ def phase_build():
         log(f"ptxas {name}: {len(regs)} kernels, registers "
             f"{min(regs, default=0)}..{max(regs, default=0)} a thread, "
             f"spill stores {stores} B, spill loads {loads} B")
+    # what the SGEMM kernels were compiled to: HGMMA is wgmma, UTMALDG a
+    # TMA tile load, SYNCS the mbarrier operations, HMMA mma.sync
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    for name in ("sgemm", "sgemm_pipelined"):
+        sass = run([cuobjdump, "-sass", str(_build.library_path(name))])
+        if not sass:
+            raise RuntimeError(f"cuobjdump gave no SASS for {name}")
+        ops = re.findall(
+            r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", sass,
+            re.M)
+        counts = {op: ops.count(op) for op in ("HGMMA", "UTMALDG", "SYNCS",
+                                               "HMMA", "FFMA")}
+        log(f"sass {name}: {json.dumps(counts)} instructions")
 
 
 def phase_kernels(torch, gen):
@@ -302,7 +319,7 @@ def phase_kernels(torch, gen):
         return torch.rand(*shape, device=dev, generator=gen) * 2 - 1
 
     errs = {}
-    for n in (1000, 1 << 20, 1 << 26):
+    for n in (1, 3, 1000, 1 << 20, (1 << 20) + 3, 1 << 26):
         x, y = randn(n), randn(n)
         e = check(f"saxpy n={n}", V.saxpy(SAXPY_ALPHA, x, y),
                   V.saxpy_reference(SAXPY_ALPHA, x, y), 1e-5, 1e-6)
@@ -311,29 +328,7 @@ def phase_kernels(torch, gen):
     x, y = randn(1001), randn(1001)  # offset views: the unaligned path
     check("saxpy n=1000 unaligned", V.saxpy(SAXPY_ALPHA, x[1:], y[1:]),
           V.saxpy_reference(SAXPY_ALPHA, x[1:], y[1:]), 1e-5, 1e-6)
-
-    for m, k, n in ((1024, 1024, 1024), (1000, 1042, 2176), (40, 72, 56)):
-        a, b, c = unif(m, k), unif(k, n), unif(m, n)
-        ref = S.sgemm_reference(GEMM_ALPHA, a, b, GEMM_BETA, c)
-        for prec in S.PRECISIONS:
-            rtol, atol = S.contract(prec, k, GEMM_ALPHA)
-            got = S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c, precision=prec)
-            plain = S.sgemm_plain(GEMM_ALPHA, a, b, GEMM_BETA, c, prec)
-            e = check(f"sgemm[{prec}] {m}x{k}x{n} vs plain", got, plain,
-                      rtol, atol)
-            check(f"sgemm[{prec}] {m}x{k}x{n} vs oracle", got, ref, rtol,
-                  atol)
-            if (m, k, n) == (1024, 1024, 1024):
-                errs[f"sgemm_{prec}"] = e
-    a, b = unif(128, 128), unif(128, 128)
-    c = torch.full((128, 128), float("nan"), device=dev)
-    for prec in S.PRECISIONS:
-        got = S.sgemm(1.0, a, b, 0.0, c, precision=prec)
-        if not bool(got.isnan().all()):
-            raise AssertionError(f"sgemm[{prec}] beta=0: NaN in C did not "
-                                 "propagate")
-        log(f"PASS sgemm[{prec}] beta=0 with NaN in C: all NaN, as the "
-            "oracle")
+    errs.update(sgemm_kernels(torch, gen))
 
     for (h, w), iters, k in (((40, 200), 4, None), ((1024, 1536), 13, 1),
                               ((1024, 1536), 13, 8),
@@ -381,12 +376,62 @@ def phase_kernels(torch, gen):
     return errs
 
 
+def sgemm_kernels(torch, gen):
+    """Phase 3 for the depth-1 SGEMM (B1, TMA + wgmma): at every
+    precision and every tile it builds, at 1024^3, the ragged shapes and
+    two more, within ``sgemm.contract`` of the plain version and the
+    oracle; two calls bitwise equal; beta = 0 with NaN in C gives NaN."""
+    from tpukernels_torch.kernels import sgemm as S
+
+    dev = torch.device("cuda")
+
+    def unif(*shape):  # the C golden checker's [-1, 1) operands
+        return torch.rand(*shape, device=dev, generator=gen) * 2 - 1
+
+    bms, bns, _ = S.tiles(1)
+    errs = {}
+    for m, k, n in ((1024, 1024, 1024), (1000, 1042, 2176), (40, 72, 56),
+                    *GEMM_RAGGED):
+        a, b, c = unif(m, k), unif(k, n), unif(m, n)
+        ref = S.sgemm_reference(GEMM_ALPHA, a, b, GEMM_BETA, c)
+        for prec in S.PRECISIONS:
+            rtol, atol = S.contract(prec, k, GEMM_ALPHA)
+            plain = S.sgemm_plain(GEMM_ALPHA, a, b, GEMM_BETA, c, prec)
+            for bm in bms:
+                for bn in bns:
+                    label = f"sgemm[{prec}] {m}x{k}x{n} bm={bm} bn={bn}"
+                    with knobs(TPKT_SGEMM_BM=bm, TPKT_SGEMM_BN=bn):
+                        got = S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
+                                      precision=prec)
+                    check(f"{label} vs plain", got, plain, rtol, atol)
+                    check(f"{label} vs oracle", got, ref, rtol, atol)
+            got = S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c, precision=prec)
+            check_exact(f"sgemm[{prec}] {m}x{k}x{n} default tile, two calls",
+                        S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
+                                precision=prec), got)
+            if (m, k, n) == (1024, 1024, 1024):
+                errs[f"sgemm_{prec}"] = check(
+                    f"sgemm[{prec}] 1024^3 default tile vs plain", got,
+                    plain, rtol, atol)
+        del a, b, c, ref
+    a, b = unif(128, 128), unif(128, 128)
+    c = torch.full((128, 128), float("nan"), device=dev)
+    for prec in S.PRECISIONS:
+        got = S.sgemm(1.0, a, b, 0.0, c, precision=prec)
+        if not bool(got.isnan().all()):
+            raise AssertionError(f"sgemm[{prec}] beta=0: NaN in C did not "
+                                 "propagate")
+        log(f"PASS sgemm[{prec}] beta=0 with NaN in C: all NaN, as the "
+            "oracle")
+    return errs
+
+
 def sgemm_pipelined_kernels(torch, gen):
     """Phase 3 for the pipelined SGEMM (B2): at every precision, depth 2
-    and 3 and order ij and ji, bitwise against the depth-1 kernel (B1) at
-    the same tile, and within ``sgemm.contract`` of the plain version and
-    the oracle; at 1024^3 and the ragged shapes, at the default tile and
-    at 64 x 128 x 64."""
+    and 3 and order ij and ji, bitwise against depth 2 order ij at the
+    same tile (B1 sums in another order), and within ``sgemm.contract``
+    of the plain version and the oracle; at 1024^3 and the ragged
+    shapes, at the default tile and at 64 x 128 x 64."""
     from tpukernels_torch.kernels import sgemm as S
 
     dev = torch.device("cuda")
@@ -402,28 +447,24 @@ def sgemm_pipelined_kernels(torch, gen):
             rtol, atol = S.contract(prec, k, GEMM_ALPHA)
             plain = S.sgemm_plain(GEMM_ALPHA, a, b, GEMM_BETA, c, prec)
             for tname, tile in GEMM_TILES:
-                with knobs(**tile):
-                    one = S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
-                                  precision=prec)
-                    if tile:  # B1 at the other tile
-                        check(f"sgemm[{prec}] {m}x{k}x{n} {tname} vs plain",
-                              one, plain, rtol, atol)
-                    for depth in (2, 3):
-                        for order in ("ij", "ji"):
-                            with knobs(TPKT_SGEMM_DEPTH=depth,
-                                       TPKT_SGEMM_ORDER=order):
-                                got = S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
-                                              precision=prec)
-                            label = (f"sgemm_pipelined[{prec}] {m}x{k}x{n} "
-                                     f"depth={depth} order={order} {tname}")
-                            check_exact(f"{label} vs depth 1", got, one)
-                            e = check(f"{label} vs plain", got, plain, rtol,
-                                      atol)
-                            check(f"{label} vs oracle", got, ref, rtol, atol)
-                            if ((m, k, n, depth, order) == (1024, 1024, 1024,
-                                                            2, "ij")
-                                    and not tile):
-                                errs[f"sgemm_pipelined_{prec}"] = e
+                with knobs(TPKT_SGEMM_DEPTH=2, TPKT_SGEMM_ORDER="ij", **tile):
+                    base = S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
+                                   precision=prec)
+                for depth in (2, 3):
+                    for order in ("ij", "ji"):
+                        with knobs(TPKT_SGEMM_DEPTH=depth,
+                                   TPKT_SGEMM_ORDER=order, **tile):
+                            got = S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
+                                          precision=prec)
+                        label = (f"sgemm_pipelined[{prec}] {m}x{k}x{n} "
+                                 f"depth={depth} order={order} {tname}")
+                        check_exact(f"{label} vs depth 2 order ij", got, base)
+                        e = check(f"{label} vs plain", got, plain, rtol,
+                                  atol)
+                        check(f"{label} vs oracle", got, ref, rtol, atol)
+                        if ((m, k, n, depth, order) == (1024, 1024, 1024, 2,
+                                                        "ij") and not tile):
+                            errs[f"sgemm_pipelined_{prec}"] = e
         del a, b, c, ref
     a, b = unif(128, 128), unif(128, 128)
     c = torch.full((128, 128), float("nan"), device=dev)
@@ -711,6 +752,102 @@ def lookup_us(cache, S, stat=False, calls=2000):
     return (time.perf_counter() - t0) / calls * 1e6
 
 
+def host_us(fn, calls=1000, batch=100):
+    """Host microseconds per call of ``fn``: batches of ``batch`` calls
+    on the host's clock, the device drained between batches (outside
+    the clock), so a queue of launches never fills and blocks."""
+    import torch
+
+    fn()
+    total = 0.0
+    for _ in range(calls // batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / (calls // batch * batch) * 1e6
+
+
+def saxpy_host_us(torch, V, x, y):
+    """SAXPY's host path at ``x.numel()``, step by step: µs per call of
+    each piece a wrapper call may pay, the bare ctypes launch, the whole
+    wrapper and ``torch.add`` beside it."""
+    from tpukernels_torch import _build
+    from tpukernels_torch.tuning import resolve
+
+    n, dev = x.numel(), x.device
+    out = torch.empty_like(x)
+    threads, blocks = V.launch_plan(n, dev)
+    fn = _build.function("saxpy", "tpkt_saxpy", V._ARGTYPES)
+    stream = _build.stream_of(x)
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    steps = {
+        "resolve": lambda: resolve(V.TUNABLES, (n,), "float32", dev),
+        "get_device_properties":
+            lambda: torch.cuda.get_device_properties(dev),
+        "device_context": context,
+        "current_stream": lambda: torch.cuda.current_stream(dev),
+        "empty_like": lambda: torch.empty_like(x),
+        "ctypes_launch": lambda: fn(x.data_ptr(), y.data_ptr(),
+                                    out.data_ptr(), n, SAXPY_ALPHA, blocks,
+                                    threads, stream),
+        "launch_plan": lambda: V.launch_plan(n, dev),
+        "wrapper": lambda: V.saxpy(SAXPY_ALPHA, x, y),
+        "torch_add": lambda: torch.add(y, x, alpha=SAXPY_ALPHA),
+    }
+    return {name: host_us(f) for name, f in steps.items()}
+
+
+def saxpy_few_blocks_ms(torch, V, x, y, per_sm=8):
+    """Device ms of the SAXPY kernel on a grid of ``per_sm`` blocks a SM
+    walking the work in its grid-stride loop, to set beside the grid
+    that covers the work, which the wrapper picks."""
+    from tpukernels_torch import _build
+
+    n, out = x.numel(), torch.empty_like(x)
+    threads, blocks = V.launch_plan(n, x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    fn = _build.function("saxpy", "tpkt_saxpy", V._ARGTYPES)
+    return graph_ms(lambda: _build.launch(
+        fn, x, x.data_ptr(), y.data_ptr(), out.data_ptr(), n, SAXPY_ALPHA,
+        min(blocks, per_sm * sms), threads), 4)
+
+
+def sgemm_host_us(torch, S, a, b, c, prec):
+    """SGEMM's host path under the knobs set now, step by step: µs per
+    call of the memoised plan, the operand preparation (``operands``),
+    the output's allocation, the bare launch on prepared operands, the
+    whole wrapper, and ``torch.addmm`` beside it."""
+    from tpukernels_torch.tuning import plan_memo
+
+    m, n = c.shape
+    k = a.shape[1]
+    ops, kp = S.operands(a, b, prec)
+    out = torch.empty_like(c)
+    p = S.plan(m, n, k, prec, a.device)
+    steps = {
+        "plan_memo": lambda: plan_memo(S.TUNABLES,
+                                       (m, n, k, prec, a.device.index),
+                                       S.plan, m, n, k, prec, a.device),
+        "operands": lambda: S.operands(a, b, prec),
+        "empty": lambda: torch.empty((m, n), dtype=torch.float32,
+                                     device=a.device),
+        "launch": lambda: S.launch(GEMM_ALPHA, ops, kp, GEMM_BETA, c, out,
+                                   prec, p),
+        "wrapper": lambda: S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
+                                   precision=prec),
+        "torch_addmm": lambda: torch.addmm(c, a, b, beta=GEMM_BETA,
+                                           alpha=GEMM_ALPHA),
+    }
+    return {name: host_us(f, calls=500) for name, f in steps.items()}
+
+
 def phase_times(torch, gen, peaks):
     log("== phase 5: times (CUDA events, after warm-up)")
     from tpukernels_torch.kernels import nbody as NB
@@ -742,18 +879,25 @@ def phase_times(torch, gen, peaks):
             8 * x.numel(), flops_per_cell * interior * iters, fp32, bw)
         out[label] = row
 
-    for n, reps in ((1 << 20, 200), (1 << 26, 20)):
+    for n, reps, calls in ((1 << 20, 200, 20), (1 << 26, 20, 4)):
         x, y = randn(n), randn(n)
         row = {
             "n": n,
             "ms": time_ms(lambda: V.saxpy(SAXPY_ALPHA, x, y), reps),
+            "device_ms": graph_ms(lambda: V.saxpy(SAXPY_ALPHA, x, y), calls),
             "plain_ms": time_ms(
                 lambda: V.saxpy_reference(SAXPY_ALPHA, x, y), reps),
             "library_ms": time_ms(
                 lambda: torch.add(y, x, alpha=SAXPY_ALPHA), reps),
+            "library_device_ms": graph_ms(
+                lambda: torch.add(y, x, alpha=SAXPY_ALPHA), calls),
             "launches_per_call": 1,
         }
         row["bound_ms"], row["bound_by"] = bound(12 * n, 2 * n, fp32, bw)
+        if n == 1 << 20:
+            row["host_us"] = saxpy_host_us(torch, V, x, y)
+        else:  # the grid the wrapper picks against 8 blocks a SM looping
+            row["few_blocks_device_ms"] = saxpy_few_blocks_ms(torch, V, x, y)
         out[f"saxpy n={n}"] = row
         del x, y
 
@@ -771,10 +915,18 @@ def phase_times(torch, gen, peaks):
                                           precision=prec), 20),
             "plain_ms": time_ms(lambda: S.sgemm_plain(
                 GEMM_ALPHA, a, b, GEMM_BETA, c, prec), 20),
+            "device_ms": graph_ms(lambda: S.sgemm(
+                GEMM_ALPHA, a, b, GEMM_BETA, c, precision=prec), 20),
             "library_ms": lib,
+            "library_device_ms": graph_ms(lambda: torch.addmm(
+                c, a, b, beta=GEMM_BETA, alpha=GEMM_ALPHA), 20),
             "launches_per_call": 1,
             "knobs": S.plan(m, n, k, prec, dev),
         }
+        row["split_ms"], row["kernel_ms"] = sgemm_parts(torch, S, a, b, c,
+                                                        prec, 20)
+        if prec == "high":
+            row["host_us"] = sgemm_host_us(torch, S, a, b, c, prec)
         row["bound_ms"], row["bound_by"] = bound(
             4 * (m * k + k * n + 2 * m * n), work, rate, bw)
         out[f"sgemm[{prec}]"] = row
@@ -855,6 +1007,17 @@ def phase_times(torch, gen, peaks):
             extra += f", {r['blocks']} blocks"
         if "device_ms" in r:
             extra += f", device alone {r['device_ms']:.4f} ms"
+        if "kernel_ms" in r:
+            extra += (f", operands {r['split_ms']:.4f} ms + kernel "
+                      f"{r['kernel_ms']:.4f} ms on the device")
+        if "library_device_ms" in r:
+            extra += f", library device {r['library_device_ms']:.4f} ms"
+        if "few_blocks_device_ms" in r:
+            extra += (", 8 blocks a SM looping "
+                      f"{r['few_blocks_device_ms']:.4f} ms on the device")
+        if "host_us" in r:
+            extra += ", host us a call: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in r["host_us"].items())
         if "per_tile_device_ms" in r:
             extra += ", device per tile: " + ", ".join(
                 f"{t} {ms:.4f} ms"
@@ -869,30 +1032,54 @@ def phase_times(torch, gen, peaks):
     return out
 
 
+def sgemm_parts(torch, S, a, b, c, prec, calls):
+    """(split_ms, kernel_ms) of one SGEMM call under the knobs set now:
+    the device time of the wrapper's operand preparation alone
+    (``operands``: the bf16 split, B^T or A^T, the row padding) and of
+    the kernel alone on operands prepared once."""
+    m, n = c.shape
+    ops, kp = S.operands(a, b, prec)
+    out = torch.empty_like(c)
+    p = S.plan(m, n, a.shape[1], prec, a.device)
+    split = graph_ms(lambda: S.operands(a, b, prec), calls)
+    kernel = graph_ms(lambda: S.launch(GEMM_ALPHA, ops, kp, GEMM_BETA, c,
+                                       out, prec, p), calls)
+    return split, kernel
+
+
 def sgemm_times(torch, gen, peaks):
-    """Phase 5 for SGEMM's tuned path: at 1024^3 ``high`` at depth 1/2/3
-    in both grid orders and at the 64-row tile, ``float32`` and
-    ``default`` at each depth; at 4096^3 ``high`` at each depth. Each
-    beside its bound, the plain version and ``torch.addmm``."""
+    """Phase 5 for SGEMM's tuned path: at 1024^3 every precision at depth
+    1 (B1) on each tile it builds, ``high`` at depth 1/2/3 in both grid
+    orders and B2 at the 64-row tile, ``float32`` and ``default`` at
+    depth 2/3; at 4096^3 ``high`` on B1's tiles and at depth 2/3. Each
+    beside its bound, the plain version and ``torch.addmm``; B1's rows
+    with the device time of the operand preparation and of the kernel
+    alone."""
     from tpukernels_torch.kernels import sgemm as S
 
     _, bw, bf16, fp32 = peaks
     dev = torch.device("cuda")
     passes = {"high": (3, bf16), "float32": (1, fp32), "default": (1, bf16)}
     bm64 = {"TPKT_SGEMM_BM": 64}
+    bms, bns, _ = S.tiles(1)
+    b1_tiles = [{"TPKT_SGEMM_BM": bm, "TPKT_SGEMM_BN": bn}
+                for bm in bms for bn in bns]
     out = {}
     for size, reps in ((1024, 50), (4096, 5)):
         m = k = n = size
+        calls = 20 if size == 1024 else 2
         a, b, c = (torch.rand(*s, device=dev, generator=gen) * 2 - 1
                    for s in ((m, k), (k, n), (m, n)))
         lib = time_ms(lambda: torch.addmm(c, a, b, beta=GEMM_BETA,
                                           alpha=GEMM_ALPHA), reps)
-        combos = [("high", d, "ij", {}) for d in S.DEPTHS]
+        precs = S.PRECISIONS if size == 1024 else ("high",)
+        combos = [(p, 1, "ij", t) for p in precs for t in b1_tiles]
+        combos += [("high", d, "ij", {}) for d in (2, 3)]
         if size == 1024:
             combos += [("high", d, "ji", {}) for d in S.DEPTHS]
-            combos += [("high", d, "ij", bm64) for d in S.DEPTHS]
+            combos += [("high", d, "ij", bm64) for d in (2, 3)]
             combos += [(p, d, "ij", {}) for p in ("float32", "default")
-                       for d in S.DEPTHS]
+                       for d in (2, 3)]
         plain = {}
         for prec, depth, order, tile in combos:
             if prec not in plain:
@@ -911,15 +1098,22 @@ def sgemm_times(torch, gen, peaks):
                 }
                 row["device_ms"] = graph_ms(
                     lambda: S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
-                                    precision=prec), 20 if size == 1024 else 2)
+                                    precision=prec), calls)
+                if depth == 1:
+                    row["split_ms"], row["kernel_ms"] = sgemm_parts(
+                        torch, S, a, b, c, prec, calls)
             t = row["knobs"]
             row["blocks"] = -(-m // t["bm"]) * -(-n // t["bn"])
             mult, rate = passes[prec]
             row["bound_ms"], row["bound_by"] = bound(
                 4 * (m * k + k * n + 2 * m * n), mult * 2 * m * n * k, rate,
                 bw)
-            out[f"sgemm[{prec}] {size}^3 depth={depth} order={order}"
-                + (" bm=64" if tile else "")] = row
+            label = f"sgemm[{prec}] {size}^3 depth={depth} order={order}"
+            if depth == 1 and tile:
+                label += f" tile={t['bm']}x{t['bn']}"
+            elif tile:
+                label += " bm=64"
+            out[label] = row
         del a, b, c
     return out
 
@@ -1033,25 +1227,52 @@ def main(argv=None):
                 "replaces": row.where, "launches": launches[name],
                 "max_abs_err": err, **{k: t[k] for k in keys}, **extra}
 
+    t = times[f"saxpy n={1 << 20}"]
     kernels = [
-        entry("saxpy", sx, times[f"saxpy n={1 << 20}"],
-              errs["saxpy"][1 << 20], n=1 << 20,
+        entry("saxpy", sx, t, errs["saxpy"][1 << 20], n=1 << 20,
+              device_ms=t["device_ms"],
+              library_device_ms=t["library_device_ms"], host_us=t["host_us"],
               stream={k: times[f"saxpy n={1 << 26}"][k] for k in
-                      ("n", "ms", "plain_ms", "library_ms", "bound_ms",
-                       "bound_by")}),
+                      ("n", "ms", "device_ms", "plain_ms", "library_ms",
+                       "library_device_ms", "few_blocks_device_ms",
+                       "bound_ms", "bound_by")}),
     ]
+    def picked(r, *keys):  # one timed SGEMM row, its keys picked
+        keys = keys or ("ms", "device_ms", "plain_ms", "library_ms",
+                        "bound_ms", "bound_by")
+        return {key: r[key] for key in keys if key in r}
+
+    # B1: the main path's call at the default tile, with its device
+    # time, its operand preparation and kernel alone, and every tile
     for prec, mode in GEMM_MODES.items():
         t = times[f"sgemm[{prec}]"]
+        tiles = {lbl.rsplit("tile=", 1)[1]: picked(
+                     r, "ms", "device_ms", "split_ms", "kernel_ms")
+                 for lbl, r in times.items()
+                 if lbl.startswith(f"sgemm[{prec}] 1024^3 depth=1 ")
+                 and "tile=" in lbl}
+        extra = {}
+        if prec == "high":
+            extra["at_4096"] = [
+                dict(picked(r), tile=lbl.rsplit("tile=", 1)[1],
+                     kernel_ms=r["kernel_ms"], split_ms=r["split_ms"])
+                for lbl, r in times.items()
+                if lbl.startswith("sgemm[high] 4096^3 depth=1 ")]
+        if "host_us" in t:
+            extra["host_us"] = t["host_us"]
         kernels.append(entry(f"sgemm_{mode}", sg, t, errs[f"sgemm_{prec}"],
                              precision=prec, shape=t["shape"],
-                             knobs=t["knobs"]))
+                             knobs=t["knobs"], device_ms=t["device_ms"],
+                             split_ms=t["split_ms"], kernel_ms=t["kernel_ms"],
+                             library_device_ms=t["library_device_ms"],
+                             per_tile=tiles, **extra))
     # B2: `high` at depth 2 order ij, the env-driven main path; the other
     # modes at their fastest depth. max_abs_err is against the plain
     # version at depth 2 order ij (phase 3 holds every depth and order)
     for prec, mode in GEMM_MODES.items():
         rows_1024 = {lbl: r for lbl, r in times.items()
                      if lbl.startswith(f"sgemm[{prec}] 1024^3 depth=")
-                     and not lbl.endswith("bm=64")}
+                     and "tile=" not in lbl and not lbl.endswith("bm=64")}
         t = (times["sgemm[high] 1024^3 depth=2 order=ij"] if prec == "high"
              else min((r for r in rows_1024.values() if r["depth"] > 1),
                       key=lambda r: r["ms"]))
@@ -1063,15 +1284,17 @@ def main(argv=None):
                 if lbl.startswith("sgemm[high] 1024^3") and
                 lbl.endswith("bm=64")}
             extra["at_4096"] = [
-                {key: r[key] for key in ("depth", "ms", "plain_ms",
-                                         "library_ms", "bound_ms",
-                                         "bound_by")}
+                picked(r, "depth", "ms", "device_ms", "plain_ms",
+                       "library_ms", "bound_ms", "bound_by")
                 for lbl, r in times.items()
-                if lbl.startswith("sgemm[high] 4096^3")]
+                if lbl.startswith("sgemm[high] 4096^3 depth=")
+                and "tile=" not in lbl]
         kernels.append(entry(f"sgemm_pipelined_{mode}", by_id["B2"], t,
                              errs[f"sgemm_pipelined_{prec}"], precision=prec,
                              shape=t["shape"], depth=t["depth"],
-                             order=t["order"], knobs=t["knobs"], **extra))
+                             order=t["order"], knobs=t["knobs"],
+                             device_ms=t["device_ms"], **extra))
+
     def canary(label):  # the small kernel's shape, timed
         return {k: times[label][k] for k in ("shape", "iters", "ms",
                                             "plain_ms", "bound_ms",

@@ -11,6 +11,7 @@
 """
 
 import ast
+import contextlib
 import os
 import re
 import subprocess
@@ -194,3 +195,40 @@ def test_registry_keys_match_reference():
     from tpukernels import registry as ref
 
     assert set(registry.names()) | set(registry.PENDING) == set(ref.names())
+
+
+class _OnCard:
+    """A stand-in for a tensor on CUDA device ``index``."""
+
+    def __init__(self, index):
+        self.index = index
+
+    def get_device(self):
+        return self.index
+
+
+@pytest.mark.parametrize("current,target", [(0, 0), (0, 1), (1, 1)])
+def test_launch_enters_the_device_only_when_it_is_not_current(monkeypatch,
+                                                              current,
+                                                              target):
+    """_build.launch passes the raw current stream of the tensor's
+    device and makes that device current around the call only when it is
+    not current already."""
+    entered = []
+
+    @contextlib.contextmanager
+    def device(idx):
+        entered.append(idx)
+        yield
+
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: current,
+                        raising=False)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda idx: 1000 + idx, raising=False)
+    calls = []
+    rc = _build.launch(lambda *a: calls.append(a) or 7, _OnCard(target), 3,
+                       4)
+    assert rc == 7 and calls == [(3, 4, 1000 + target)]
+    assert entered == ([] if current == target else [target])
+    assert _build.stream_of(_OnCard(target)) == 1000 + target

@@ -106,3 +106,29 @@ def test_sgemm_rejects_bad_shapes():
         S.sgemm(1.0, a, torch.zeros(6, 3), 0.0, torch.zeros(4, 3))
     with pytest.raises(TypeError):
         S.sgemm(1.0, a.double(), torch.zeros(5, 3), 0.0, torch.zeros(4, 3))
+
+
+@pytest.mark.parametrize("precision", ["high", "float32", "default"])
+@pytest.mark.parametrize("m,n,k", [(100, 200, 300), (64, 96, 129),
+                                   (33, 130, 300)])
+def test_kernel_operands_give_the_jax_product(m, n, k, precision):
+    """The operands both CUDA kernels take (``S.operands``: the bf16
+    split, B^T or A^T, rows padded with zeros to whole 16 bytes), summed
+    as the kernels sum them, give the JAX kernel's result within the
+    parity band: the padding and the layout lose nothing."""
+    a, b, c = _operands(m, n, k, seed=13)
+    ops, kp = S.operands(torch.from_numpy(a), torch.from_numpy(b),
+                         precision)
+    assert kp == (k if precision == "float32" else -(-k // 8) * 8)
+    f = [None if t is None else t.double() for t in ops]
+    if precision == "float32":
+        acc = f[0].t()[:m] @ f[2][:, :n]
+    elif precision == "high":
+        acc = f[0] @ f[2].t() + f[0] @ f[3].t() + f[1] @ f[2].t()
+    else:
+        acc = f[0] @ f[2].t()
+    got = (1.5 * acc + 0.5 * torch.from_numpy(c).double()).float()
+    want = np.asarray(J.sgemm(1.5, jnp.asarray(a), jnp.asarray(b), 0.5,
+                              jnp.asarray(c), precision=precision))
+    rtol, atol = _tol(precision, k)
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=atol)

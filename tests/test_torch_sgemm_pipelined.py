@@ -5,8 +5,8 @@ The JAX side runs its pipelined Pallas kernel (``TPK_SGEMM_DEPTH=2|3``,
 own tests do; the port runs under the matching ``TPKT_*`` knobs (its
 largest k block, 64, for the reference's 128) and takes its plain
 version on CPU tensors, after resolving and checking the knobs. That
-the CUDA kernel equals the depth-1 kernel bitwise is checked on the card
-(``chip_smoke.py`` phase 3).
+the CUDA kernel gives the same bits at every depth and order is checked
+on the card (``chip_smoke.py`` phase 3).
 """
 
 import jax.numpy as jnp
@@ -52,11 +52,11 @@ def test_pipelined_matches_jax(monkeypatch, depth, m, n, k, precision):
 @pytest.mark.parametrize("m,n,k", [(100, 200, 300), (40, 72, 56),
                                    (33, 130, 300), (64, 96, 129)])
 def test_pipelined_operands_hold_the_product(m, n, k, precision):
-    """The operands the pipelined kernel is handed (B^T or A^T, rows
-    padded with zeros to whole 16-byte chunks) give the same product as
-    the unpadded ones: the layout and the pad are right."""
+    """The operands both kernels are handed (B^T or A^T, rows padded
+    with zeros to whole 16-byte chunks) give the same product as the
+    unpadded ones: the layout and the pad are right."""
     a, b, c = (torch.from_numpy(t) for t in _operands(m, n, k, seed=9))
-    ops, kp = S.pipelined_operands(a, b, precision)
+    ops, kp = S.operands(a, b, precision)
     widths = {"float32": ((k, 4 * -(-m // 4)), (k, 4 * -(-n // 4))),
               "high": ((m, 8 * -(-k // 8)), (n, 8 * -(-k // 8)))}
     widths["default"] = widths["high"]
@@ -111,18 +111,20 @@ def test_knobs_over_the_smem_budget_raise_before_any_launch(monkeypatch,
                                                             precision):
     a = torch.zeros(16, 16)
     monkeypatch.setenv("TPKT_SGEMM_BK", "128")
-    S.sgemm(1.0, a, a, 0.0, a, precision=precision)  # one stage fits
+    S.sgemm(1.0, a, a, 0.0, a, precision=precision)  # depth 1 fits
     monkeypatch.setenv("TPKT_SGEMM_DEPTH", "2")
     with pytest.raises(ValueError, match="TPKT_SGEMM_BK=128.*DEPTH=2"):
         S.sgemm(1.0, a, a, 0.0, a, precision=precision)
 
 
 def test_plan_picks_built_tiles(monkeypatch):
+    # depth 1 (sgemm.cu) builds bm 128/64 x bn 128/64 x bk 64: 128 x 64
+    # by default, 128 blocks at 1024^2
     assert S.plan(1024, 1024, 1024, device="cpu") == {
-        "bm": 128, "bn": 128, "bk": 32, "depth": 1, "order": "ij"}
+        "bm": 128, "bn": 64, "bk": 64, "depth": 1, "order": "ij"}
     # small or ragged dims: the least padding among the built tiles
     p = S.plan(40, 72, 56, device="cpu")
-    assert (p["bm"], p["bn"], p["bk"]) == (64, 128, 32)
+    assert (p["bm"], p["bn"], p["bk"]) == (64, 64, 64)
     monkeypatch.setenv("TPKT_SGEMM_BM", "64")
     monkeypatch.setenv("TPKT_SGEMM_BK", "64")
     monkeypatch.setenv("TPKT_SGEMM_BN", "256")
@@ -146,3 +148,28 @@ def test_b2_row_counters_and_build():
                    "commit_group", "cudaFuncAttributeMaxDynamicSharedMemorySize",
                    "tpkt_sgemm_pipelined"):
         assert needle in src + (_build.CSRC / "sgemm.cuh").read_text(), needle
+
+
+def test_b1_row_counters_and_build():
+    """B1 (depth 1) is csrc/sgemm.cu: a two-stage ring of TMA tile loads
+    on full/empty mbarriers feeding wgmma (bf16 modes) or fp32 FMAs,
+    the tensor maps encoded through cudaGetDriverEntryPoint so that no
+    library links against the CUDA driver library (no -lcuda)."""
+    row = next(r for r in TPU_KERNELS if r.id == "B1")
+    assert row.status == "ported" and row.port_entry == "tpkt_sgemm"
+    assert row.port_source == "tpukernels_torch/csrc/sgemm.cu"
+    assert set(row.launches) == {f"sgemm_{s}"
+                                 for s in ("split3", "float32", "bf16")}
+    assert set(row.launches) <= set(LAUNCHES)
+    src = (_build.CSRC / "sgemm.cu").read_text()
+    both = src + (_build.CSRC / "hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in src and "sgemm.cuh" not in src
+    for needle in ("_sgemm_kernel", "STAGES = 2", "__grid_constant__",
+                   "cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity",
+                   "mbarrier.arrive.expect_tx", "wgmma.mma_async",
+                   "wgmma.commit_group", "wgmma.wait_group",
+                   "CU_TENSOR_MAP_SWIZZLE_128B", "cudaGetDriverEntryPoint",
+                   "cuTensorMapEncodeTiled", "fmaf", "tpkt_sgemm"):
+        assert needle in both, needle
+    assert not any("cuda" in f and f.startswith("-l")
+                   for f in _build.NVCC_FLAGS)

@@ -62,15 +62,18 @@ def _edit_entry(field, value):
 # ------------------------------------------------------------------ #
 
 def test_sgemm_smem_arithmetic_and_pruning():
-    """The model's numbers on the card: split3 128x128x32 takes 40 960 B
-    a stage (80 KB at depth 2, 120 KB at depth 3), every built tile fits
-    at every depth, and a k block of 128 is pruned past one stage."""
-    control = {"bm": 128, "bn": 128, "bk": 32, "depth": 1, "order": "ij"}
-    assert S._smem_bytes(control) == 40_960
+    """The model's numbers on the card: depth 1 (TMA + wgmma) takes two
+    stages plus 1024 B of alignment and four mbarriers, split3 at
+    128x64x64 99 360 B; depth 2/3 (cp.async) at 128x128x32 40 960 B a
+    stage (80 KB at depth 2, 120 KB at depth 3). Every built tile fits
+    at every depth, and a k block of 128 is pruned at depth 2/3 (depth
+    1 builds k blocks of 64 only, which is what it counts)."""
+    control = {"bm": 128, "bn": 64, "bk": 32, "depth": 1, "order": "ij"}
+    assert S._smem_bytes(control) == 99_360
     assert S._smem_bytes({**control, "depth": 2}) == 81_920
     assert S._smem_bytes({**control, "depth": 3}) == 122_880
-    assert S._smem_bytes(control, precision="float32") == 33_280
-    assert S._smem_bytes(control, precision="default") == 20_480
+    assert S._smem_bytes(control, precision="float32") == 99_360
+    assert S._smem_bytes(control, precision="default") == 50_208
     widest = {"bm": 128, "bn": 128, "bk": 64, "depth": 3}
     assert S._smem_bytes(widest) == 221_184 <= SMEM_BUDGET_BYTES == 232_448
     assert not S.TUNABLES.feasible({**widest, "bk": 128, "depth": 2})
@@ -78,15 +81,16 @@ def test_sgemm_smem_arithmetic_and_pruning():
 
     cands, pruned = S.TUNABLES.candidates()
     assert cands[0] == control and pruned == 0
-    assert len(cands) == 2 * 1 * 2 * 3 * 2
-    # with bk 128 among the sweep values the model prunes depths 2-3 at
-    # bm 128 and depth 3 at bm 64, in both orders
+    assert len(cands) == 2 * 2 * 2 * 3 * 2
+    # with bk 128 among the sweep values the model prunes, in both
+    # orders, depth 2 at bm 128 (both bn, which depth 2 builds as 128)
+    # and depth 3 at every tile
     bk = dataclasses.replace(S.TUNABLES.tunables[2], values=(32, 64, 128))
     wide = dataclasses.replace(
         S.TUNABLES, tunables=(*S.TUNABLES.tunables[:2], bk,
                               *S.TUNABLES.tunables[3:]))
     cands, pruned = wide.candidates()
-    assert pruned == 6 and len(cands) == 36 - 6
+    assert pruned == 12 and len(cands) == 72 - 12
     assert all(wide.feasible(c) for c in cands)
 
 
@@ -231,7 +235,7 @@ def test_resolve_precedence(monkeypatch):
               shape=shape, dtype=dtype, kind="cpu")
     # knobs the entry lacks fall back to the defaults, one by one
     assert resolve(S.TUNABLES, shape, dtype, "cpu") == {
-        "bm": 64, "bn": 128, "bk": 64, "depth": 3, "order": "ij"}
+        "bm": 64, "bn": 64, "bk": 64, "depth": 3, "order": "ij"}
     assert registry.knob_sources("sgemm", shape, dtype, "cpu") == {
         "bm": "cache", "bn": "default", "bk": "cache", "depth": "cache",
         "order": "default"}
@@ -239,7 +243,7 @@ def test_resolve_precedence(monkeypatch):
     # a set env knob beats the cache for its own knob only
     monkeypatch.setenv("TPKT_SGEMM_DEPTH", "2")
     assert registry.resolve_params("sgemm", shape, dtype, "cpu") == {
-        "bm": 64, "bn": 128, "bk": 64, "depth": 2, "order": "ij"}
+        "bm": 64, "bn": 64, "bk": 64, "depth": 2, "order": "ij"}
     assert registry.knob_sources("sgemm", shape, dtype, "cpu")["depth"] == \
         "env"
     monkeypatch.delenv("TPKT_SGEMM_DEPTH")
@@ -351,3 +355,85 @@ def test_pick_block_docstring_cases():
     assert S._pick_block(1024, 128, S.BM_SIZES) == 128
     assert S._pick_block(40, 128, S.BM_SIZES) == 64
     assert S._pick_block(300, 64, S.BK_SIZES) == 64
+
+
+def test_plan_memo_follows_env_cache_and_switch(monkeypatch):
+    """tuning.plan_memo: a hit while nothing changed; a new plan after a
+    knob's env var, a cache entry or the cache switch changed."""
+    from tpukernels_torch.tuning import plan_memo
+
+    monkeypatch.setattr(cache.time, "monotonic", lambda: 100.0)
+    made = []
+
+    def make():
+        made.append(1)
+        return resolve(S.TUNABLES, (8, 8, 8), "float32", "cpu")["depth"]
+
+    key = ((8, 8, 8), None)
+    assert plan_memo(S.TUNABLES, key, make) == 1
+    assert plan_memo(S.TUNABLES, key, make) == 1 and len(made) == 1
+    monkeypatch.setenv("TPKT_SGEMM_DEPTH", "2")
+    assert plan_memo(S.TUNABLES, key, make) == 2 and len(made) == 2
+    monkeypatch.delenv("TPKT_SGEMM_DEPTH")
+    assert plan_memo(S.TUNABLES, key, make) == 1 and len(made) == 2
+    cache.put(S.TUNABLES, {"depth": 3}, shape=(8, 8, 8), dtype="float32",
+              kind="cpu")
+    assert plan_memo(S.TUNABLES, key, make) == 3 and len(made) == 3
+    monkeypatch.setenv("TPKT_TUNING_CACHE", "off")
+    assert plan_memo(S.TUNABLES, key, make) == 1 and len(made) == 4
+    # another key is another plan; make takes the arguments given
+    assert plan_memo(S.TUNABLES, ((9, 9, 9), None), make) == 1
+    assert len(made) == 5
+    assert plan_memo(S.TUNABLES, (0,), lambda *a: a, 4, 5) == (4, 5)
+
+
+@pytest.mark.parametrize("depth", S.DEPTHS)
+def test_plan_picks_only_the_tiles_of_the_kernel_depth_selects(monkeypatch,
+                                                                depth):
+    """Whatever the preferences and the shape, plan() returns a tile the
+    kernel that ``depth`` selects is built for: depth 1 (sgemm.cu) bm
+    128/64 x bn 128/64 x bk 64, depth 2/3 (sgemm_pipelined.cu) bm 128/64
+    x bn 128 x bk 32/64."""
+    bms, bns, bks = S.tiles(depth)
+    assert S.tiles(depth) == S.TILES[1 if depth == 1 else 2]
+    monkeypatch.setenv("TPKT_SGEMM_DEPTH", str(depth))
+    rng = np.random.default_rng(depth)
+    checked = 0
+    for _ in range(60):
+        pref = {k: int(rng.choice([8, 32, 64, 96, 128, 256]))
+                for k in ("bm", "bn", "bk")}
+        if not S.TUNABLES.feasible({**pref, "depth": depth}):
+            continue  # raises before any tile is picked
+        for k, v in pref.items():
+            monkeypatch.setenv(f"TPKT_SGEMM_{k.upper()}", str(v))
+        m, n, k = (int(d) for d in rng.integers(1, 3000, 3))
+        checked += 1
+        p = S.plan(m, n, k, "default", "cpu")
+        assert p["bm"] in bms and p["bn"] in bns and p["bk"] in bks, p
+        assert p["depth"] == depth
+    assert checked >= 20
+    for k in ("BM", "BN", "BK"):
+        monkeypatch.delenv(f"TPKT_SGEMM_{k}")
+    want = {1: (128, 64, 64), 2: (128, 128, 32), 3: (128, 128, 32)}[depth]
+    p = S.plan(1024, 1024, 1024, device="cpu")
+    assert (p["bm"], p["bn"], p["bk"]) == want
+
+
+@pytest.mark.parametrize("precision", S.PRECISIONS)
+def test_depth1_smem_counts_two_stages_alignment_and_barriers(precision):
+    """Depth 1 needs two stages of every operand tile, 1024 bytes to
+    align the ring for the 128-byte swizzle and four 8-byte mbarriers;
+    every tile it builds fits a block."""
+    nops = 2 if precision == "high" else 1
+    elem = 4 if precision == "float32" else 2
+    bms, bns, bks = S.tiles(1)
+    for bm in bms:
+        for bn in bns:
+            need = S._smem_bytes({"bm": bm, "bn": bn, "bk": bks[0],
+                                  "depth": 1}, precision=precision)
+            stage = nops * (bm + bn) * bks[0] * elem
+            assert need == 2 * stage + 1024 + 32 <= SMEM_BUDGET_BYTES
+    # a preference under the smallest built size counts as that size
+    assert S._smem_bytes({"bm": 8, "bn": 8, "bk": 8, "depth": 1},
+                         precision=precision) == \
+        2 * nops * 128 * 64 * elem + 1056

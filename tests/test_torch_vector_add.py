@@ -51,3 +51,64 @@ def test_saxpy_knobs(monkeypatch):
     monkeypatch.setenv("TPKT_SAXPY_THREADS", "abc")
     with pytest.raises(ValueError, match="TPKT_SAXPY_THREADS"):
         resolve(V.TUNABLES)
+
+
+@pytest.fixture
+def plan_env(tmp_path, monkeypatch):
+    """An empty tuning cache of the test's own, no SAXPY knob set, a
+    fixed source sha, and a clock that stands still (the cache's memo
+    does not expire between calls)."""
+    from tpukernels_torch.tuning import cache
+
+    monkeypatch.setattr(cache.time, "monotonic", lambda: 100.0)
+    monkeypatch.setenv("TPKT_TUNING_CACHE_DIR", str(tmp_path / "tcache"))
+    monkeypatch.delenv("TPKT_TUNING_CACHE", raising=False)
+    monkeypatch.delenv("TPKT_SAXPY_THREADS", raising=False)
+    monkeypatch.setattr(cache, "source_sha", lambda sources, root=None: "a")
+    cache.forget()
+    return cache
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1 << 20, 1 << 26])
+def test_saxpy_launch_plan_memo_follows_env_and_cache(plan_env, monkeypatch,
+                                                      n):
+    """The memoised plan is the plan an unmemoised resolve would give,
+    call after call: it follows TPKT_SAXPY_THREADS and a new cache entry
+    at once, and a memo hit costs no new plan."""
+    cache, cpu = plan_env, torch.device("cpu")
+    made = []
+    build = V._launch_plan
+    monkeypatch.setattr(V, "_launch_plan",
+                        lambda *a: made.append(a) or build(*a))
+    want = lambda t: (t, -(-n // (16 * t)))  # noqa: E731
+    assert V.launch_plan(n, cpu) == want(256)
+    assert V.launch_plan(n, cpu) == want(256) and len(made) == 1
+    monkeypatch.setenv("TPKT_SAXPY_THREADS", "512")
+    assert V.launch_plan(n, cpu) == want(512)
+    monkeypatch.delenv("TPKT_SAXPY_THREADS")
+    cache.put(V.TUNABLES, {"threads": 128}, shape=(n,), dtype="float32",
+              kind="cpu")
+    assert V.launch_plan(n, cpu) == want(128)
+    assert V.launch_plan(n, cpu) == want(128) and len(made) == 3
+    monkeypatch.setenv("TPKT_TUNING_CACHE", "off")
+    assert V.launch_plan(n, cpu) == want(256)
+    monkeypatch.setenv("TPKT_SAXPY_THREADS", "48")
+    with pytest.raises(ValueError, match="TPKT_SAXPY_THREADS=48"):
+        V.launch_plan(n, cpu)
+
+
+@pytest.mark.parametrize("shape,view", [((4, 250), "2-D"), ((1001,), "offset"),
+                                        ((1000,), "strided")])
+def test_saxpy_flattens_only_what_needs_it(shape, view):
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    y = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    if view == "offset":
+        x, y = x[1:], y[1:]
+    elif view == "strided":
+        x, y = x[::2], y[::2]
+    got = V.saxpy(0.7, x, y)
+    assert got.shape == (x.numel(),)
+    want = np.asarray(jax_saxpy(0.7, jnp.asarray(x.reshape(-1).numpy()),
+                                jnp.asarray(y.reshape(-1).numpy())))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)

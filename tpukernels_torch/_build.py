@@ -9,8 +9,12 @@ missing libraries are compiled in parallel, one ``nvcc`` each.
 
 Every C entry takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch;
-:func:`check` raises when that is not ``cudaSuccess``. A missing
-``nvcc`` or a failed build raises: nothing falls back to PyTorch.
+:func:`launch` calls one on a tensor's device and current stream, and
+:func:`check` raises when it did not return ``cudaSuccess``. A missing
+``nvcc`` or a failed build raises: nothing falls back to PyTorch. The
+libraries link against the CUDA runtime only: the one CUDA driver call
+a kernel needs (``cuTensorMapEncodeTiled``, ``csrc/hopper.cuh``) is
+reached through ``cudaGetDriverEntryPoint``, not ``-lcuda``.
 """
 
 from __future__ import annotations
@@ -125,4 +129,16 @@ def check(rc: int, what: str) -> None:
 
 def stream_of(t) -> int:
     """The raw handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def launch(fn, t, *args) -> int:
+    """``fn(*args, stream)``: a C entry called with the raw handle of
+    PyTorch's current stream on ``t``'s device, that device made current
+    around the call only when it is not current already (a launch goes
+    to the current device). Returns the entry's code."""
+    dev = t.get_device()
+    if dev == torch._C._cuda_getDevice():  # CUDA is up: t lives there
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev))

@@ -82,9 +82,7 @@ def _histogram_cuda(x, nbins):
     per_sm = resolve(TUNABLES, shape=(n, nbins), dtype="int32",
                      device=x.device)["blocks_per_sm"]
     fn = _build.function("histogram", "tpkt_histogram", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), n, nbins, per_sm,
-                _build.stream_of(x))
+    rc = _build.launch(fn, x, x.data_ptr(), out.data_ptr(), n, nbins, per_sm)
     LAUNCHES["histogram"] += 1
     _build.check(rc, "tpkt_histogram")
     return out

@@ -102,10 +102,9 @@ def _forces_cuda(px, py, pz, m, eps2, bi, bj):
     if n == 0:
         return ax, ay, az
     fn = _build.function("nbody", "tpkt_nbody_forces", _ARGTYPES)
-    with torch.cuda.device(px.device):
-        rc = fn(px.data_ptr(), py.data_ptr(), pz.data_ptr(), m.data_ptr(),
-                ax.data_ptr(), ay.data_ptr(), az.data_ptr(), n, eps2, bi, bj,
-                _build.stream_of(px))
+    rc = _build.launch(fn, px, px.data_ptr(), py.data_ptr(), pz.data_ptr(),
+                       m.data_ptr(), ax.data_ptr(), ay.data_ptr(),
+                       az.data_ptr(), n, eps2, bi, bj)
     LAUNCHES["nbody_forces"] += 1
     _build.check(rc, "tpkt_nbody_forces")
     return ax, ay, az

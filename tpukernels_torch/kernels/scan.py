@@ -112,10 +112,8 @@ def _scan_cuda(x, tile):
         return out
     state = scan_state(n, tile, x.device)
     fn = _build.function("scan", "tpkt_scan", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), state.data_ptr(), n,
-                tile // TILES[0], int(x.dtype == torch.float32),
-                _build.stream_of(x))
+    rc = _build.launch(fn, x, x.data_ptr(), out.data_ptr(), state.data_ptr(),
+                       n, tile // TILES[0], int(x.dtype == torch.float32))
     LAUNCHES["scan"] += 1
     _build.check(rc, "tpkt_scan")
     return out

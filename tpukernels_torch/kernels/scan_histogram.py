@@ -72,10 +72,8 @@ def _fused_cuda(x, nbins, tile):
         return out, hist
     state = _scan.scan_state(n, tile, x.device)
     fn = _build.function("scan_histogram", "tpkt_scan_histogram", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), hist.data_ptr(),
-                state.data_ptr(), n, nbins, tile // _scan.TILES[0],
-                _build.stream_of(x))
+    rc = _build.launch(fn, x, x.data_ptr(), out.data_ptr(), hist.data_ptr(),
+                       state.data_ptr(), n, nbins, tile // _scan.TILES[0])
     LAUNCHES["scan_histogram"] += 1
     _build.check(rc, "tpkt_scan_histogram")
     return out, hist

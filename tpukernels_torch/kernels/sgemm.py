@@ -4,20 +4,24 @@ Port of ``tpukernels/kernels/sgemm.py``. On a CUDA tensor the wrapper
 launches one of two kernels, as the reference's ``depth`` knob picks:
 
 - depth 1: ``csrc/sgemm.cu`` (replaces the TPU's ``_sgemm_kernel``),
-  one shared-memory stage per K block;
+  the K blocks through two shared-memory stages filled by TMA (the
+  reference's depth 1 is double-buffered too), ``wgmma`` for the bf16
+  modes and fp32 FMAs for ``float32``;
 - depth 2 or 3: ``csrc/sgemm_pipelined.cu`` (replaces
   ``_sgemm_pipelined_kernel``), the K blocks through a ring of
-  ``depth`` stages filled by cp.async.
+  ``depth`` stages filled by cp.async, ``mma.sync`` for the bf16 modes.
 
-Both share their compute step, so at one tile they agree bitwise. On a
-CPU tensor it runs :func:`sgemm_plain`, the same arithmetic in plain
-PyTorch; :func:`sgemm_reference` is the oracle.
+The two sum in different orders, so they agree within
+:func:`contract`, not bitwise. On a CPU tensor it runs
+:func:`sgemm_plain`, the same arithmetic in plain PyTorch;
+:func:`sgemm_reference` is the oracle.
 
 Knobs (``TUNABLES``), per knob env ``TPKT_SGEMM_{BM,BN,BK,DEPTH,ORDER}``
 > a tuning-cache entry for (shape, dtype, card) > the default: tile
 preferences ``bm``/``bn``/``bk`` (from which :func:`_pick_block` picks
-among the tiles the kernels are built for), ``depth`` 1/2/3 and the grid
-``order`` ``ij``/``ji``. They are resolved and checked on the CPU too.
+among the tiles the kernel that ``depth`` selects is built for,
+:data:`TILES`), ``depth`` 1/2/3 and the grid ``order`` ``ij``/``ji``.
+They are resolved and checked on the CPU too.
 
 Precision modes (``precision=`` or env ``TPKT_SGEMM_PRECISION``, read
 as the reference reads it and never from the tuning cache, so a tuned
@@ -32,10 +36,10 @@ entry cannot change the contract a result is held to):
 
 :func:`contract` states each mode's tolerance and its reason.
 
-The bf16 modes hand the kernels B transposed, (n, k), so both operands
-load along k; depth 1 masks ragged edges in its loads, depth 2/3 copies
-whole 16-byte rows, so the wrapper pads k (bf16) or m and n (fp32, A
-handed transposed) with zeros to whole rows.
+Both kernels take their operands as :func:`operands` makes them: rows of
+whole 16 bytes (TMA's global strides and cp.async's copies need them),
+B transposed for the bf16 modes and A transposed for ``float32``, so
+that every tile is copied along its rows.
 
 Bound on the card at 1024³: operations; see the notes in ``sgemm.cu``
 and ``sgemm_pipelined.cu``.
@@ -52,36 +56,61 @@ import torch
 from tpukernels_torch import _build
 from tpukernels_torch.kernels import LAUNCHES
 from tpukernels_torch.tuning import (SMEM_BUDGET_BYTES, SearchSpace, Tunable,
-                                     resolve)
+                                     plan_memo, resolve)
 from tpukernels_torch.utils import cdiv
 
 PRECISIONS = ("high", "float32", "default")
 _MODE = {"high": (0, "split3"), "float32": (1, "float32"),
          "default": (2, "bf16")}
 
-# the tiles csrc/sgemm.cuh instantiates; every (bm, bk) pair is built
-# for each mode and depth, so each size added costs build time
-BM_SIZES, BN_SIZES, BK_SIZES = (128, 64), (128,), (32, 64)
+# (bm, bn, bk sizes) each kernel is built for, every combination in
+# every mode (each size added costs build time): depth 1 csrc/sgemm.cu,
+# depths 2/3 csrc/sgemm_pipelined.cu (csrc/sgemm.cuh)
+TILES = {1: ((128, 64), (128, 64), (64,)),
+         2: ((128, 64), (128,), (32, 64))}
+# the knobs' sweep values: every size some kernel builds
+BM_SIZES, BN_SIZES, BK_SIZES = (128, 64), (128, 64), (32, 64)
 DEPTHS, ORDERS = (1, 2, 3), ("ij", "ji")
 
 
+def tiles(depth: int) -> tuple:
+    """(bm, bn, bk sizes) built by the kernel ``depth`` selects."""
+    return TILES[1 if depth == 1 else 2]
+
+
 def _smem_bytes(params, shape=None, precision="high"):
-    """Shared memory a block of the kernels needs for the knob set
-    ``params`` (shape-blind, as the reference's VMEM model): ``depth``
-    stages (one at depth 1) of
+    """Shared memory a block of the kernel ``params["depth"]`` selects
+    needs for the knob set ``params`` (shape-blind, as the reference's
+    VMEM model).
 
-    - bf16 modes: NOPS·(bm + bn)·(bk + 8)·2 bytes (NOPS 2 for the hi/lo
-      pairs of ``high``, 1 for ``default``; rows padded by 8);
-    - ``float32``: bk·(bm + 4 + bn)·4 bytes (A^T rows padded by 4).
+    - depth 1 (``sgemm.cu``): the largest tile it builds within the
+      preferences (the smallest where none is), in two stages, as the
+      reference's ``buf = 2`` at depth 1, of NOPS·(bm + bn)·bk elements
+      (NOPS 2 for the hi/lo pairs of ``high``; bf16, or fp32 for
+      ``float32``), plus 1024 bytes to align the ring for the 128-byte
+      swizzle and two 8-byte mbarriers a stage;
+    - depth 2/3 (``sgemm_pipelined.cu``): the preferences as given (one
+      under the smallest built size counts as that size), ``depth``
+      stages of NOPS·(bm + bn)·(bk + 8)·2 bytes (bf16 rows padded by 8),
+      or bk·(bm + 4 + bn)·4 for ``float32`` (A^T rows padded by 4).
 
-    ``high`` needs the most, so it is the default the space prunes by.
-    Split3 at 128 x 128 x 32 takes 40 960 B a stage."""
-    bm, bn, bk = params["bm"], params["bn"], params["bk"]
+    ``high`` needs the most in the bf16 modes, so it is the default the
+    space prunes by. Split3 at 128 x 64 x 64, depth 1, takes 99 360 B;
+    at 128 x 128 x 32, depth 2, 81 920 B."""
+    depth = max(1, params.get("depth", 1))
+    nops = 2 if precision == "high" else 1
+    if depth == 1:
+        bm, bn, bk = (_pick_block(1 << 30, params[k], sizes)
+                      for k, sizes in zip(("bm", "bn", "bk"), tiles(1)))
+        elem = 4 if precision == "float32" else 2
+        return 2 * nops * (bm + bn) * bk * elem + 1024 + 2 * 2 * 8
+    bm, bn, bk = (max(params[k], min(sizes))
+                  for k, sizes in zip(("bm", "bn", "bk"), tiles(depth)))
     if precision == "float32":
         stage = bk * (bm + 4 + bn) * 4
     else:
-        stage = (2 if precision == "high" else 1) * (bm + bn) * (bk + 8) * 2
-    return max(1, params.get("depth", 1)) * stage
+        stage = nops * (bm + bn) * (bk + 8) * 2
+    return depth * stage
 
 
 TUNABLES = SearchSpace(
@@ -90,14 +119,16 @@ TUNABLES = SearchSpace(
     bench_dtype="float32",
     sources=("tpukernels_torch/kernels/sgemm.py",
              "tpukernels_torch/csrc/sgemm.cuh",
+             "tpukernels_torch/csrc/hopper.cuh",
              "tpukernels_torch/csrc/sgemm.cu",
              "tpukernels_torch/csrc/sgemm_pipelined.cu"),
     tunables=(
-        # 64 rows give 128 blocks at 1024^2 for 132 SMs, 128 rows 64
+        # depth 1 at 128 x 64 gives 128 blocks at 1024^2 for 132 SMs;
+        # depth 2/3 builds bn 128 only, so it keeps 128 x 128
         Tunable("bm", env="TPKT_SGEMM_BM", default=128, values=BM_SIZES),
-        Tunable("bn", env="TPKT_SGEMM_BN", default=128, values=BN_SIZES),
+        Tunable("bn", env="TPKT_SGEMM_BN", default=64, values=BN_SIZES),
         Tunable("bk", env="TPKT_SGEMM_BK", default=32, values=BK_SIZES),
-        # 1: sgemm.cu, one stage; 2/3: sgemm_pipelined.cu, a ring
+        # 1: sgemm.cu, TMA + wgmma, two stages; 2/3: sgemm_pipelined.cu
         Tunable("depth", env="TPKT_SGEMM_DEPTH", default=1, values=DEPTHS,
                 most=DEPTHS[-1]),
         Tunable("order", env="TPKT_SGEMM_ORDER", default="ij",
@@ -107,19 +138,16 @@ TUNABLES = SearchSpace(
     smem_bytes=_smem_bytes,
 )
 
-_ARGTYPES = (
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-)
-_ARGTYPES_PIPELINED = (
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p,
-)
+# (mode, a0, a1, b0, b1, c, out, M, N, K, lda, ldb, alpha, beta, bm, bn,
+# bk, [depth,] ji, stream): the entries of sgemm.cu and
+# sgemm_pipelined.cu, by depth
+_HEAD = (ctypes.c_int,) + (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (
+    ctypes.c_float,) * 2 + (ctypes.c_int,) * 3
+_ENTRIES = {
+    1: ("sgemm", "tpkt_sgemm", _HEAD + (ctypes.c_int, ctypes.c_void_p)),
+    2: ("sgemm_pipelined", "tpkt_sgemm_pipelined",
+        _HEAD + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)),
+}
 
 
 def contract(precision: str, k: int, alpha: float) -> tuple:
@@ -180,8 +208,9 @@ def _pick_block(dim: int, preferred: int, sizes) -> int:
 
 def plan(m: int, n: int, k: int, precision: str = "high", device=None):
     """The resolved knobs of one (m, k) @ (k, n) call: ``bm``/``bn``/
-    ``bk`` the tile picked, ``depth``, ``order``. Raises ValueError
-    when the knob set needs more shared memory than a block has."""
+    ``bk`` the tile picked among those of the kernel ``depth`` selects,
+    ``depth``, ``order``. Raises ValueError when the knob set needs more
+    shared memory than a block has."""
     prefs = resolve(TUNABLES, shape=(m, k, n), dtype="float32",
                     device=device)
     need = _smem_bytes(prefs, precision=precision)
@@ -193,10 +222,11 @@ def plan(m: int, n: int, k: int, precision: str = "high", device=None):
             f"a block in '{precision}' mode, over the {SMEM_BUDGET_BYTES} "
             "a block of the card can use"
         )
+    bms, bns, bks = tiles(prefs["depth"])
     return {
-        "bm": _pick_block(m, prefs["bm"], BM_SIZES),
-        "bn": _pick_block(n, prefs["bn"], BN_SIZES),
-        "bk": _pick_block(k, prefs["bk"], BK_SIZES),
+        "bm": _pick_block(m, prefs["bm"], bms),
+        "bn": _pick_block(n, prefs["bn"], bns),
+        "bk": _pick_block(k, prefs["bk"], bks),
         "depth": prefs["depth"],
         "order": prefs["order"],
     }
@@ -206,7 +236,7 @@ def _split_bf16(x):
     """x ≈ hi + lo, both bf16: hi the top 8 significant bits (rounded to
     nearest even), lo the next 8."""
     hi = x.to(torch.bfloat16)
-    lo = (x - hi.float()).to(torch.bfloat16)
+    lo = (x - hi).to(torch.bfloat16)  # hi widens exactly to float32
     return hi, lo
 
 
@@ -246,7 +276,8 @@ def sgemm(alpha, a, b, beta, c, precision: str | None = None):
     """alpha*A@B + beta*C as a new (m, n) float32 tensor."""
     m, n, k = _check(a, b, c)
     precision = _resolve_precision(precision)
-    p = plan(m, n, k, precision, a.device)
+    p = plan_memo(TUNABLES, (m, n, k, precision, a.device.index), plan, m,
+                  n, k, precision, a.device)
     if a.device.type == "cpu":
         return sgemm_plain(alpha, a, b, beta, c, precision)
     if a.device.type != "cuda":
@@ -254,45 +285,23 @@ def sgemm(alpha, a, b, beta, c, precision: str | None = None):
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out
-    launch = _sgemm_cuda if p["depth"] == 1 else _sgemm_pipelined_cuda
-    return launch(float(alpha), a, b, float(beta), c.contiguous(), out,
+    ops, kp = operands(a, b, precision)
+    return launch(float(alpha), ops, kp, float(beta), c.contiguous(), out,
                   precision, p)
 
 
-def _sgemm_cuda(alpha, a, b, beta, c, out, precision, p):
-    """B1: one stage, ragged edges masked in the kernel's loads."""
-    m, k = a.shape
-    n = b.shape[1]
-    mode, suffix = _MODE[precision]
-    if precision == "float32":
-        ops = (a.contiguous(), None, b.contiguous(), None)
-    else:
-        bt = b.t().contiguous()
-        if precision == "high":
-            ops = (*_split_bf16(a.contiguous()), *_split_bf16(bt))
-        else:
-            ops = (a.to(torch.bfloat16).contiguous(), None,
-                   bt.to(torch.bfloat16), None)
-    ptrs = [None if t is None else t.data_ptr() for t in ops]
-    fn = _build.function("sgemm", "tpkt_sgemm", _ARGTYPES)
-    with torch.cuda.device(a.device):
-        rc = fn(mode, *ptrs, c.data_ptr(), out.data_ptr(), m, n, k, alpha,
-                beta, p["bm"], p["bn"], p["bk"], int(p["order"] == "ji"),
-                _build.stream_of(a))
-    LAUNCHES[f"sgemm_{suffix}"] += 1
-    _build.check(rc, f"tpkt_sgemm[{precision}]")
-    return out
-
-
-def pipelined_operands(a, b, precision):
-    """``(ops, k)`` as the pipelined kernel takes them: four operands
-    (None where a mode has fewer) whose rows are whole 16-byte chunks,
-    and the inner dimension it walks.
+def operands(a, b, precision):
+    """``(ops, k)`` as the kernels take them: four operands (None where
+    a mode has fewer) whose rows are whole 16-byte chunks, and the inner
+    dimension they walk.
 
     - bf16 modes: A (m, kp) and B^T (n, kp), bf16 (hi/lo pairs for
       ``high``), kp = k padded with zeros to a multiple of 8;
     - ``float32``: A^T (k, m4) and B (k, n4), m and n padded with zeros
       to multiples of 4; k itself.
+
+    The split into bf16 halves stays here, outside the kernel, as the
+    reference keeps ``_split_bf16`` outside its Pallas kernel.
     """
     if precision == "float32":
         return (_whole_rows(a.t(), 4), None, _whole_rows(b, 4), None), \
@@ -306,22 +315,23 @@ def pipelined_operands(a, b, precision):
     return ops, ops[0].shape[1]  # the pad adds zero products
 
 
-def _sgemm_pipelined_cuda(alpha, a, b, beta, c, out, precision, p):
-    """B2: a ring of ``depth`` stages copied whole by cp.async."""
-    m = a.shape[0]
-    n = b.shape[1]
+def launch(alpha, ops, kp, beta, c, out, precision, p):
+    """out = alpha * A @ B + beta * c by the kernel ``p["depth"]``
+    selects, on ``(ops, kp)`` as :func:`operands` makes them; ``c`` and
+    ``out`` contiguous (m, n) on the operands' card."""
+    m, n = out.shape
     mode, suffix = _MODE[precision]
-    ops, kp = pipelined_operands(a, b, precision)
     lda, ldb = ops[0].shape[1], ops[2].shape[1]
     ptrs = [None if t is None else t.data_ptr() for t in ops]
-    fn = _build.function("sgemm_pipelined", "tpkt_sgemm_pipelined",
-                         _ARGTYPES_PIPELINED)
-    with torch.cuda.device(a.device):
-        rc = fn(mode, *ptrs, c.data_ptr(), out.data_ptr(), m, n, kp, lda,
-                ldb, alpha, beta, p["bm"], p["bn"], p["bk"], p["depth"],
-                int(p["order"] == "ji"), _build.stream_of(a))
-    LAUNCHES[f"sgemm_pipelined_{suffix}"] += 1
-    _build.check(rc, f"tpkt_sgemm_pipelined[{precision}]")
+    depth = p["depth"]
+    lib, entry, argtypes = _ENTRIES[1 if depth == 1 else 2]
+    fn = _build.function(lib, entry, argtypes)
+    ring = () if depth == 1 else (depth,)
+    rc = _build.launch(fn, out, mode, *ptrs, c.data_ptr(), out.data_ptr(), m,
+                       n, kp, lda, ldb, alpha, beta, p["bm"], p["bn"],
+                       p["bk"], *ring, int(p["order"] == "ji"))
+    LAUNCHES[f"{lib}_{suffix}"] += 1
+    _build.check(rc, f"{entry}[{precision}]")
     return out
 
 

@@ -123,14 +123,13 @@ def _passes_cuda(name, argtypes, x, iters, k):
     if len(plan) > 1:
         bufs.append(torch.empty_like(x))
     src = x
-    stream = _build.stream_of(x)
-    with torch.cuda.device(x.device):
-        for i, sweeps in enumerate(plan):
-            dst = bufs[i % 2]
-            rc = fn(src.data_ptr(), dst.data_ptr(), *x.shape, sweeps, stream)
-            LAUNCHES[name] += 1
-            _build.check(rc, entry)
-            src = dst
+    for i, sweeps in enumerate(plan):
+        dst = bufs[i % 2]
+        rc = _build.launch(fn, x, src.data_ptr(), dst.data_ptr(), *x.shape,
+                           sweeps)
+        LAUNCHES[name] += 1
+        _build.check(rc, entry)
+        src = dst
     return src
 
 

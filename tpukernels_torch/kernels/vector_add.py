@@ -8,7 +8,12 @@ kernel, which aliases ``y`` to its output, the port leaves ``y`` as it
 was.
 
 Bound on the card: bytes (12 per element). The kernel streams 16-byte
-vectors in a grid-stride loop; see the source note in ``saxpy.cu``.
+vectors, several in flight a thread, on a grid that covers the work;
+see the source note in ``saxpy.cu``. The host path
+of a call is kept short: the launch plan (knob, grid) is memoised per
+process and follows a changed env knob or cache entry on the next call
+(:func:`launch_plan`); the device is made current only when it is not,
+and an input is copied only when it is not 1-D and contiguous.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ import torch
 
 from tpukernels_torch import _build
 from tpukernels_torch.kernels import LAUNCHES
-from tpukernels_torch.tuning import SearchSpace, Tunable, resolve
+from tpukernels_torch.tuning import (SearchSpace, Tunable, plan_memo,
+                                     resolve)
 from tpukernels_torch.utils import cdiv
 
 TUNABLES = SearchSpace(
@@ -34,57 +40,70 @@ TUNABLES = SearchSpace(
         Tunable("threads", env="TPKT_SAXPY_THREADS", default=256),
     ),
 )
-# the grid is sized to at most this many blocks per SM; the grid-stride
-# loop covers the rest
-_BLOCKS_PER_SM = 8
-
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 )
+# float4 vectors a thread carries a trip (UNROLL in csrc/saxpy.cu)
+_UNROLL = 4
 
 
 def _check(x, y):
+    """The operands' device, once they are float32 of one size on one
+    device."""
     if x.dtype != torch.float32 or y.dtype != torch.float32:
         raise TypeError(f"saxpy takes float32, got {x.dtype} and {y.dtype}")
     if x.numel() != y.numel():
         raise ValueError(f"saxpy: sizes differ, {x.numel()} vs {y.numel()}")
-    if x.device != y.device:
-        raise ValueError(f"saxpy: devices differ, {x.device} vs {y.device}")
+    dev = x.device
+    if dev != y.device:
+        raise ValueError(f"saxpy: devices differ, {dev} vs {y.device}")
+    return dev
 
 
 def saxpy(alpha, x, y):
     """alpha*x + y for float32 tensors of any length (flattened); a new
     1-D tensor on the inputs' device."""
-    _check(x, y)
-    x = x.reshape(-1).contiguous()
-    y = y.reshape(-1).contiguous()
-    if x.device.type == "cpu":
+    dev = _check(x, y)
+    if x.dim() != 1 or not x.is_contiguous():
+        x = x.reshape(-1).contiguous()
+    if y.dim() != 1 or not y.is_contiguous():
+        y = y.reshape(-1).contiguous()
+    if dev.type == "cpu":
         return saxpy_reference(alpha, x, y)
-    if x.device.type != "cuda":
-        raise ValueError(f"saxpy: unsupported device {x.device}")
-    return _saxpy_cuda(float(alpha), x, y)
+    if dev.type != "cuda":
+        raise ValueError(f"saxpy: unsupported device {dev}")
+    return _saxpy_cuda(float(alpha), x, y, dev)
 
 
-def _saxpy_cuda(alpha, x, y):
-    n = x.numel()
-    out = torch.empty_like(x)
-    if n == 0:
-        return out
+def launch_plan(n: int, device) -> tuple:
+    """``(threads, blocks)`` of a call on ``n`` elements on ``device``,
+    memoised (:func:`tuning.plan_memo`): the knob resolved env > cache >
+    default and checked, and a grid that covers the work, one trip of
+    ``_UNROLL`` float4s a thread."""
+    return plan_memo(TUNABLES, (n, device.index), _launch_plan, n, device)
+
+
+def _launch_plan(n, device):
     threads = resolve(TUNABLES, shape=(n,), dtype="float32",
-                      device=x.device)["threads"]
+                      device=device)["threads"]
     if threads > 1024 or threads & (threads - 1) or threads < 32:
         raise ValueError(
             f"TPKT_SAXPY_THREADS={threads}: expected a power of two in "
             "32..1024"
         )
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = max(1, min(cdiv(cdiv(n, 4), threads),
-                        sms * _BLOCKS_PER_SM))
+    return threads, max(1, cdiv(n, 4 * _UNROLL * threads))
+
+
+def _saxpy_cuda(alpha, x, y, dev):
+    n = x.numel()
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    threads, blocks = launch_plan(n, dev)
     fn = _build.function("saxpy", "tpkt_saxpy", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), n, alpha,
-                blocks, threads, _build.stream_of(x))
+    rc = _build.launch(fn, x, x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
+                       alpha, blocks, threads)
     LAUNCHES["saxpy"] += 1
     _build.check(rc, "tpkt_saxpy")
     return out

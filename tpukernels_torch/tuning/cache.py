@@ -13,7 +13,8 @@ before the kernel's sources last changed, is rejected loudly (one stderr
 line per key and reason, and a count in :data:`COUNTS`), never applied.
 Outside a git checkout the sha is not known and not checked.
 
-Every wrapper consults the cache on every call, so reads are memoized:
+Every wrapper consults the cache on every call (SAXPY and SGEMM through
+a launch plan memoised on :func:`state`), so reads are memoized:
 the parsed file is kept for :data:`RECHECK_S` seconds before the file is
 looked at again (one ``stat`` costs more than the whole lookup from the
 memo; ``chip_smoke.py`` phase 4 prints both), and re-read only when its
@@ -42,6 +43,7 @@ _FILE_MEMO: dict = {}  # path -> (stat_key, parsed)
 _FRESH: dict = {}  # path -> (monotonic time of the last look, parsed)
 _SHA_MEMO: dict = {}  # (root, sources) -> sha or None
 _KIND_MEMO: dict = {}  # CUDA device index -> kind
+_PATHS: dict = {}  # TPKT_TUNING_CACHE_DIR (or None) -> path()
 _REJECT_NOTED: set = set()  # (key, reason) already on stderr
 COUNTS = {"hits": 0, "misses": 0, "rejections": 0}
 
@@ -52,7 +54,11 @@ def enabled() -> bool:
 
 
 def path() -> str:
-    return _cachedir.tuning_cache_path()
+    d = os.environ.get("TPKT_TUNING_CACHE_DIR")
+    p = _PATHS.get(d)
+    if p is None:
+        p = _PATHS[d] = _cachedir.tuning_cache_path()
+    return p
 
 
 def _load(p) -> dict:
@@ -63,6 +69,13 @@ def _load(p) -> dict:
     data = _cachedir.read_json_memoized(p, _FILE_MEMO)
     _FRESH[p] = (now, data)
     return data
+
+
+def state():
+    """What :func:`get` reads now: None with lookups off, else the
+    parsed file, the same object for as long as the memo keeps it (a
+    changed file, or a :func:`put`, gives a new one)."""
+    return _load(path()) if enabled() else None
 
 
 def forget() -> None:

@@ -21,6 +21,7 @@ from __future__ import annotations
 import itertools
 import os
 from dataclasses import dataclass, field
+from functools import cached_property
 from typing import Any, Callable, Optional, Sequence
 
 from tpukernels_torch.tuning import cache
@@ -94,6 +95,11 @@ class SearchSpace:
 
     def defaults(self) -> dict:
         return {t.name: t.default for t in self.tunables}
+
+    @cached_property
+    def envs(self) -> tuple:
+        """The env variable of each knob, in declaration order."""
+        return tuple(t.env for t in self.tunables)
 
     def env_for(self, params: dict) -> dict:
         """Env assignments selecting ``params`` in a subprocess (None
@@ -170,6 +176,30 @@ def resolve(space: SearchSpace, shape=None, dtype=None, device=None) -> dict:
     """Resolved knob values for one kernel call (see
     :func:`resolve_with_sources`)."""
     return resolve_with_sources(space, shape, dtype, device)[0]
+
+
+_PLANS: dict = {}  # memo of plan_memo(): key -> (cache state, plan)
+_PLANS_MAX = 256
+
+
+def plan_memo(space: SearchSpace, key, make: Callable, *args):
+    """``make(*args)``, memoised per process: a wrapper's launch plan,
+    built from :func:`resolve` and the device, costs a lookup once it is
+    made. The memo is keyed on ``key`` (the call's shape and device), the
+    raw env value of every knob of ``space`` and the tuning cache's state
+    (:func:`cache.state`), so a changed env knob or cache entry takes
+    effect on the next call, as an unmemoised resolve would."""
+    state = cache.state()
+    memo_key = (space.kernel, key, id(state),
+                *map(os.environ.get, space.envs))
+    hit = _PLANS.get(memo_key)
+    if hit is not None and hit[0] is state:
+        return hit[1]
+    made = make(*args)
+    if len(_PLANS) >= _PLANS_MAX:  # states come and go; keep it small
+        _PLANS.clear()
+    _PLANS[memo_key] = (state, made)
+    return made
 
 
 def spaces_of(module) -> Sequence[SearchSpace]:
