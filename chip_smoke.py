@@ -10,12 +10,16 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    and turns TF32 off for float32 matmuls;
 2. builds every kernel, in parallel, and prints the build times, the
    registers and spills ptxas reports, and the count of the SGEMM
-   kernels' tensor-core, TMA and mbarrier instructions in their SASS;
+   kernels' tensor-core, TMA and mbarrier instructions in their SASS
+   (both SGEMM libraries must show wgmma and TMA and no mma.sync);
 3. holds each kernel against its plain PyTorch version on the card at
    the sizes of the main path and at ragged ones, with the tolerance
    stated beside each check: the depth-1 SGEMM at every tile it builds,
    the pipelined SGEMM (depth 2/3, both grid orders, two tiles) also
-   bitwise against itself at depth 2 order ij;
+   bitwise against itself at depth 2 order ij and against the depth-1
+   SGEMM, SGEMM's operand preparation bitwise against its plain
+   version, the scan family also call after call on one scratch
+   buffer, across a growing buffer and on two streams;
 4. drives the main path end to end — ``registry.dispatch`` of
    ``vector_add``, ``sgemm``, ``stencil2d``, ``stencil3d``, ``nbody``,
    ``scan``, ``scan_exclusive``, ``histogram`` and ``scan_histogram``
@@ -30,10 +34,15 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    single PyTorch call computing the same function, with CUDA events,
    beside the least time the card could take (``bound_ms``); for SAXPY,
    SGEMM, scan and histogram also the device time alone (``device_ms``:
-   calls captured in a CUDA graph and replayed), the scan's tile sizes,
-   SAXPY's host path step by step, and for SGEMM every depth, order and
-   depth-1 tile at 1024^3, each depth at 4096^3, and the device time of
-   the depth-1 kernel alone and of its operand preparation.
+   calls captured in a CUDA graph and replayed) and the graph's nodes a
+   call, the scan's tile sizes, SAXPY's and SGEMM's host path step by
+   step, for SGEMM every depth, order and depth-1 tile at 1024^3, each
+   depth at 4096^3, each with the device time of its kernel alone and of
+   its operand preparation, at depth 3 also with and without a wgmma
+   group in flight, ``float32`` SGEMM's share of its contract's bound
+   (six bf16 products: the run fails at half), and for the scan at 2^26
+   its resident blocks a SM and its time on capped grids and without its
+   look-back.
 
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -46,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -68,9 +78,9 @@ GEMM_ALPHA, GEMM_BETA = 1.5, 0.5
 # (m, k, n): ragged edges in every dimension, k % 8 != 0 in the last
 GEMM_RAGGED = ((100, 300, 200), (40, 56, 72), (33, 300, 130), (64, 129, 96))
 GEMM_MODES = {"high": "split3", "float32": "float32", "default": "bf16"}
-# the default tile, and one from the other sweep values
+# the default tile (128 x 64), and one from the other sweep values
 GEMM_TILES = (("tile default", {}),
-              ("tile bm=64 bk=64", {"TPKT_SGEMM_BM": 64, "TPKT_SGEMM_BK": 64}))
+              ("tile 64x128", {"TPKT_SGEMM_BM": 64, "TPKT_SGEMM_BN": 128}))
 NBODY_N = 1 << 16  # the configuration of record: dt 1e-3, eps 1e-2, 1 step
 STENCIL3D_N, STENCIL3D_ITERS = 384, 8
 # the C golden checkers' bars: c/stencil.c (Jacobi, bitwise expected),
@@ -213,15 +223,72 @@ def graph_ms(fn, calls, reps=10):
     ``reps`` times after warm-up."""
     import torch
 
-    fn()  # builds, loads and warms the allocator outside the capture
-    torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=warmed_stream(fn)):
         for _ in range(calls):
             fn()
     ms = time_ms(graph.replay, reps) / calls
     del graph
     return ms
+
+
+def warmed_stream(fn):
+    """A side stream on which ``fn`` has run once: the call builds and
+    loads its kernels, warms the allocator and makes the wrappers'
+    per-stream scratch buffers outside a capture on that stream."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    return stream
+
+
+_CUDART = []
+
+
+def cudart():
+    """The CUDA runtime library PyTorch runs on, for the one call this
+    script makes itself (``cudaGraphGetNodes``)."""
+    import torch
+
+    if not _CUDART:
+        major = (torch.version.cuda or "12").split(".")[0]
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        names = (f"libcudart.so.{major}", "libcudart.so",
+                 os.path.join(home, "lib64", "libcudart.so"))
+        for name in names:
+            try:
+                _CUDART.append(ctypes.CDLL(name))
+                break
+            except OSError:
+                continue
+        else:
+            raise RuntimeError(f"no CUDA runtime library among {names}")
+    return _CUDART[0]
+
+
+def graph_nodes(fn, calls=4):
+    """Nodes a call of ``fn`` leaves in a CUDA graph: every kernel
+    launch, fill and copy it issues on the device is one node. ``calls``
+    calls are captured and the graph's nodes counted."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=warmed_stream(fn)):
+        for _ in range(calls):
+            fn()
+    count = ctypes.c_size_t(0)
+    rc = cudart().cudaGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                    None, ctypes.byref(count))
+    del graph
+    if rc != 0:
+        raise RuntimeError(f"cudaGraphGetNodes failed with error {rc}")
+    if count.value % calls:
+        raise AssertionError(f"{count.value} graph nodes for {calls} calls")
+    return count.value // calls
 
 
 def run(cmd):
@@ -286,7 +353,9 @@ def phase_build():
         loads = sum(map(int, re.findall(r"(\d+) bytes spill loads", text)))
         log(f"ptxas {name}: {len(regs)} kernels, registers "
             f"{min(regs, default=0)}..{max(regs, default=0)} a thread, "
-            f"spill stores {stores} B, spill loads {loads} B")
+            f"spill stores {stores} B, spill loads {loads} B, "
+            f"{len(re.findall('serializ', text))} wgmma serialisation "
+            "warnings")
     # what the SGEMM kernels were compiled to: HGMMA is wgmma, UTMALDG a
     # TMA tile load, SYNCS the mbarrier operations, HMMA mma.sync
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -300,6 +369,9 @@ def phase_build():
         counts = {op: ops.count(op) for op in ("HGMMA", "UTMALDG", "SYNCS",
                                                "HMMA", "FFMA")}
         log(f"sass {name}: {json.dumps(counts)} instructions")
+        if not (counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
+                and counts["HMMA"] == 0):
+            raise AssertionError(f"{name} is not on TMA + wgmma: {counts}")
 
 
 def phase_kernels(torch, gen):
@@ -372,6 +444,7 @@ def phase_kernels(torch, gen):
     log("PASS nbody eps=0: every output NaN in kernel and plain version "
         "(self-pairs 0*inf), as the reference")
     errs.update(sgemm_pipelined_kernels(torch, gen))
+    errs.update(sgemm_prep_checks(torch, gen))
     errs.update(scan_kernels(torch, gen))
     return errs
 
@@ -428,10 +501,12 @@ def sgemm_kernels(torch, gen):
 
 def sgemm_pipelined_kernels(torch, gen):
     """Phase 3 for the pipelined SGEMM (B2): at every precision, depth 2
-    and 3 and order ij and ji, bitwise against depth 2 order ij at the
-    same tile (B1 sums in another order), and within ``sgemm.contract``
-    of the plain version and the oracle; at 1024^3 and the ragged
-    shapes, at the default tile and at 64 x 128 x 64."""
+    and 3 and order ij and ji, bitwise against depth 2 order ij and
+    against the depth-1 SGEMM (B1) at the same tile, mode and order
+    (one accumulator an output, summed in the same order whatever the
+    stage count), and within ``sgemm.contract`` of the plain version and
+    the oracle; at 1024^3 and the ragged shapes, at the default tile and
+    at 64 x 128."""
     from tpukernels_torch.kernels import sgemm as S
 
     dev = torch.device("cuda")
@@ -450,8 +525,12 @@ def sgemm_pipelined_kernels(torch, gen):
                 with knobs(TPKT_SGEMM_DEPTH=2, TPKT_SGEMM_ORDER="ij", **tile):
                     base = S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
                                    precision=prec)
-                for depth in (2, 3):
-                    for order in ("ij", "ji"):
+                for order in ("ij", "ji"):
+                    with knobs(TPKT_SGEMM_DEPTH=1, TPKT_SGEMM_ORDER=order,
+                               **tile):
+                        b1 = S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
+                                     precision=prec)
+                    for depth in (2, 3):
                         with knobs(TPKT_SGEMM_DEPTH=depth,
                                    TPKT_SGEMM_ORDER=order, **tile):
                             got = S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
@@ -459,6 +538,8 @@ def sgemm_pipelined_kernels(torch, gen):
                         label = (f"sgemm_pipelined[{prec}] {m}x{k}x{n} "
                                  f"depth={depth} order={order} {tname}")
                         check_exact(f"{label} vs depth 2 order ij", got, base)
+                        check_exact(f"{label} vs depth 1 (B1) order {order}",
+                                    got, b1)
                         e = check(f"{label} vs plain", got, plain, rtol,
                                   atol)
                         check(f"{label} vs oracle", got, ref, rtol, atol)
@@ -478,6 +559,63 @@ def sgemm_pipelined_kernels(torch, gen):
             log(f"PASS sgemm_pipelined[{prec}] depth={depth} beta=0 with NaN "
                 "in C: all NaN, as the oracle")
     return errs
+
+
+def sgemm_prep_checks(torch, gen):
+    """Phase 3 for SGEMM's operand preparation (``tpkt_sgemm_prep``):
+    every operand it writes bitwise equal to ``operands_plain``'s, zero
+    pads included, in all three modes; one launch a call. Shapes: the
+    main path's, the ragged ones (k % 8 != 0, m and n odd), and A or B
+    given as views that are not contiguous."""
+    from tpukernels_torch.kernels import LAUNCHES
+    from tpukernels_torch.kernels import sgemm as S
+
+    dev = torch.device("cuda")
+
+    def unif(*shape):
+        return torch.rand(*shape, device=dev, generator=gen) * 2 - 1
+
+    def bits(t):  # compared bit for bit
+        return t.contiguous().view(torch.uint8)
+
+    views = {
+        "contiguous": lambda m, k, n: (unif(m, k), unif(k, n)),
+        "A transposed view": lambda m, k, n: (unif(k, m).t(), unif(k, n)),
+        "A every other column": lambda m, k, n: (unif(m, 2 * k)[:, ::2],
+                                                 unif(k, n)),
+        "B transposed view": lambda m, k, n: (unif(m, k), unif(n, k).t()),
+        "B offset by one element": lambda m, k, n: (
+            unif(m, k), unif(k * n + 1)[1:].view(k, n)),
+    }
+    shapes = ((1024, 1024, 1024), (1000, 1042, 2176), (1, 1, 1),
+              *GEMM_RAGGED)
+    for m, k, n in shapes:
+        for vname, make in views.items():
+            if vname != "contiguous" and m == 1024:
+                continue
+            a, b = make(m, k, n)
+            for prec in S.PRECISIONS:
+                before = LAUNCHES["sgemm_prep"]
+                ops, kp = S.operands(a, b, prec)
+                launched = LAUNCHES["sgemm_prep"] - before
+                want, want_kp = S.operands_plain(a, b, prec)
+                label = f"sgemm_prep[{prec}] {m}x{k}x{n} {vname}"
+                if launched != 1 or kp != want_kp:
+                    raise AssertionError(f"{label}: {launched} launches, "
+                                         f"k {kp} != {want_kp}")
+                for i, (g, w) in enumerate(zip(ops, want)):
+                    if (g is None) != (w is None):
+                        raise AssertionError(f"{label}: operand {i} "
+                                             "present on one side only")
+                    if g is None:
+                        continue
+                    if (g.shape, g.dtype) != (w.shape, w.dtype) or not (
+                            g.is_contiguous() and g.data_ptr() % 16 == 0):
+                        raise AssertionError(
+                            f"{label}: operand {i} {tuple(g.shape)} "
+                            f"{g.dtype} against {tuple(w.shape)} {w.dtype}")
+                    check_exact(f"{label} operand {i}", bits(g), bits(w))
+    return {"sgemm_prep": 0.0}
 
 
 def scan_kernels(torch, gen):
@@ -521,6 +659,7 @@ def scan_kernels(torch, gen):
         x = ints(n, -1000, 1000)
         check_exact(f"exclusive scan n={n} vs oracle", SC.exclusive_scan(x),
                     SC.exclusive_scan_reference(x))
+    scan_scratch_checks(torch, ints)
 
     # negative values and values >= nbins mixed in: they count nothing
     for nbins in (4, 16, 200, 256, 1024, GLOBAL_NBINS):
@@ -573,6 +712,74 @@ def scan_kernels(torch, gen):
     check_exact("scan_histogram[on] n=0 histogram", h,
                 torch.zeros(16, dtype=torch.int32, device=dev))
     return errs
+
+
+def scan_scratch_checks(torch, ints):
+    """The scan family's scratch buffer, which every launch must leave
+    zeroed: 50 calls in a row on one buffer, a long scan after a short
+    one and the reverse (the buffer grows; nothing stale leaks), the
+    histogram and the fused pass call after call, and two streams at
+    once, each on its own buffer. int32 and counts bitwise."""
+    from tpukernels_torch.kernels import histogram as H, scan as SC
+    from tpukernels_torch.kernels import scan_histogram as SH
+
+    x = ints(SCAN_N, -1000, 1000)
+    want = SC.inclusive_scan_reference(x)
+    bad = sum(not torch.equal(SC.inclusive_scan(x), want) for _ in range(50))
+    if bad:
+        raise AssertionError(f"scan n={SCAN_N}: {bad} of 50 calls in a row "
+                             "differ from the oracle")
+    log(f"PASS scan int32 n={SCAN_N}: 50 calls in a row on one scratch "
+        "buffer, each bitwise the oracle")
+    for n in (5000, STREAM_N, 4093, SCAN_N, STREAM_N + 12345, 7):
+        xs = ints(n, -1000, 1000)
+        check_exact(f"scan int32 n={n} after another length vs oracle",
+                    SC.inclusive_scan(xs), SC.inclusive_scan_reference(xs))
+        del xs
+    small = SC.TILES[0]  # the most status words a length needs
+    with knobs(TPKT_SCAN_TILE=small):
+        xs = ints(STREAM_N, -1000, 1000)
+        for i in range(2):
+            check_exact(f"scan int32 n={STREAM_N} tile={small} call {i} vs "
+                        "oracle", SC.inclusive_scan(xs),
+                        SC.inclusive_scan_reference(xs))
+        del xs
+    xh = ints(SCAN_N, -8, SCAN_NBINS + 8)
+    hwant = H.histogram_plain(xh, SCAN_NBINS)
+    swant = SC.inclusive_scan_reference(xh)
+    for i in range(10):
+        for fuse in ("off", "on"):
+            with knobs(TPKT_SCANHIST_FUSE=fuse):
+                s, h = SH.scan_histogram(xh, SCAN_NBINS)
+            if not (torch.equal(s, swant) and torch.equal(h, hwant)):
+                raise AssertionError(f"scan_histogram[{fuse}] call {i} in a "
+                                     "row differs from the plain versions")
+    log(f"PASS scan_histogram n={SCAN_N}: 10 calls in a row, fuse off and "
+        "on, each bitwise the plain versions")
+    # two streams at once: each has a scratch buffer of its own
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    xs = [ints(1 << 24, -1000, 1000), ints((1 << 24) + 77, 0, SCAN_NBINS)]
+    wants = [SC.inclusive_scan_reference(t) for t in xs]
+    hwant = H.histogram_plain(xs[1], SCAN_NBINS)
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(10):
+        with torch.cuda.stream(streams[0]):
+            got[0].append(SC.inclusive_scan(xs[0]))
+        with torch.cuda.stream(streams[1]), knobs(TPKT_SCANHIST_FUSE="on"):
+            got[1].append(SH.scan_histogram(xs[1], SCAN_NBINS))
+    torch.cuda.synchronize()
+    ok = all(torch.equal(g, wants[0]) for g in got[0]) and all(
+        torch.equal(s, wants[1]) and torch.equal(h, hwant)
+        for s, h in got[1])
+    bufs = [SC._SCRATCH.get(("scan", xs[0].get_device(), st.cuda_stream))
+            for st in streams]
+    if not ok or None in bufs or bufs[0].data_ptr() == bufs[1].data_ptr():
+        raise AssertionError("scan on two streams at once: results differ "
+                             f"from the oracle ({ok}) or the streams do not "
+                             "have a scratch buffer each")
+    log("PASS scan and scan_histogram[on] n=2^24 on two streams at once, 10 "
+        "calls each: bitwise, one scratch buffer a stream")
 
 
 def phase_main_path(torch, gen):
@@ -708,7 +915,8 @@ def phase_main_path(torch, gen):
         log(f"sgemm {label}: launched {json.dumps(moved)}, knobs from "
             f"{json.dumps(src)}")
         mode = GEMM_MODES[st.get("precision", "high")]
-        b1, b2 = {f"sgemm_{mode}": 1}, {f"sgemm_pipelined_{mode}": 1}
+        b1 = {"sgemm_prep": 1, f"sgemm_{mode}": 1}
+        b2 = {"sgemm_prep": 1, f"sgemm_pipelined_{mode}": 1}
         default = {k: "default" for k in src}
         if "TPKT_SGEMM_DEPTH" in env:
             want = (b2, dict(default, depth="env"))
@@ -821,9 +1029,11 @@ def saxpy_few_blocks_ms(torch, V, x, y, per_sm=8):
 
 def sgemm_host_us(torch, S, a, b, c, prec):
     """SGEMM's host path under the knobs set now, step by step: µs per
-    call of the memoised plan, the operand preparation (``operands``),
-    the output's allocation, the bare launch on prepared operands, the
-    whole wrapper, and ``torch.addmm`` beside it."""
+    call of the memoised plan, the operand preparation (``_prepare``:
+    one allocation and one launch; ``operands`` adds the views) and what
+    it replaced (``operands_plain``: PyTorch ops), the output's
+    allocation, the bare launch on prepared operands, the whole wrapper,
+    and ``torch.addmm`` beside it."""
     from tpukernels_torch.tuning import plan_memo
 
     m, n = c.shape
@@ -835,7 +1045,9 @@ def sgemm_host_us(torch, S, a, b, c, prec):
         "plan_memo": lambda: plan_memo(S.TUNABLES,
                                        (m, n, k, prec, a.device.index),
                                        S.plan, m, n, k, prec, a.device),
+        "prepare": lambda: S._prepare(a, b, prec),
         "operands": lambda: S.operands(a, b, prec),
+        "operands_plain": lambda: S.operands_plain(a, b, prec),
         "empty": lambda: torch.empty((m, n), dtype=torch.float32,
                                      device=a.device),
         "launch": lambda: S.launch(GEMM_ALPHA, ops, kp, GEMM_BETA, c, out,
@@ -846,6 +1058,45 @@ def sgemm_host_us(torch, S, a, b, c, prec):
                                            alpha=GEMM_ALPHA),
     }
     return {name: host_us(f, calls=500) for name, f in steps.items()}
+
+
+def scan_host_us(torch, SC, H, SH, x, nbins):
+    """The scan family's host path at ``x.numel()``, step by step: µs per
+    call of the pieces a scan call pays (the input's checks, the
+    memoised tile, the output's allocation, the scratch lookup, the bare
+    ctypes launch), the whole wrappers, and the library calls beside
+    them."""
+    from tpukernels_torch import _build
+
+    n = x.numel()
+    out = torch.empty_like(x)
+    tile = SC.tile_plan(x)
+    fn = _build.function("scan", "tpkt_scan", SC._ARGTYPES)
+    where = _build.device_stream(x)
+    _, state = SC.scan_state(n, tile, x)
+
+    def fused(fuse):
+        with knobs(TPKT_SCANHIST_FUSE=fuse):
+            return host_us(lambda: SH.scan_histogram(x, nbins))
+
+    steps = {
+        "flat": lambda: SC._flat(x),
+        "tile_plan": lambda: SC.tile_plan(x),
+        "empty_like": lambda: torch.empty_like(x),
+        "device_stream": lambda: _build.device_stream(x),
+        "scan_state": lambda: SC.scan_state(n, tile, x, 0, where),
+        "ctypes_launch": lambda: fn(x.data_ptr(), out.data_ptr(),
+                                    state.data_ptr(), n,
+                                    tile // SC.TILES[0], 0, where[1]),
+        "scan": lambda: SC.inclusive_scan(x),
+        "torch_cumsum": lambda: torch.cumsum(x, 0, dtype=torch.int32),
+        "histogram": lambda: H.histogram(x, nbins),
+        "scan_histogram_plan": lambda: SH.launch_plan(x, nbins),
+    }
+    us = {name: host_us(f) for name, f in steps.items()}
+    us["scan_histogram_off"], us["scan_histogram_on"] = fused("off"), \
+        fused("on")
+    return us
 
 
 def phase_times(torch, gen, peaks):
@@ -907,7 +1158,7 @@ def phase_times(torch, gen, peaks):
     lib = time_ms(lambda: torch.addmm(c, a, b, beta=GEMM_BETA,
                                       alpha=GEMM_ALPHA), 20)
     for prec, work, rate in (("high", 3 * 2 * m * n * k, bf16),
-                             ("float32", 2 * m * n * k, fp32),
+                             ("float32", 6 * 2 * m * n * k, bf16),
                              ("default", 2 * m * n * k, bf16)):
         row = {
             "shape": [m, k, n],
@@ -920,7 +1171,8 @@ def phase_times(torch, gen, peaks):
             "library_ms": lib,
             "library_device_ms": graph_ms(lambda: torch.addmm(
                 c, a, b, beta=GEMM_BETA, alpha=GEMM_ALPHA), 20),
-            "launches_per_call": 1,
+            "launches_per_call": graph_nodes(lambda: S.sgemm(
+                GEMM_ALPHA, a, b, GEMM_BETA, c, precision=prec)),
             "knobs": S.plan(m, n, k, prec, dev),
         }
         row["split_ms"], row["kernel_ms"] = sgemm_parts(torch, S, a, b, c,
@@ -931,6 +1183,8 @@ def phase_times(torch, gen, peaks):
             4 * (m * k + k * n + 2 * m * n), work, rate, bw)
         out[f"sgemm[{prec}]"] = row
     out.update(sgemm_times(torch, gen, peaks))
+    out.update(sgemm_prep_times(torch, gen, peaks))
+    out["sgemm[float32]"]["contract_share"] = float32_by_six_bf16(torch, gen)
 
     h = w = 4096
     iters = 1000
@@ -1010,7 +1264,11 @@ def phase_times(torch, gen, peaks):
         if "kernel_ms" in r:
             extra += (f", operands {r['split_ms']:.4f} ms + kernel "
                       f"{r['kernel_ms']:.4f} ms on the device")
-        if "library_device_ms" in r:
+        if "in_flight_kernel_ms" in r:
+            extra += (", kernel with every wgmma group waited for "
+                      f"{r['in_flight_kernel_ms']['0']:.4f} ms, one in "
+                      f"flight {r['in_flight_kernel_ms']['1']:.4f} ms")
+        if r.get("library_device_ms") is not None:
             extra += f", library device {r['library_device_ms']:.4f} ms"
         if "few_blocks_device_ms" in r:
             extra += (", 8 blocks a SM looping "
@@ -1022,6 +1280,11 @@ def phase_times(torch, gen, peaks):
             extra += ", device per tile: " + ", ".join(
                 f"{t} {ms:.4f} ms"
                 for t, ms in r["per_tile_device_ms"].items())
+        if "plain_device_ms" in r:
+            extra += (f", plain on the device {r['plain_device_ms']:.4f} ms "
+                      f"in {r['plain_launches_per_call']} launches")
+        if "probe" in r:
+            extra += f", probe {json.dumps(r['probe'])}"
         if "scan_hist_melem_s" in r:
             extra += (f", scan_hist_melem_s {r['scan_hist_melem_s']:.1f}, "
                       f"passes' bytes {r['pass_bytes_ms']:.6g} ms")
@@ -1047,20 +1310,61 @@ def sgemm_parts(torch, S, a, b, c, prec, calls):
     return split, kernel
 
 
+def sgemm_in_flight_probe(torch, S, a, b, c, prec, calls):
+    """Device ms of the depth-3 kernel alone, under the knobs set now,
+    with every wgmma group waited for (``"0"``, what depth 3 runs) and
+    with one group left in flight (``"1"``, the variant that measured
+    slower and that no entry runs). Through
+    ``tpkt_sgemm_pipelined_probe``, an entry no wrapper calls; the two
+    results must agree bitwise with depth 3's."""
+    from tpukernels_torch import _build
+
+    m, n = c.shape
+    ops, kp = S.operands(a, b, prec)
+    p = S.plan(m, n, a.shape[1], prec, a.device)
+    if (prec, p["bm"], p["depth"]) != ("high", 128, 3):
+        raise AssertionError(f"the probe is built for 'high' at depth 3 on "
+                             f"128-row tiles, not {prec} {p}")
+    fn = _build.function(
+        "sgemm_pipelined", "tpkt_sgemm_pipelined_probe",
+        (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3 + (ctypes.c_float,) * 2
+        + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+    ptrs = [t.data_ptr() for t in ops]
+    want = S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c, precision=prec)
+    out = {}
+    for keep in (0, 1):
+        got = torch.empty_like(c)
+
+        def run():
+            rc = _build.launch(fn, got, *ptrs, c.data_ptr(), got.data_ptr(),
+                               m, n, kp, GEMM_ALPHA, GEMM_BETA, p["bn"], keep,
+                               int(p["order"] == "ji"))
+            _build.check(rc, "tpkt_sgemm_pipelined_probe")
+
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"tpkt_sgemm_pipelined_probe in_flight={keep} "
+                                 "differs from depth 3")
+        out[str(keep)] = graph_ms(run, calls)
+    return out
+
+
 def sgemm_times(torch, gen, peaks):
     """Phase 5 for SGEMM's tuned path: at 1024^3 every precision at depth
     1 (B1) on each tile it builds, ``high`` at depth 1/2/3 in both grid
-    orders and B2 at the 64-row tile, ``float32`` and ``default`` at
-    depth 2/3; at 4096^3 ``high`` on B1's tiles and at depth 2/3. Each
-    beside its bound, the plain version and ``torch.addmm``; B1's rows
-    with the device time of the operand preparation and of the kernel
-    alone."""
+    orders and B2 at the 64-row and the 128 x 128 tile, ``float32`` and
+    ``default`` at depth 2/3; at 4096^3 ``high`` on B1's tiles and at
+    depth 2/3 on the default and the 128 x 128 tile. Each beside its
+    bound, the plain version and ``torch.addmm``, with the device time
+    of the operand preparation and of the kernel alone and the graph
+    nodes (launches) of a call."""
     from tpukernels_torch.kernels import sgemm as S
 
     _, bw, bf16, fp32 = peaks
     dev = torch.device("cuda")
-    passes = {"high": (3, bf16), "float32": (1, fp32), "default": (1, bf16)}
-    bm64 = {"TPKT_SGEMM_BM": 64}
+    passes = {"high": 3, "float32": 6, "default": 1}  # bf16 products
+    bm64, bn128 = {"TPKT_SGEMM_BM": 64}, {"TPKT_SGEMM_BN": 128}
     bms, bns, _ = S.tiles(1)
     b1_tiles = [{"TPKT_SGEMM_BM": bm, "TPKT_SGEMM_BN": bn}
                 for bm in bms for bn in bns]
@@ -1072,9 +1376,11 @@ def sgemm_times(torch, gen, peaks):
                    for s in ((m, k), (k, n), (m, n)))
         lib = time_ms(lambda: torch.addmm(c, a, b, beta=GEMM_BETA,
                                           alpha=GEMM_ALPHA), reps)
+        lib_dev = graph_ms(lambda: torch.addmm(c, a, b, beta=GEMM_BETA,
+                                               alpha=GEMM_ALPHA), calls)
         precs = S.PRECISIONS if size == 1024 else ("high",)
         combos = [(p, 1, "ij", t) for p in precs for t in b1_tiles]
-        combos += [("high", d, "ij", {}) for d in (2, 3)]
+        combos += [("high", d, "ij", t) for d in (2, 3) for t in ({}, bn128)]
         if size == 1024:
             combos += [("high", d, "ji", {}) for d in S.DEPTHS]
             combos += [("high", d, "ij", bm64) for d in (2, 3)]
@@ -1085,43 +1391,135 @@ def sgemm_times(torch, gen, peaks):
             if prec not in plain:
                 plain[prec] = time_ms(lambda: S.sgemm_plain(
                     GEMM_ALPHA, a, b, GEMM_BETA, c, prec), reps, warmup=1)
+
+            def call():
+                return S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
+                               precision=prec)
+
             with knobs(TPKT_SGEMM_DEPTH=depth, TPKT_SGEMM_ORDER=order,
                        **tile):
+                in_flight = None  # the probe is built for 128-row tiles
+                if (prec == "high" and depth == 3 and order == "ij"
+                        and tile is not bm64):
+                    in_flight = sgemm_in_flight_probe(torch, S, a, b, c,
+                                                      prec, calls)
                 row = {
                     "shape": [m, k, n], "precision": prec, "depth": depth,
                     "order": order, "knobs": S.plan(m, n, k, prec, dev),
-                    "ms": time_ms(lambda: S.sgemm(GEMM_ALPHA, a, b,
-                                                  GEMM_BETA, c,
-                                                  precision=prec), reps),
-                    "plain_ms": plain[prec], "library_ms": lib,
-                    "launches_per_call": 1,
+                    "ms": time_ms(call, reps), "plain_ms": plain[prec],
+                    "library_ms": lib, "library_device_ms": lib_dev,
+                    "launches_per_call": graph_nodes(call, 2),
+                    "device_ms": graph_ms(call, calls),
                 }
-                row["device_ms"] = graph_ms(
-                    lambda: S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c,
-                                    precision=prec), calls)
-                if depth == 1:
-                    row["split_ms"], row["kernel_ms"] = sgemm_parts(
-                        torch, S, a, b, c, prec, calls)
+                row["split_ms"], row["kernel_ms"] = sgemm_parts(
+                    torch, S, a, b, c, prec, calls)
+            if in_flight:
+                row["in_flight_kernel_ms"] = in_flight
             t = row["knobs"]
             row["blocks"] = -(-m // t["bm"]) * -(-n // t["bn"])
-            mult, rate = passes[prec]
             row["bound_ms"], row["bound_by"] = bound(
-                4 * (m * k + k * n + 2 * m * n), mult * 2 * m * n * k, rate,
-                bw)
+                4 * (m * k + k * n + 2 * m * n),
+                passes[prec] * 2 * m * n * k, bf16, bw)
             label = f"sgemm[{prec}] {size}^3 depth={depth} order={order}"
-            if depth == 1 and tile:
-                label += f" tile={t['bm']}x{t['bn']}"
-            elif tile:
-                label += " bm=64"
+            if tile:  # not the default tile: B1's sweep, or a B2 variant
+                row["variant"] = f"{t['bm']}x{t['bn']}"
+                label += f" tile={row['variant']}"
             out[label] = row
         del a, b, c
+    return out
+
+
+def float32_by_six_bf16(torch, gen):
+    """How close ``float32``, six bf16 tensor-core products, comes to
+    its contract on this card, where the tensor cores do not keep every
+    bit of a float32 accumulator. Per shape (1024^3, 4096^3, a long k
+    and the ragged ones), against the oracle: the largest error of the
+    kernel and its largest share of ``contract("float32")``'s bound,
+    beside those of the six products taken one at a time: a3b1, a2b2,
+    a1b3, a2b1, a1b2, a1b1 each summed over k by one ``default``-mode
+    call (one accumulator a product) and added up through beta = 1,
+    smallest first. The kernel fails the run at half the bound."""
+    from tpukernels_torch.kernels import sgemm as S
+
+    rows = {}
+    for m, k, n in ((1024, 1024, 1024), (4096, 4096, 4096),
+                    (512, 32768, 512), *GEMM_RAGGED):
+        a, b, c = (torch.rand(*s, device="cuda", generator=gen) * 2 - 1
+                   for s in ((m, k), (k, n), (m, n)))
+        ref = S.sgemm_reference(GEMM_ALPHA, a, b, GEMM_BETA, c)
+        rtol, atol = S.contract("float32", k, GEMM_ALPHA)
+        limit = atol + rtol * ref.abs()
+        pa, pb = S._pieces_bf16(a).float(), S._pieces_bf16(b).float()
+        acc = torch.zeros_like(c)
+        for i, j in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)):
+            acc = S.sgemm(1.0, pa[i], pb[j], 1.0, acc, precision="default")
+        apart = GEMM_ALPHA * acc + GEMM_BETA * c
+        got = S.sgemm(GEMM_ALPHA, a, b, GEMM_BETA, c, precision="float32")
+        r = rows[f"{m}x{k}x{n}"] = {
+            "max_abs_err": max_abs_err(got, ref),
+            "share_of_contract": float(((got - ref).abs() / limit).max()),
+            "apart_max_abs_err": max_abs_err(apart, ref),
+            "apart_share_of_contract": float(
+                ((apart - ref).abs() / limit).max()),
+            "atol": atol, "rtol": rtol,
+        }
+        del a, b, c, ref, pa, pb, acc, apart, got, limit
+        log(f"float32 as six bf16 products {m}x{k}x{n}: max_abs_err "
+            f"{r['max_abs_err']:.3e}, {r['share_of_contract']:.3f} of the "
+            f"contract's bound (rtol {rtol:g}, atol {atol:.3g}); the six "
+            f"products one call each {r['apart_max_abs_err']:.3e}, "
+            f"{r['apart_share_of_contract']:.3f}")
+        if r["share_of_contract"] > 0.5:
+            raise AssertionError(
+                f"sgemm[float32] {m}x{k}x{n}: the error takes "
+                f"{r['share_of_contract']:.3f} of the contract's bound, "
+                "over half")
+    return rows
+
+
+def sgemm_prep_times(torch, gen, peaks):
+    """Phase 5 for SGEMM's operand preparation in ``high`` mode at the
+    operands of 1024^3 and 4096^3: a call and the device time of
+    ``operands`` (one launch), of its plain version (the PyTorch ops it
+    replaced) and the bytes bound: A and B read once in float32, four
+    bf16 operands written."""
+    from tpukernels_torch.kernels import sgemm as S
+
+    _, bw, _, fp32 = peaks
+    out = {}
+    for size, reps, calls in ((1024, 100, 20), (4096, 10, 2)):
+        a, b = (torch.rand(size, size, device="cuda", generator=gen) * 2 - 1
+                for _ in range(2))
+        row = {
+            "shape": [size, size, size], "precision": "high",
+            "ms": time_ms(lambda: S.operands(a, b, "high"), reps),
+            "device_ms": graph_ms(lambda: S.operands(a, b, "high"), calls),
+            "plain_ms": time_ms(lambda: S.operands_plain(a, b, "high"),
+                                reps),
+            "plain_device_ms": graph_ms(
+                lambda: S.operands_plain(a, b, "high"), calls),
+            "library_ms": None,
+            "launches_per_call": graph_nodes(
+                lambda: S.operands(a, b, "high")),
+            "plain_launches_per_call": graph_nodes(
+                lambda: S.operands_plain(a, b, "high")),
+        }
+        # 2 x 4 B read and 4 x 2 B written an element; a convert and a
+        # subtract an element
+        row["bound_ms"], row["bound_by"] = bound(
+            16 * size * size, 4 * size * size, fp32, bw)
+        out[f"sgemm_prep {size}^2"] = row
+        del a, b
     return out
 
 
 def scan_times(torch, gen, peaks):
     """Phase 5 for scan, histogram and scan_histogram (fuse off and on),
     int32 in [0, 256) with 256 bins, at 2^22 (the configuration of
-    record; in L2) and 2^26 (streams device memory)."""
+    record; in L2) and 2^26 (streams device memory): a call and the
+    device time of the wrapper and of the library call, the nodes a call
+    leaves in a CUDA graph (its launches, fills included), and at 2^26
+    the scan's probe (:func:`scan_probe`)."""
     from tpukernels_torch.kernels import histogram as H, scan as SC
     from tpukernels_torch.kernels import scan_histogram as SH
 
@@ -1138,7 +1536,9 @@ def scan_times(torch, gen, peaks):
         plain_reps = max(reps // 10, 2)
         rows = {
             # (wrapper, plain version, one library call, launches per
-            # call, bytes the function moves, int32 ops, knobs)
+            # call, bytes the function moves, int32 ops, knobs); a library
+            # call with torch.bincount in it synchronises with the host,
+            # so it cannot be captured and has no device time of its own
             "scan": (lambda: SC.inclusive_scan(x), lambda: SC.scan_plain(x),
                      lambda: torch.cumsum(x, 0, dtype=torch.int32), 1,
                      8 * n, n, {}),
@@ -1170,8 +1570,15 @@ def scan_times(torch, gen, peaks):
                     "device_ms": graph_ms(fn, calls),
                     "plain_ms": time_ms(plain, plain_reps),
                     "library_ms": time_ms(lib, reps),
-                    "launches_per_call": launches,
+                    "library_device_ms": (graph_ms(lib, calls)
+                                          if name == "scan" else None),
+                    "launches_per_call": graph_nodes(fn),
                 }
+                if row["launches_per_call"] != launches:
+                    raise AssertionError(
+                        f"{name} n={n}: a call leaves "
+                        f"{row['launches_per_call']} nodes in a CUDA graph, "
+                        f"not its {launches} kernel launch(es)")
                 if name in ("scan", "scan_histogram[on]"):
                     # device time at every tile size the kernel takes
                     row["per_tile_device_ms"] = {}
@@ -1187,8 +1594,51 @@ def scan_times(torch, gen, peaks):
                 row["pass_bytes_ms"] = (4 * n * (launches + 1) + 4 * nb) / bw \
                     * 1e3
             out[f"{name} n={n}"] = row
+        if n == STREAM_N:
+            out[f"scan n={n}"]["probe"] = scan_probe(torch, SC, x)
+        else:
+            out[f"scan n={n}"]["host_us"] = scan_host_us(torch, SC, H, SH,
+                                                          x, nb)
         del x, xw
     return out
+
+
+def scan_probe(torch, SC, x):
+    """What holds the int32 scan of ``x`` (2^26, the largest tile) under
+    its bytes bound: the blocks a SM the runtime reports resident, and
+    the device ms with the grid capped at 1 and 2 blocks a SM, with all
+    resident blocks, and with every look-back answered at once (tile 0's
+    path; that output is wrong and is not read). Timing only, through
+    ``tpkt_scan_probe``, an entry no wrapper calls."""
+    from tpukernels_torch import _build
+
+    n, out = x.numel(), torch.empty_like(x)
+    fn = _build.function(
+        "scan", "tpkt_scan_probe",
+        (ctypes.c_void_p,) * 3 + (ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_void_p))
+    per_sm = ctypes.c_int(0)
+
+    def run(cap, first_path, ask=False):
+        _, state = SC.scan_state(n, SC.TILES[-1], x)
+        rc = _build.launch(fn, x, x.data_ptr(), out.data_ptr(),
+                           state.data_ptr(), n, cap, first_path,
+                           ctypes.addressof(per_sm) if ask else None)
+        _build.check(rc, "tpkt_scan_probe")
+
+    run(0, 0, ask=True)
+    torch.cuda.synchronize()
+    if not torch.equal(out, SC.inclusive_scan_reference(x)):
+        raise AssertionError("tpkt_scan_probe on the whole grid differs "
+                             "from the oracle")
+    probe = {"resident_blocks_per_sm": per_sm.value}
+    for label, cap, first in (("cap_1_ms", 1, 0), ("cap_2_ms", 2, 0),
+                              ("all_resident_ms", 0, 0),
+                              ("no_look_back_ms", 0, 1),
+                              ("no_look_back_cap_1_ms", 1, 1)):
+        probe[label] = graph_ms(lambda: run(cap, first), 4)
+    return probe
 
 
 def main(argv=None):
@@ -1246,54 +1696,82 @@ def main(argv=None):
     # time, its operand preparation and kernel alone, and every tile
     for prec, mode in GEMM_MODES.items():
         t = times[f"sgemm[{prec}]"]
-        tiles = {lbl.rsplit("tile=", 1)[1]: picked(
+        tiles = {r["variant"]: picked(
                      r, "ms", "device_ms", "split_ms", "kernel_ms")
                  for lbl, r in times.items()
                  if lbl.startswith(f"sgemm[{prec}] 1024^3 depth=1 ")
-                 and "tile=" in lbl}
+                 and "variant" in r}
         extra = {}
         if prec == "high":
             extra["at_4096"] = [
-                dict(picked(r), tile=lbl.rsplit("tile=", 1)[1],
+                dict(picked(r), tile=r["variant"],
                      kernel_ms=r["kernel_ms"], split_ms=r["split_ms"])
                 for lbl, r in times.items()
                 if lbl.startswith("sgemm[high] 4096^3 depth=1 ")]
-        if "host_us" in t:
-            extra["host_us"] = t["host_us"]
+        for key in ("host_us", "contract_share"):
+            if key in t:
+                extra[key] = t[key]
         kernels.append(entry(f"sgemm_{mode}", sg, t, errs[f"sgemm_{prec}"],
                              precision=prec, shape=t["shape"],
                              knobs=t["knobs"], device_ms=t["device_ms"],
                              split_ms=t["split_ms"], kernel_ms=t["kernel_ms"],
                              library_device_ms=t["library_device_ms"],
+                             launches_per_call=t["launches_per_call"],
                              per_tile=tiles, **extra))
     # B2: `high` at depth 2 order ij, the env-driven main path; the other
     # modes at their fastest depth. max_abs_err is against the plain
     # version at depth 2 order ij (phase 3 holds every depth and order)
+    parts = ("ms", "device_ms", "split_ms", "kernel_ms",
+             "in_flight_kernel_ms")
     for prec, mode in GEMM_MODES.items():
         rows_1024 = {lbl: r for lbl, r in times.items()
                      if lbl.startswith(f"sgemm[{prec}] 1024^3 depth=")
-                     and "tile=" not in lbl and not lbl.endswith("bm=64")}
+                     and "variant" not in r}
         t = (times["sgemm[high] 1024^3 depth=2 order=ij"] if prec == "high"
              else min((r for r in rows_1024.values() if r["depth"] > 1),
                       key=lambda r: r["ms"]))
-        extra = {"per_depth_order_ms": {f"{r['depth']}/{r['order']}": r["ms"]
-                                        for r in rows_1024.values()}}
+        extra = {"per_depth_order": {f"{r['depth']}/{r['order']}":
+                                     picked(r, *parts)
+                                     for r in rows_1024.values()}}
         if prec == "high":
-            extra["bm64_per_depth_ms"] = {
-                r["depth"]: r["ms"] for lbl, r in times.items()
-                if lbl.startswith("sgemm[high] 1024^3") and
-                lbl.endswith("bm=64")}
+            extra["per_tile_depth"] = {
+                f"{r['variant']}/{r['depth']}": picked(r, *parts)
+                for lbl, r in times.items()
+                if lbl.startswith("sgemm[high] 1024^3") and "variant" in r
+                and r["depth"] > 1}
             extra["at_4096"] = [
-                picked(r, "depth", "ms", "device_ms", "plain_ms",
-                       "library_ms", "bound_ms", "bound_by")
+                dict(picked(r, "depth", *parts, "plain_ms", "library_ms",
+                            "library_device_ms", "bound_ms", "bound_by"),
+                     tile=f"{r['knobs']['bm']}x{r['knobs']['bn']}")
                 for lbl, r in times.items()
                 if lbl.startswith("sgemm[high] 4096^3 depth=")
-                and "tile=" not in lbl]
+                and r["depth"] > 1]
         kernels.append(entry(f"sgemm_pipelined_{mode}", by_id["B2"], t,
                              errs[f"sgemm_pipelined_{prec}"], precision=prec,
                              shape=t["shape"], depth=t["depth"],
                              order=t["order"], knobs=t["knobs"],
-                             device_ms=t["device_ms"], **extra))
+                             device_ms=t["device_ms"],
+                             split_ms=t["split_ms"], kernel_ms=t["kernel_ms"],
+                             library_device_ms=t["library_device_ms"],
+                             launches_per_call=t["launches_per_call"],
+                             **extra))
+    # the operand preparation: a helper kernel, no TPU kernel behind it
+    from tpukernels_torch.kernels import HELPER_KERNELS
+
+    t = times["sgemm_prep 1024^2"]
+    big = times["sgemm_prep 4096^2"]
+    prep_keys = ("ms", "device_ms", "plain_ms", "plain_device_ms",
+                 "bound_ms", "bound_by", "launches_per_call",
+                 "plain_launches_per_call")
+    kernels.append({
+        "name": "sgemm_prep", "route": "cuda",
+        "source": HELPER_KERNELS["sgemm_prep"].source,
+        "replaces": HELPER_KERNELS["sgemm_prep"].replaces,
+        "launches": launches["sgemm_prep"],
+        "max_abs_err": errs["sgemm_prep"], "shape": t["shape"],
+        "precision": "high", "library_ms": None,
+        **{key: t[key] for key in prep_keys},
+        "at_4096": {key: big[key] for key in prep_keys}})
 
     def canary(label):  # the small kernel's shape, timed
         return {k: times[label][k] for k in ("shape", "iters", "ms",
@@ -1320,19 +1798,23 @@ def main(argv=None):
         return {k: times[label][k] for k in keys}
 
     big, rec = f"n={STREAM_N}", f"n={SCAN_N}"
-    one = ("n", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-           "bound_by")
-    sh = one + ("pass_bytes_ms", "scan_hist_melem_s", "launches_per_call")
+    one = ("n", "ms", "device_ms", "plain_ms", "library_ms",
+           "library_device_ms", "launches_per_call", "bound_ms", "bound_by")
+    sh = one + ("pass_bytes_ms", "scan_hist_melem_s")
     t = times[f"scan {rec}"]
     kernels.append(entry("scan", by_id["B8"], t, errs["scan"], n=SCAN_N,
                          dtype="int32", device_ms=t["device_ms"],
+                         library_device_ms=t["library_device_ms"],
+                         launches_per_call=t["launches_per_call"],
+                         host_us=t["host_us"],
                          per_tile_device_ms=t["per_tile_device_ms"],
                          stream=at(f"scan {big}", *one,
-                                   "per_tile_device_ms")))
+                                   "per_tile_device_ms", "probe")))
     t = times[f"histogram {rec}"]
     kernels.append(entry("histogram", by_id["B9"], t, errs["histogram"],
                          also_replaces=by_id["B10"].where, n=SCAN_N,
                          nbins=SCAN_NBINS, device_ms=t["device_ms"],
+                         launches_per_call=t["launches_per_call"],
                          stream=at(f"histogram {big}", *one),
                          wide=[at(f"histogram[{WIDE_NBINS}] {size}", "nbins",
                                   *one) for size in (rec, big)]))
@@ -1341,7 +1823,7 @@ def main(argv=None):
         "scan_histogram", by_id["B11"], t, errs["scan_histogram"], n=SCAN_N,
         nbins=SCAN_NBINS, fuse="on",
         **{k: t[k] for k in ("scan_hist_melem_s", "device_ms",
-                             "per_tile_device_ms")},
+                             "launches_per_call", "per_tile_device_ms")},
         stream=at(f"scan_histogram[on] {big}", *sh, "per_tile_device_ms"),
         off=[at(f"scan_histogram[off] {size}", *sh) for size in (rec, big)]))
     log(f"card: {card}")

@@ -19,7 +19,7 @@ import torch
 from tpukernels.kernels import histogram as JH
 from tpukernels_torch import interop, registry
 from tpukernels_torch.kernels import histogram as H
-from tpukernels_torch.tuning import resolve
+from tpukernels_torch.tuning import cache, resolve, space
 
 MIXED = np.array([-5, 3, 99, 3, 0], np.int32)
 
@@ -104,3 +104,62 @@ def test_histogram_knob(monkeypatch):
     monkeypatch.setenv("TPKT_HIST_BLOCKS_PER_SM", "0")
     with pytest.raises(ValueError, match="TPKT_HIST_BLOCKS_PER_SM"):
         resolve(H.TUNABLES)
+
+
+def test_histogram_plan_is_memoised_and_follows_env_and_cache(tmp_path,
+                                                              monkeypatch):
+    """``blocks_per_sm`` comes from the memoised plan: a second call with
+    the same (n, nbins) resolves nothing; a changed env knob or a new
+    cache entry is seen on the next call."""
+    monkeypatch.setenv("TPKT_TUNING_CACHE_DIR", str(tmp_path / "tcache"))
+    monkeypatch.delenv("TPKT_TUNING_CACHE", raising=False)
+    monkeypatch.delenv("TPKT_HIST_BLOCKS_PER_SM", raising=False)
+    monkeypatch.setattr(cache, "source_sha", lambda sources, root=None: None)
+    monkeypatch.setattr(cache.time, "monotonic", lambda: 100.0)
+    cache.forget()
+    calls = []
+    real = space.resolve_with_sources
+    monkeypatch.setattr(space, "resolve_with_sources",
+                        lambda *a, **k: calls.append(a) or real(*a, **k))
+    cpu = torch.device("cpu")
+    assert H.launch_plan(5000, 64, cpu) == 2
+    assert H.launch_plan(5000, 64, cpu) == 2 and len(calls) == 1
+    assert H.launch_plan(5000, 65, cpu) == 2 and len(calls) == 2
+    monkeypatch.setenv("TPKT_HIST_BLOCKS_PER_SM", "4")
+    assert H.launch_plan(5000, 64, cpu) == 4 and len(calls) == 3
+    monkeypatch.setenv("TPKT_HIST_BLOCKS_PER_SM", "0")
+    with pytest.raises(ValueError, match="TPKT_HIST_BLOCKS_PER_SM"):
+        H.launch_plan(5000, 64, cpu)
+    monkeypatch.delenv("TPKT_HIST_BLOCKS_PER_SM")
+    cache.put(H.TUNABLES, {"blocks_per_sm": 3}, shape=(5000, 64),
+              dtype="int32", kind="cpu")
+    assert H.launch_plan(5000, 64, cpu) == 3
+
+
+@pytest.mark.parametrize("nbins,n,zeroed", [(256, 100, False),
+                                            (H.SMEM_BINS, 100, False),
+                                            (H.SMEM_BINS + 1, 100, True),
+                                            (256, 0, True)])
+def test_bins_out_is_zeroed_only_where_the_kernel_counts_into_it(
+        monkeypatch, nbins, n, zeroed):
+    """Up to SMEM_BINS bins the kernel's last block writes the whole
+    output, which then needs no fill; above, and for an empty input, the
+    output starts zeroed."""
+    made = []
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: made.append("empty")
+                        or torch.ones(*a, **k))
+    monkeypatch.setattr(torch, "zeros", lambda *a, **k: made.append("zeros")
+                        or torch.full(a, 0, **k))
+    out = H.bins_out(nbins, n, torch.ones(1))
+    assert made == ["zeros" if zeroed else "empty"]
+    assert out.shape == (nbins,) and out.dtype == torch.int32
+    src = (H._build.CSRC / "bins.cuh").read_text()
+    assert f"TPKT_SMEM_BINS = {H.SMEM_BINS};" in src
+
+
+def test_as_int32_passes_flat_int32_through():
+    x = torch.arange(12, dtype=torch.int32)
+    assert H.as_int32(x) is x
+    assert H.as_int32(x.view(3, 4)).shape == (12,)
+    assert H.as_int32(x[::2]).is_contiguous()
+    assert H.as_int32(x.float()).dtype == torch.int32

@@ -157,7 +157,7 @@ def test_kernel_table_covers_every_pallas_kernel():
 
 
 def test_kernel_table_rows_are_consistent():
-    from tpukernels_torch.kernels import LAUNCHES
+    from tpukernels_torch.kernels import HELPER_KERNELS, LAUNCHES
 
     ported = [r for r in TPU_KERNELS if r.status == "ported"]
     # every TPU kernel has its counterpart
@@ -172,7 +172,15 @@ def test_kernel_table_rows_are_consistent():
             counted |= set(r.launches)
         else:
             assert r.port_entry is None and not r.launches
-    assert counted == set(LAUNCHES)
+    # a helper kernel (work the reference leaves to XLA) has a counter
+    # and a source, but no row
+    assert not counted & set(HELPER_KERNELS)
+    for name, helper in HELPER_KERNELS.items():
+        src = ROOT / helper.source
+        assert src.is_file() and helper.port_entry in src.read_text()
+        assert src.stem in _build.SOURCES
+        assert helper.replaces.startswith("tpukernels/kernels/")
+    assert counted | set(HELPER_KERNELS) == set(LAUNCHES)
 
 
 # every key is ported: the mechanism is held on keys put back as pending

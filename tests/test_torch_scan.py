@@ -14,9 +14,9 @@ import pytest
 import torch
 
 from tpukernels.kernels import scan as JS
-from tpukernels_torch import interop, registry
+from tpukernels_torch import _build, interop, registry
 from tpukernels_torch.kernels import scan as S
-from tpukernels_torch.tuning import resolve
+from tpukernels_torch.tuning import cache, resolve, space
 
 RTOL, ATOL = 1e-4, 1e-2
 
@@ -121,3 +121,124 @@ def test_scan_tile_knob(monkeypatch):
     monkeypatch.setenv("TPKT_SCAN_TILE", "1000")
     with pytest.raises(ValueError, match="TPKT_SCAN_TILE"):
         S.resolve_tile()
+
+
+@pytest.fixture
+def counted_resolves(tmp_path, monkeypatch):
+    """A tuning cache of the test's own, no scan knob set, and a list
+    that grows by one with every knob resolution of any kernel."""
+    monkeypatch.setenv("TPKT_TUNING_CACHE_DIR", str(tmp_path / "tcache"))
+    monkeypatch.delenv("TPKT_TUNING_CACHE", raising=False)
+    monkeypatch.delenv("TPKT_SCAN_TILE", raising=False)
+    monkeypatch.setattr(cache, "source_sha", lambda sources, root=None: None)
+    monkeypatch.setattr(cache.time, "monotonic", lambda: 100.0)
+    cache.forget()
+    calls = []
+    real = space.resolve_with_sources
+    monkeypatch.setattr(space, "resolve_with_sources",
+                        lambda *a, **k: calls.append(a) or real(*a, **k))
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_second_scan_call_resolves_no_knob(counted_resolves, monkeypatch,
+                                           dtype):
+    """The tile comes from the memoised plan: a second call with the
+    same (n, dtype) resolves nothing; another length or dtype, a changed
+    env knob or a new cache entry is seen on the next call."""
+    x = torch.from_numpy(_ints(5000, seed=2).astype(dtype))
+    want = _jax(JS.inclusive_scan, x.numpy())
+    for _ in range(3):
+        np.testing.assert_allclose(S.inclusive_scan(x).numpy(), want,
+                                   rtol=RTOL, atol=ATOL)
+    assert len(counted_resolves) == 1
+    S.inclusive_scan(x[:4000])
+    assert len(counted_resolves) == 2
+    other = torch.float32 if dtype == np.int32 else torch.int32
+    S.inclusive_scan(x.to(other))
+    assert len(counted_resolves) == 3
+    monkeypatch.setenv("TPKT_SCAN_TILE", "2048")
+    assert S.tile_plan(x) == 2048 and len(counted_resolves) == 4
+    monkeypatch.setenv("TPKT_SCAN_TILE", "1000")
+    with pytest.raises(ValueError, match="TPKT_SCAN_TILE=1000"):
+        S.inclusive_scan(x)
+    monkeypatch.delenv("TPKT_SCAN_TILE")
+    assert S.tile_plan(x) == 16384
+    cache.put(S.TUNABLES, {"tile": 4096}, shape=(5000,), dtype=x.dtype,
+              kind="cpu")
+    assert S.tile_plan(x) == 4096 and S.tile_plan(x) == 4096
+    np.testing.assert_allclose(S.inclusive_scan(x).numpy(), want, rtol=RTOL,
+                               atol=ATOL)
+
+
+class _Stream:
+    """Stand-ins for the CUDA calls :func:`scan.scratch` makes, so that
+    its bookkeeping runs on CPU tensors."""
+
+    def __init__(self, monkeypatch):
+        self.stream, self.capturing = 7, False
+        monkeypatch.setattr(_build, "device_stream",
+                            lambda t: (t.get_device(), self.stream))
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                            lambda: self.capturing)
+        monkeypatch.setattr(S, "_SCRATCH", {})
+
+
+def test_scratch_is_one_zeroed_buffer_a_stream_grown_on_demand(monkeypatch):
+    cur = _Stream(monkeypatch)
+    x = torch.zeros(8, dtype=torch.int32)
+    key, buf = S.scratch("scan", 10, x)
+    assert key == ("scan", -1, 7) and buf.dtype == torch.int64
+    assert buf.numel() >= 10 and not buf.any()
+    assert S.scratch("scan", 10, x)[1] is buf  # kept: no fill a call
+    assert S.scan_state(16384 * 9, 16384, x)[1] is buf  # 10 words
+    big = S.scratch("scan", buf.numel() + 1, x)[1]  # grows, zeroed
+    assert big is not buf and big.numel() > buf.numel() and not big.any()
+    assert S.scratch("scan", 10, x)[1] is big
+    # the fused pass keeps its bins behind the status words
+    assert S.scan_state(16384, 16384, x, nbins=2 * big.numel())[1] \
+        .numel() >= 2 + big.numel()
+    # another kind or another stream: another buffer
+    assert S.scratch("histogram", 10, x)[1] is not big
+    cur.stream = 8
+    other = S.scratch("scan", 10, x)[1]
+    assert other is not big and len(S._SCRATCH) == 3
+    # given where the caller looked up, no second lookup
+    monkeypatch.setattr(_build, "device_stream",
+                        lambda t: pytest.fail("looked up again"))
+    assert S.scratch("scan", 10, x, (-1, 8))[1] is other
+
+
+def test_scratch_dropped_after_a_failed_launch_and_not_kept_in_capture(
+        monkeypatch):
+    cur = _Stream(monkeypatch)
+    x = torch.zeros(8, dtype=torch.int32)
+    key, buf = S.scratch("scan", 10, x)
+    S.drop_scratch(key)
+    S.drop_scratch(key)  # and again: nothing to forget
+    assert S.scratch("scan", 10, x)[1] is not buf
+    # a buffer made during a capture belongs to the graph: not kept
+    cur.stream, cur.capturing = 9, True
+    _, first = S.scratch("scan", 10, x)
+    assert S.scratch("scan", 10, x)[1] is not first
+    assert ("scan", -1, 9) not in S._SCRATCH
+    # one made before the capture is used during it
+    cur.capturing = False
+    _, made = S.scratch("scan", 10, x)
+    cur.capturing = True
+    assert S.scratch("scan", 10, x)[1] is made
+
+
+def test_scan_kernel_resets_its_own_state():
+    """The kernel's source leaves the state zeroed (the last block
+    clears it), asks the runtime for its grid once, and the timing-only
+    probe entry is reached by no wrapper."""
+    cuh = (_build.CSRC / "scan.cuh").read_text()
+    for needle in ("atomicAdd(counter + 1, 1u) == gridDim.x - 1",
+                   "__threadfence()", "status[i] = 0",
+                   "tpkt_resident_grid", "static TpktGridMemo memo"):
+        assert needle in cuh, needle
+    assert "tpkt_scan_probe" in (_build.CSRC / "scan.cu").read_text()
+    for mod in ("scan", "histogram", "scan_histogram"):
+        src = (_build.CSRC.parent / "kernels" / f"{mod}.py").read_text()
+        assert "tpkt_scan_probe" not in src

@@ -113,16 +113,18 @@ def test_sgemm_rejects_bad_shapes():
                                    (33, 130, 300)])
 def test_kernel_operands_give_the_jax_product(m, n, k, precision):
     """The operands both CUDA kernels take (``S.operands``: the bf16
-    split, B^T or A^T, rows padded with zeros to whole 16 bytes), summed
+    split or pieces, B^T, rows padded with zeros to whole 16 bytes), summed
     as the kernels sum them, give the JAX kernel's result within the
     parity band: the padding and the layout lose nothing."""
     a, b, c = _operands(m, n, k, seed=13)
     ops, kp = S.operands(torch.from_numpy(a), torch.from_numpy(b),
                          precision)
-    assert kp == (k if precision == "float32" else -(-k // 8) * 8)
+    assert kp == -(-k // 8) * 8
     f = [None if t is None else t.double() for t in ops]
-    if precision == "float32":
-        acc = f[0].t()[:m] @ f[2][:, :n]
+    if precision == "float32":  # six products of the three pieces
+        (a1, a2, a3), (b1, b2, b3) = f[0].view(3, m, -1), f[2].view(3, n, -1)
+        acc = (a3 @ b1.t() + a1 @ b3.t() + a2 @ b2.t() + a2 @ b1.t()
+               + a1 @ b2.t() + a1 @ b1.t())
     elif precision == "high":
         acc = f[0] @ f[2].t() + f[0] @ f[3].t() + f[1] @ f[2].t()
     else:

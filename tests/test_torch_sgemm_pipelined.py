@@ -3,10 +3,10 @@
 The JAX side runs its pipelined Pallas kernel (``TPK_SGEMM_DEPTH=2|3``,
 ``TPK_SGEMM_BK=128``, ``TPK_SGEMM_ORDER=ji``) in interpret mode, as its
 own tests do; the port runs under the matching ``TPKT_*`` knobs (its
-largest k block, 64, for the reference's 128) and takes its plain
-version on CPU tensors, after resolving and checking the knobs. That
-the CUDA kernel gives the same bits at every depth and order is checked
-on the card (``chip_smoke.py`` phase 3).
+k block, 64, for the reference's 128) and takes its plain version on
+CPU tensors, after resolving and checking the knobs. That the CUDA
+kernel gives the same bits at every depth and order, and the bits of
+the depth-1 kernel, is checked on the card (``chip_smoke.py`` phase 3).
 """
 
 import jax.numpy as jnp
@@ -42,7 +42,7 @@ def test_pipelined_matches_jax(monkeypatch, depth, m, n, k, precision):
                               jnp.asarray(c), precision=precision))
     ta, tb, tc = (torch.from_numpy(t) for t in (a, b, c))
     assert S.plan(m, n, k, precision, "cpu") == {
-        "bm": 128, "bn": 128, "bk": 64, "depth": depth, "order": "ji"}
+        "bm": 128, "bn": 64, "bk": 64, "depth": depth, "order": "ji"}
     got = S.sgemm(1.5, ta, tb, 0.5, tc, precision=precision)
     rtol, atol = _tol(precision, k)
     np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=atol)
@@ -52,22 +52,24 @@ def test_pipelined_matches_jax(monkeypatch, depth, m, n, k, precision):
 @pytest.mark.parametrize("m,n,k", [(100, 200, 300), (40, 72, 56),
                                    (33, 130, 300), (64, 96, 129)])
 def test_pipelined_operands_hold_the_product(m, n, k, precision):
-    """The operands both kernels are handed (B^T or A^T, rows padded
-    with zeros to whole 16-byte chunks) give the same product as the
-    unpadded ones: the layout and the pad are right."""
+    """The operands both kernels are handed (bf16, B^T, rows padded
+    with zeros to whole 16-byte chunks; ``float32`` its three pieces an
+    operand, one after another) give the same product as the unpadded
+    ones: the layout and the pad are right."""
     a, b, c = (torch.from_numpy(t) for t in _operands(m, n, k, seed=9))
     ops, kp = S.operands(a, b, precision)
-    widths = {"float32": ((k, 4 * -(-m // 4)), (k, 4 * -(-n // 4))),
-              "high": ((m, 8 * -(-k // 8)), (n, 8 * -(-k // 8)))}
-    widths["default"] = widths["high"]
-    assert (tuple(ops[0].shape), tuple(ops[2].shape)) == widths[precision]
-    assert kp == (k if precision == "float32" else widths["high"][0][1])
+    parts = 3 if precision == "float32" else 1
+    assert kp == 8 * -(-k // 8)
+    assert (tuple(ops[0].shape), tuple(ops[2].shape)) == ((parts * m, kp),
+                                                          (parts * n, kp))
     for t in ops:
         if t is not None:
             assert t.is_contiguous() and t.data_ptr() % 16 == 0
     f = [None if t is None else t.float() for t in ops]
-    if precision == "float32":
-        acc = f[0].t()[:m] @ f[2][:, :n]
+    if precision == "float32":  # six products of the three pieces
+        (a1, a2, a3), (b1, b2, b3) = f[0].view(3, m, -1), f[2].view(3, n, -1)
+        acc = (a3 @ b1.t() + a1 @ b3.t() + a2 @ b2.t() + a2 @ b1.t()
+               + a1 @ b2.t() + a1 @ b1.t())
     elif precision == "high":
         acc = f[0] @ f[2].t() + f[0] @ f[3].t() + f[1] @ f[2].t()
     else:
@@ -110,10 +112,17 @@ def test_bad_pipeline_knobs_raise_with_the_variable(monkeypatch, knob, bad):
 def test_knobs_over_the_smem_budget_raise_before_any_launch(monkeypatch,
                                                             precision):
     a = torch.zeros(16, 16)
-    monkeypatch.setenv("TPKT_SGEMM_BK", "128")
+    monkeypatch.setenv("TPKT_SGEMM_BM", "256")
     S.sgemm(1.0, a, a, 0.0, a, precision=precision)  # depth 1 fits
-    monkeypatch.setenv("TPKT_SGEMM_DEPTH", "2")
-    with pytest.raises(ValueError, match="TPKT_SGEMM_BK=128.*DEPTH=2"):
+    # hi/lo pairs fit two stages of a 256-row preference; float32's three
+    # pieces an operand do not
+    over = {"high": 3, "float32": 2}[precision]
+    for depth in range(2, over):
+        monkeypatch.setenv("TPKT_SGEMM_DEPTH", str(depth))
+        S.sgemm(1.0, a, a, 0.0, a, precision=precision)
+    monkeypatch.setenv("TPKT_SGEMM_DEPTH", str(over))
+    with pytest.raises(ValueError,
+                       match=f"TPKT_SGEMM_BM=256.*DEPTH={over}"):
         S.sgemm(1.0, a, a, 0.0, a, precision=precision)
 
 
@@ -144,17 +153,41 @@ def test_b2_row_counters_and_build():
     assert set(row.launches) <= set(LAUNCHES)
     assert "sgemm_pipelined" in _build.SOURCES
     src = (_build.CSRC / "sgemm_pipelined.cu").read_text()
-    for needle in ("_sgemm_pipelined_kernel", "cp.async.wait_group",
-                   "commit_group", "cudaFuncAttributeMaxDynamicSharedMemorySize",
-                   "tpkt_sgemm_pipelined"):
-        assert needle in src + (_build.CSRC / "sgemm.cuh").read_text(), needle
+    ring = (_build.CSRC / "sgemm_ring.cuh").read_text()
+    assert '#include "sgemm_ring.cuh"' in src
+    assert not (_build.CSRC / "sgemm.cuh").exists()
+    for needle in ("_sgemm_pipelined_kernel", "tpkt_sgemm_pipelined",
+                   "run<2>", "run<3>"):
+        assert needle in src, needle
+    # the shared header: the stage count a template parameter, TMA loads,
+    # wgmma, each stage's group waited for (one in flight only as the
+    # probe's variant)
+    for needle in ("template <int MODE, int BM, int BN, int STAGES,",
+                   "kk % STAGES", "(kk / STAGES) & 1", "tma_load_2d",
+                   "wgmma_bf16<BN>", "wgmma_wait<IN_FLIGHT>",
+                   "tpkt_allow_smem_once"):
+        assert needle in ring, needle
+    hopper = (_build.CSRC / "hopper.cuh").read_text()
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor.2d",
+                   "wgmma.wait_group"):
+        assert needle in hopper, needle
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in (
+        _build.CSRC / "common.cuh").read_text()
+    # the timing-only entry is reached by no wrapper
+    assert "tpkt_sgemm_pipelined_probe" in src
+    assert "_probe" not in (_build.CSRC.parent / "kernels"
+                            / "sgemm.py").read_text()
+    # the cp.async ring and mma.sync are gone
+    for gone in ("cp.async.wait_group", "cp.async.cg", "mma.sync"):
+        assert gone not in src + ring + hopper, gone
 
 
 def test_b1_row_counters_and_build():
-    """B1 (depth 1) is csrc/sgemm.cu: a two-stage ring of TMA tile loads
-    on full/empty mbarriers feeding wgmma (bf16 modes) or fp32 FMAs,
-    the tensor maps encoded through cudaGetDriverEntryPoint so that no
-    library links against the CUDA driver library (no -lcuda)."""
+    """B1 (depth 1) is csrc/sgemm.cu: the kernel of sgemm_ring.cuh on two
+    stages, TMA tile loads on full/empty mbarriers feeding wgmma (bf16
+    modes) or fp32 FMAs, the tensor maps encoded through
+    cudaGetDriverEntryPoint so that no library links against libcuda
+    (no -lcuda)."""
     row = next(r for r in TPU_KERNELS if r.id == "B1")
     assert row.status == "ported" and row.port_entry == "tpkt_sgemm"
     assert row.port_source == "tpukernels_torch/csrc/sgemm.cu"
@@ -162,14 +195,16 @@ def test_b1_row_counters_and_build():
                                  for s in ("split3", "float32", "bf16")}
     assert set(row.launches) <= set(LAUNCHES)
     src = (_build.CSRC / "sgemm.cu").read_text()
-    both = src + (_build.CSRC / "hopper.cuh").read_text()
-    assert '#include "hopper.cuh"' in src and "sgemm.cuh" not in src
+    ring = (_build.CSRC / "sgemm_ring.cuh").read_text()
+    both = src + ring + (_build.CSRC / "hopper.cuh").read_text()
+    assert '#include "sgemm_ring.cuh"' in src and "sgemm.cuh" not in src
+    assert '#include "hopper.cuh"' in ring
     for needle in ("_sgemm_kernel", "STAGES = 2", "__grid_constant__",
                    "cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity",
                    "mbarrier.arrive.expect_tx", "wgmma.mma_async",
                    "wgmma.commit_group", "wgmma.wait_group",
                    "CU_TENSOR_MAP_SWIZZLE_128B", "cudaGetDriverEntryPoint",
-                   "cuTensorMapEncodeTiled", "fmaf", "tpkt_sgemm"):
+                   "cuTensorMapEncodeTiled", "tpkt_sgemm"):
         assert needle in both, needle
     assert not any("cuda" in f and f.startswith("-l")
                    for f in _build.NVCC_FLAGS)

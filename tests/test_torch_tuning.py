@@ -62,35 +62,45 @@ def _edit_entry(field, value):
 # ------------------------------------------------------------------ #
 
 def test_sgemm_smem_arithmetic_and_pruning():
-    """The model's numbers on the card: depth 1 (TMA + wgmma) takes two
-    stages plus 1024 B of alignment and four mbarriers, split3 at
-    128x64x64 99 360 B; depth 2/3 (cp.async) at 128x128x32 40 960 B a
-    stage (80 KB at depth 2, 120 KB at depth 3). Every built tile fits
-    at every depth, and a k block of 128 is pruned at depth 2/3 (depth
-    1 builds k blocks of 64 only, which is what it counts)."""
-    control = {"bm": 128, "bn": 64, "bk": 32, "depth": 1, "order": "ij"}
+    """The model's numbers on the card: every depth is one kernel (TMA +
+    wgmma) on a ring of max(depth, 2) stages of NOPS x (bm + bn) x 64
+    elements, plus 1024 B of alignment and two 8-byte mbarriers a stage.
+    Split3 at 128x64: 99 360 B at depth 1 and 2 (the same two-stage
+    instantiation), 148 528 B at depth 3; at 128x128, depth 3, 197 680 B.
+    Every built tile fits at every depth, and a bm preference of 256 is
+    pruned at depth 3 (depth 1 counts the largest tile it builds within
+    the preferences, so it fits)."""
+    control = {"bm": 128, "bn": 64, "bk": 64, "depth": 1, "order": "ij"}
     assert S._smem_bytes(control) == 99_360
-    assert S._smem_bytes({**control, "depth": 2}) == 81_920
-    assert S._smem_bytes({**control, "depth": 3}) == 122_880
-    assert S._smem_bytes(control, precision="float32") == 99_360
+    assert S._smem_bytes({**control, "depth": 2}) == 99_360
+    assert S._smem_bytes({**control, "depth": 3}) == 148_528
+    assert S._smem_bytes(control, precision="float32") == 148_512
     assert S._smem_bytes(control, precision="default") == 50_208
+    for depth in (2, 3):  # depth·stage + 1024 + 16·depth
+        for prec, nops, elem in (("high", 2, 2), ("float32", 3, 2),
+                                 ("default", 1, 2)):
+            assert S._smem_bytes({**control, "depth": depth},
+                                 precision=prec) == \
+                depth * nops * (128 + 64) * 64 * elem + 1024 + 16 * depth
     widest = {"bm": 128, "bn": 128, "bk": 64, "depth": 3}
-    assert S._smem_bytes(widest) == 221_184 <= SMEM_BUDGET_BYTES == 232_448
-    assert not S.TUNABLES.feasible({**widest, "bk": 128, "depth": 2})
-    assert S.TUNABLES.feasible({**widest, "bk": 128, "depth": 1})
+    assert S._smem_bytes(widest) == 197_680 <= SMEM_BUDGET_BYTES == 232_448
+    # three pieces an operand: float32 at 128x128 fits two stages only
+    assert S._smem_bytes({**widest, "depth": 2}, precision="float32") \
+        == 197_664
+    assert S._smem_bytes(widest, precision="float32") == 295_984
+    assert not S.TUNABLES.feasible({**widest, "bm": 256, "depth": 3})
+    assert S.TUNABLES.feasible({**widest, "bm": 256, "depth": 1})
 
     cands, pruned = S.TUNABLES.candidates()
     assert cands[0] == control and pruned == 0
-    assert len(cands) == 2 * 2 * 2 * 3 * 2
-    # with bk 128 among the sweep values the model prunes, in both
-    # orders, depth 2 at bm 128 (both bn, which depth 2 builds as 128)
-    # and depth 3 at every tile
-    bk = dataclasses.replace(S.TUNABLES.tunables[2], values=(32, 64, 128))
+    assert len(cands) == 2 * 2 * 1 * 3 * 2
+    # with bm 256 among the sweep values the model prunes, in both
+    # orders, depth 3 at bm 256 (both bn); depth 1 and 2 fit
+    bm = dataclasses.replace(S.TUNABLES.tunables[0], values=(256, 128, 64))
     wide = dataclasses.replace(
-        S.TUNABLES, tunables=(*S.TUNABLES.tunables[:2], bk,
-                              *S.TUNABLES.tunables[3:]))
+        S.TUNABLES, tunables=(bm, *S.TUNABLES.tunables[1:]))
     cands, pruned = wide.candidates()
-    assert pruned == 12 and len(cands) == 72 - 12
+    assert pruned == 4 and len(cands) == 36 - 4
     assert all(wide.feasible(c) for c in cands)
 
 
@@ -357,6 +367,32 @@ def test_pick_block_docstring_cases():
     assert S._pick_block(300, 64, S.BK_SIZES) == 64
 
 
+def test_env_raw_follows_os_environ(monkeypatch):
+    """The memo's read of a variable sees what ``os.environ`` holds now:
+    set, changed and unset through it; without the dict behind
+    ``os.environ`` it falls back to ``os.environ.get``."""
+    name = "TPKT_TEST_ENV_RAW"
+    monkeypatch.delenv(name, raising=False)
+    assert cache.env_raw(name) is None
+    monkeypatch.setenv(name, "7")
+    assert cache.env_raw(name) == os.fsencode("7")
+    os.environ[name] = "8"
+    assert cache.env_raw(name) == os.fsencode("8")
+    del os.environ[name]
+    assert cache.env_raw(name) is None
+    monkeypatch.setattr(cache, "_ENV", None)
+    monkeypatch.setenv(name, "9")
+    assert cache.env_raw(name) == "9"
+    monkeypatch.delenv(name)
+    assert cache.env_raw(name) is None
+    # the switch and the directory are read through it
+    monkeypatch.undo()
+    monkeypatch.setenv("TPKT_TUNING_CACHE", " OFF ")
+    assert not cache.enabled()
+    monkeypatch.delenv("TPKT_TUNING_CACHE")
+    assert cache.enabled()
+
+
 def test_plan_memo_follows_env_cache_and_switch(monkeypatch):
     """tuning.plan_memo: a hit while nothing changed; a new plan after a
     knob's env var, a cache entry or the cache switch changed."""
@@ -391,9 +427,9 @@ def test_plan_memo_follows_env_cache_and_switch(monkeypatch):
 def test_plan_picks_only_the_tiles_of_the_kernel_depth_selects(monkeypatch,
                                                                 depth):
     """Whatever the preferences and the shape, plan() returns a tile the
-    kernel that ``depth`` selects is built for: depth 1 (sgemm.cu) bm
-    128/64 x bn 128/64 x bk 64, depth 2/3 (sgemm_pipelined.cu) bm 128/64
-    x bn 128 x bk 32/64."""
+    kernel that ``depth`` selects is built for: bm 128/64 x bn 128/64 x
+    bk 64 at every depth (sgemm.cu and sgemm_pipelined.cu instantiate
+    one kernel), 128 x 64 x 64 at 1024^3 by default."""
     bms, bns, bks = S.tiles(depth)
     assert S.tiles(depth) == S.TILES[1 if depth == 1 else 2]
     monkeypatch.setenv("TPKT_SGEMM_DEPTH", str(depth))
@@ -414,7 +450,7 @@ def test_plan_picks_only_the_tiles_of_the_kernel_depth_selects(monkeypatch,
     assert checked >= 20
     for k in ("BM", "BN", "BK"):
         monkeypatch.delenv(f"TPKT_SGEMM_{k}")
-    want = {1: (128, 64, 64), 2: (128, 128, 32), 3: (128, 128, 32)}[depth]
+    want = {1: (128, 64, 64), 2: (128, 64, 64), 3: (128, 64, 64)}[depth]
     p = S.plan(1024, 1024, 1024, device="cpu")
     assert (p["bm"], p["bn"], p["bk"]) == want
 
@@ -424,8 +460,8 @@ def test_depth1_smem_counts_two_stages_alignment_and_barriers(precision):
     """Depth 1 needs two stages of every operand tile, 1024 bytes to
     align the ring for the 128-byte swizzle and four 8-byte mbarriers;
     every tile it builds fits a block."""
-    nops = 2 if precision == "high" else 1
-    elem = 4 if precision == "float32" else 2
+    nops = {"high": 2, "float32": 3, "default": 1}[precision]
+    elem = 2  # every operand is bf16
     bms, bns, bks = S.tiles(1)
     for bm in bms:
         for bn in bns:

@@ -32,8 +32,8 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("saxpy", "sgemm", "sgemm_pipelined", "jacobi2d", "jacobi3d",
-           "nbody", "scan", "histogram", "scan_histogram")
+SOURCES = ("saxpy", "sgemm", "sgemm_pipelined", "sgemm_prep", "jacobi2d",
+           "jacobi3d", "nbody", "scan", "histogram", "scan_histogram")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -132,13 +132,24 @@ def stream_of(t) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
+def device_stream(t) -> tuple:
+    """``(device index, raw handle of its current stream)`` of ``t``."""
+    dev = t.get_device()
+    return dev, torch._C._cuda_getCurrentRawStream(dev)
+
+
 def launch(fn, t, *args) -> int:
     """``fn(*args, stream)``: a C entry called with the raw handle of
     PyTorch's current stream on ``t``'s device, that device made current
     around the call only when it is not current already (a launch goes
     to the current device). Returns the entry's code."""
-    dev = t.get_device()
-    if dev == torch._C._cuda_getDevice():  # CUDA is up: t lives there
-        return fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    return launch_at(fn, *device_stream(t), *args)
+
+
+def launch_at(fn, dev: int, stream: int, *args) -> int:
+    """:func:`launch` for a caller that has looked up the device index
+    and its current raw stream already."""
+    if dev == torch._C._cuda_getDevice():  # CUDA is up: the tensor is there
+        return fn(*args, stream)
     with torch.cuda.device(dev):
-        return fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+        return fn(*args, stream)

@@ -6,9 +6,11 @@
 // _hist_kernel (any nbins: a broadcast compare per (element, bin)). On a
 // GPU shared-memory atomics are cheap, so one kernel does both: a
 // grid-stride loop of 16-byte loads, each value counted into the block's
-// private bins (bins.cuh) and merged into the output once per block.
-// About two blocks a SM keep the merge near 264 * nbins atomics. Above
-// TPKT_SMEM_BINS bins the same loop counts with global atomics.
+// private bins (bins.cuh) and merged once per block into scratch bins,
+// which the last block to finish moves to the output and leaves zero, so
+// the output needs no fill launch. About two blocks a SM keep the merge
+// near 264 * nbins atomics. Above TPKT_SMEM_BINS bins the same loop
+// counts with global atomics into the output, which the caller zeroed.
 //
 // Bound on the card: bytes, 4 per element read; the merge adds
 // blocks * nbins atomics, and one value repeated everywhere serialises
@@ -18,11 +20,15 @@
 constexpr int kHistThreads = 512;
 constexpr int kUnroll = 4;  // 16-byte loads in flight a thread
 
+// SHARED: acc is nbins zeroed scratch bins and count a zeroed word, both
+// left zero; out is written whole. Otherwise out starts zeroed.
 template <bool SHARED>
 __global__ void __launch_bounds__(kHistThreads)
     histogram_kernel(const int* __restrict__ x, long long n, long long n4,
-                     unsigned* __restrict__ out, int nbins) {
+                     unsigned* __restrict__ out, unsigned* acc,
+                     unsigned* count, int nbins) {
   extern __shared__ unsigned s_bins[];
+  __shared__ bool s_last;
   unsigned* bins = SHARED ? s_bins : out;
   if (SHARED) {
     tpkt_bins_zero(s_bins, nbins);
@@ -56,35 +62,55 @@ __global__ void __launch_bounds__(kHistThreads)
     tpkt_bin_count(bins, static_cast<unsigned>(x[j]), nbins);
   if (SHARED) {
     __syncthreads();
-    tpkt_bins_merge(s_bins, out, nbins);
+    tpkt_bins_merge(s_bins, acc, nbins);
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      s_last = atomicAdd(count, 1u) == gridDim.x - 1;
+      __threadfence();
+    }
+    __syncthreads();
+    if (s_last) {
+      tpkt_bins_move(acc, out, nbins);
+      if (threadIdx.x == 0) *count = 0;
+    }
   }
 }
 
 template <bool SHARED>
-static int launch(const int* x, long long n, unsigned* out, int nbins,
-                  int blocks_per_sm, void* stream) {
+static int launch(const int* x, long long n, unsigned* out,
+                  unsigned* scratch, int nbins, int blocks_per_sm,
+                  void* stream) {
+  static TpktGridMemo memo;  // the runtime is asked once per device
   auto kernel = histogram_kernel<SHARED>;
   const size_t smem = SHARED ? static_cast<size_t>(nbins) * 4 : 0;
   long long blocks = 0;
-  cudaError_t e = tpkt_allow_smem(kernel, smem);
-  if (e == cudaSuccess)
-    e = tpkt_resident_blocks(kernel, kHistThreads, smem, blocks_per_sm,
-                             &blocks);
+  const cudaError_t e = tpkt_resident_grid(kernel, memo, kHistThreads, smem,
+                                           blocks_per_sm, &blocks);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long need = tpkt_cdiv(tpkt_cdiv(n, 4), kHistThreads);
   if (blocks > need) blocks = need;
   const long long n4 = tpkt_aligned16(x) ? n / 4 : 0;
+  // scratch: the count of finished blocks in its first 8 bytes, then bins
   kernel<<<static_cast<unsigned>(blocks), kHistThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(x, n, n4, out, nbins);
+           static_cast<cudaStream_t>(stream)>>>(
+      x, n, n4, out, scratch == nullptr ? nullptr : scratch + 2, scratch,
+      nbins);
   return static_cast<int>(cudaGetLastError());
 }
 
-// out: nbins zeroed int32; n >= 1; blocks_per_sm: the grid's cap a SM.
-TPKT_EXPORT int tpkt_histogram(const void* x, void* out, long long n,
-                               int nbins, int blocks_per_sm, void* stream) {
+// n >= 1; blocks_per_sm: the grid's cap a SM. Up to TPKT_SMEM_BINS bins:
+// out is nbins int32 that need not be zeroed, scratch is 8 + 4 * nbins
+// bytes, zero before the first launch and left zero by every launch.
+// Above: out is nbins zeroed int32, scratch is unused.
+TPKT_EXPORT int tpkt_histogram(const void* x, void* out, void* scratch,
+                               long long n, int nbins, int blocks_per_sm,
+                               void* stream) {
   const int* xi = static_cast<const int*>(x);
   unsigned* bins = static_cast<unsigned*>(out);
-  return nbins <= TPKT_SMEM_BINS
-             ? launch<true>(xi, n, bins, nbins, blocks_per_sm, stream)
-             : launch<false>(xi, n, bins, nbins, blocks_per_sm, stream);
+  if (nbins > TPKT_SMEM_BINS)
+    return launch<false>(xi, n, bins, nullptr, nbins, blocks_per_sm, stream);
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true>(xi, n, bins, static_cast<unsigned*>(scratch), nbins,
+                      blocks_per_sm, stream);
 }

@@ -113,9 +113,10 @@ __device__ __forceinline__ void fence_regs(float* d) {
 }
 
 // D (64 x 64, f32, 32 a thread) += A (64 x 16) * B (64 x 16)^T, bf16,
-// both operands K-major in shared memory (descriptors da, db).
+// both operands K-major in shared memory (descriptors da, db); with
+// accumulate 0, D = A * B^T, whatever D held.
 __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t da,
-                                                uint64_t db) {
+                                                uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -131,13 +132,15 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // D (64 x 128, f32, 64 a thread) += A (64 x 16) * B (128 x 16)^T, bf16,
-// both operands K-major in shared memory (descriptors da, db).
+// both operands K-major in shared memory (descriptors da, db); with
+// accumulate 0, D = A * B^T.
 __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
-                                                 uint64_t db) {
+                                                 uint64_t db,
+                                                 int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -165,17 +168,17 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 template <int N>
 __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da,
-                                           uint64_t db) {
+                                           uint64_t db, int accumulate = 1) {
   static_assert(N == 64 || N == 128, "wgmma tile width 64 or 128");
   if constexpr (N == 64)
-    wgmma_m64n64k16(d, da, db);
+    wgmma_m64n64k16(d, da, db, accumulate);
   else
-    wgmma_m64n128k16(d, da, db);
+    wgmma_m64n128k16(d, da, db, accumulate);
 }
 
 // ---- host: tensor maps ---------------------------------------------------

@@ -28,6 +28,15 @@
 // sees a flag without its value. Blocks stay resident and loop over
 // tiles until the counter passes the last one.
 //
+// The state (the tile counter, a count of finished blocks, the status
+// words and, for the fused pass, scratch bins) must be zero when a launch
+// begins, and the kernel leaves it so: a block that has run out of tiles
+// adds one to the count of finished blocks, and the block that makes the
+// count whole, after which no other block reads or writes the state,
+// clears the words this launch used, the counter and the count (and
+// moves the scratch bins to the histogram). So one zeroed buffer serves
+// every later launch on its stream, and a call needs no fill launch.
+//
 // Bound on the card: bytes. Each element is read once and written once
 // (8 B, 12 B for the unfused scan + histogram pair); the look-back adds
 // 8 B of status per tile of 1024..16384 elements. int32 adds are done in
@@ -155,9 +164,14 @@ __device__ __forceinline__ void store4(T* out, long long i, long long n,
 
 // Inclusive scan of x[0, n) into out, tiles of V * kStep elements; with
 // BINS != kNoBins it also counts the values in [0, nbins) into hist
-// (uint32 only). counter and status start zeroed; status has one word
-// per tile. vec: x is 16-byte aligned.
-template <typename T, int V, int BINS>
+// (uint32 only): with kSharedBins hist is written whole, through nbins
+// scratch bins that follow the status words; with kGlobalBins hist starts
+// zeroed. counter (the next tile; the count of finished blocks in the
+// word after it), status (one word per tile) and the scratch bins start
+// zeroed and end zeroed. vec: x is 16-byte aligned. FIRST_PATH answers every look-back
+// with an empty prefix, as tile 0 is answered: the output is then wrong;
+// it exists to time the pass without its serial chain.
+template <typename T, int V, int BINS, bool FIRST_PATH = false>
 __global__ void __launch_bounds__(kThreads)
     scan_tiles(const T* __restrict__ x, T* __restrict__ out,
                unsigned long long* status, unsigned* counter, long long n,
@@ -165,6 +179,7 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ unsigned s_bins[];
   __shared__ T s_off[kWarps];
   __shared__ long long s_tile;
+  __shared__ bool s_last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   unsigned* bins = BINS == kSharedBins ? s_bins : hist;
   if (BINS == kSharedBins) tpkt_bins_zero(s_bins, nbins);
@@ -214,8 +229,8 @@ __global__ void __launch_bounds__(kThreads)
       const T incl = warp_inclusive(lane < kWarps ? s_off[lane] : T(0), lane);
       const T total = __shfl_sync(kFull, incl, kWarps - 1);
       T prefix = T(0);
-      if (tile == 0) {
-        if (lane == 0) publish(status, 0, kPrefix, total);
+      if (FIRST_PATH || tile == 0) {
+        if (lane == 0) publish(status, tile, kPrefix, total);
       } else {
         if (lane == 0) publish(status, tile, kAggregate, total);
         prefix = look_back<T>(status, tile, lane);
@@ -234,24 +249,45 @@ __global__ void __launch_bounds__(kThreads)
       store4(out, base + j * 128, n, v[j]);
     }
   }
-  // every thread passed the loop's barriers after its last count
-  if (BINS == kSharedBins) tpkt_bins_merge(s_bins, hist, nbins);
+  // every thread passed the loop's barriers after its last count; the
+  // shared bins go to the scratch bins that follow the status words
+  unsigned* acc = reinterpret_cast<unsigned*>(status + tiles);
+  if (BINS == kSharedBins) tpkt_bins_merge(s_bins, acc, nbins);
+
+  // this block reads and writes the state no more; the last block to say
+  // so clears it for the next launch, and moves the counts to hist
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s_last = atomicAdd(counter + 1, 1u) == gridDim.x - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (s_last) {
+    for (long long i = threadIdx.x; i < tiles; i += kThreads) status[i] = 0;
+    if (BINS == kSharedBins) tpkt_bins_move(acc, hist, nbins);
+    if (threadIdx.x == 0)
+      *reinterpret_cast<unsigned long long*>(counter) = 0;
+  }
 }
 
-// Launches scan_tiles with one resident grid. state: tiles + 1 zeroed
-// 64-bit words, the tile counter then one status word a tile.
-template <typename T, int V, int BINS>
+// Launches scan_tiles with one resident grid (asked of the runtime once
+// per device, common.cuh), at most `cap` blocks a SM when cap > 0. state:
+// 64-bit words, zero before the first launch and left zero by every
+// launch: the tile counter and the count of finished blocks, then one
+// status word a tile, then with kSharedBins nbins 32-bit scratch bins.
+template <typename T, int V, int BINS, bool FIRST_PATH = false>
 static int launch(const void* x, void* out, void* state, long long n,
-                  unsigned* hist, int nbins, void* stream) {
-  auto kernel = scan_tiles<T, V, BINS>;
+                  unsigned* hist, int nbins, void* stream, int cap = 0) {
+  static TpktGridMemo memo;
+  auto kernel = scan_tiles<T, V, BINS, FIRST_PATH>;
   const size_t smem =
       BINS == kSharedBins ? static_cast<size_t>(nbins) * sizeof(unsigned)
                           : 0;
   const long long tiles = tpkt_cdiv(n, V * kStep);
   long long blocks = 0;
-  cudaError_t e = tpkt_allow_smem(kernel, smem);
-  if (e == cudaSuccess)
-    e = tpkt_resident_blocks(kernel, kThreads, smem, 0, &blocks);
+  const cudaError_t e =
+      tpkt_resident_grid(kernel, memo, kThreads, smem, cap, &blocks);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (blocks > tiles) blocks = tiles;
   auto* words = static_cast<unsigned long long*>(state);

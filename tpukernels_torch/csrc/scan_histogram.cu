@@ -5,10 +5,12 @@
 // the 12 of the unfused pair (csrc/scan.cu then csrc/histogram.cu read x
 // twice). It is the scan kernel of scan.cuh, whose tile loop also counts
 // each element into its block's private bins while the element is in
-// registers; a block merges its bins into the global histogram when the
-// tiles run out. With more than TPKT_SMEM_BINS bins it counts with global
-// atomics instead. The ragged tail is masked, so nothing is padded and
-// no pad count has to come back out of bin 0, as the reference's does.
+// registers; a block merges its bins into scratch bins when the tiles
+// run out, and the last block moves them to the histogram. With more than
+// TPKT_SMEM_BINS bins it counts with global atomics into the histogram,
+// which the caller zeroed. The ragged tail is masked, so nothing is
+// padded and no pad count has to come back out of bin 0, as the
+// reference's does.
 #include "scan.cuh"
 
 using lookback::launch;
@@ -26,7 +28,9 @@ static int fused_v(const void* x, void* out, void* hist, void* state,
                                                 nbins, stream);
 }
 
-// hist: nbins zeroed int32; tile_steps and state as for tpkt_scan.
+// tile_steps and state as for tpkt_scan. Up to TPKT_SMEM_BINS bins hist
+// need not be zeroed and state holds 4 * nbins more bytes, zero like the
+// rest; above, hist is nbins zeroed int32.
 TPKT_EXPORT int tpkt_scan_histogram(const void* x, void* out, void* hist,
                                     void* state, long long n, int nbins,
                                     int tile_steps, void* stream) {

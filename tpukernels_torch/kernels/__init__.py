@@ -9,6 +9,9 @@ fails on a Pallas kernel without a row, or a row without a kernel.
 
 ``LAUNCHES`` counts, per CUDA kernel, the launches its wrapper made in
 this process: each wrapper adds one where it launches and nowhere else.
+``HELPER_KERNELS`` are the hand-written kernels that replace no TPU
+kernel (work the reference leaves to XLA): they have a counter and a
+source, but no row in ``TPU_KERNELS``.
 ``chip_smoke.py`` zeroes the counts before it drives the main path and
 reads them after, to show the path went through the kernels.
 """
@@ -73,8 +76,25 @@ TPU_KERNELS = (
               "tpkt_nbody_forces", _CSRC + "nbody.cu", ("nbody_forces",)),
 )
 
+@dataclass(frozen=True)
+class HelperKernel:
+    port_entry: str
+    source: str
+    replaces: str  # what the reference does there, and where
+
+
+# counter -> kernel. SGEMM's operand preparation: the bf16 split, the
+# transposes and the row padding
+HELPER_KERNELS = {
+    "sgemm_prep": HelperKernel(
+        "tpkt_sgemm_prep", _CSRC + "sgemm_prep.cu",
+        _K + "sgemm.py:149 (_split_bf16 and the operand layout: XLA ops "
+        "outside the TPU kernels)"),
+}
+
 LAUNCHES = {
     "saxpy": 0,
+    "sgemm_prep": 0,
     "sgemm_split3": 0,
     "sgemm_float32": 0,
     "sgemm_bf16": 0,

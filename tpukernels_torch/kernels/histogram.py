@@ -4,7 +4,8 @@ Port of ``tpukernels/kernels/histogram.py``. On a CUDA tensor the
 wrapper launches ``csrc/histogram.cu``, one kernel for both TPU kernels
 (``_hist_mxu_kernel``, nbins <= 256, and ``_hist_kernel``, any nbins):
 each block counts into private shared-memory bins with atomics and
-merges them into the output. On a CPU tensor it runs
+merges them into scratch bins, which the last block moves to the
+output, so a call is one launch. On a CPU tensor it runs
 :func:`histogram_plain`, the same plan in torch ops. The reference's
 ``impl`` (mxu/vpu) and ``acc`` (i8/f32) knobs choose between TPU
 formulations and have no counterpart here.
@@ -25,8 +26,11 @@ import torch
 
 from tpukernels_torch import _build
 from tpukernels_torch.kernels import LAUNCHES
-from tpukernels_torch.kernels.scan import check_length
-from tpukernels_torch.tuning import SearchSpace, Tunable, resolve
+from tpukernels_torch.kernels.scan import (check_length, drop_scratch,
+                                           scratch)
+from tpukernels_torch.tuning import (SearchSpace, Tunable, plan_memo,
+                                     resolve)
+from tpukernels_torch.utils import cdiv
 
 TUNABLES = SearchSpace(
     kernel="histogram",
@@ -42,10 +46,15 @@ TUNABLES = SearchSpace(
 )
 # elements a block of the plain version counts before its merge
 PLAIN_BLOCK = 1 << 20
+# bins a block of the kernels keeps in shared memory (TPKT_SMEM_BINS,
+# csrc/bins.cuh). Up to here the blocks merge into scratch bins that the
+# last block moves to the output, so the output needs no fill launch;
+# above, they count into a zeroed output with global atomics.
+SMEM_BINS = 32768
 
 _ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 )
 
 
@@ -57,9 +66,25 @@ def check_nbins(nbins) -> int:
 
 
 def as_int32(x):
-    """Flattened, contiguous int32, cast as the reference casts."""
+    """Flattened, contiguous int32, cast as the reference casts; ``x``
+    itself when it is that already."""
     check_length("histogram", x)
+    if x.dtype == torch.int32 and x.dim() == 1 and x.is_contiguous():
+        return x
     return x.reshape(-1).to(torch.int32).contiguous()
+
+
+def launch_plan(n: int, nbins: int, device) -> int:
+    """The knob ``blocks_per_sm`` of a call on ``n`` elements and
+    ``nbins`` bins on ``device``, resolved env > cache > default and
+    memoised (:func:`tuning.plan_memo`)."""
+    return plan_memo(TUNABLES, (n, nbins, device.type, device.index),
+                     _launch_plan, n, nbins, device)
+
+
+def _launch_plan(n, nbins, device):
+    return resolve(TUNABLES, shape=(n, nbins), dtype="int32",
+                   device=device)["blocks_per_sm"]
 
 
 def histogram(x, nbins: int):
@@ -71,19 +96,34 @@ def histogram(x, nbins: int):
         return histogram_plain(x, nbins)
     if x.device.type != "cuda":
         raise ValueError(f"histogram: unsupported device {x.device}")
-    return _histogram_cuda(x, nbins)
+    return _histogram_cuda(x, nbins,
+                           launch_plan(x.numel(), nbins, x.device))
 
 
-def _histogram_cuda(x, nbins):
-    out = torch.zeros(nbins, dtype=torch.int32, device=x.device)
+def bins_out(nbins: int, n: int, x):
+    """The (nbins,) int32 output of a kernel that counts ``n`` values:
+    zeroed where the kernel counts into it (more than ``SMEM_BINS`` bins)
+    or does not run (``n`` 0), else uninitialised, for the kernel's last
+    block to write."""
+    make = torch.empty if nbins <= SMEM_BINS and n else torch.zeros
+    return make(nbins, dtype=torch.int32, device=x.device)
+
+
+def _histogram_cuda(x, nbins, per_sm):
     n = x.numel()
+    out = bins_out(nbins, n, x)
     if n == 0:  # a grid of 0 blocks is a launch error
         return out
-    per_sm = resolve(TUNABLES, shape=(n, nbins), dtype="int32",
-                     device=x.device)["blocks_per_sm"]
+    where = _build.device_stream(x)
+    key, buf = (None, None) if nbins > SMEM_BINS else scratch(
+        "histogram", 1 + cdiv(nbins, 2), x, where)
     fn = _build.function("histogram", "tpkt_histogram", _ARGTYPES)
-    rc = _build.launch(fn, x, x.data_ptr(), out.data_ptr(), n, nbins, per_sm)
+    rc = _build.launch_at(fn, *where, x.data_ptr(), out.data_ptr(),
+                          None if buf is None else buf.data_ptr(), n, nbins,
+                          per_sm)
     LAUNCHES["histogram"] += 1
+    if rc != 0:
+        drop_scratch(key)
     _build.check(rc, "tpkt_histogram")
     return out
 

@@ -13,7 +13,11 @@ elements and takes its carry from the totals its predecessors publish
 (see ``csrc/scan.cuh``). That order of the float32 carry sums depends
 on timing: float32 results may differ between runs in the last bits.
 
-Bound on the card: bytes (4 read and 4 written per element).
+Bound on the card: bytes (4 read and 4 written per element). At the
+size of record (2^22, in the L2) a call is mostly host time, so the host
+path is kept short: the tile is memoised (:func:`tile_plan`), and the
+look-back's scratch is one buffer per device and stream that the kernel
+leaves zeroed (:func:`scratch`), so a call is one launch.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import torch
 
 from tpukernels_torch import _build
 from tpukernels_torch.kernels import LAUNCHES
-from tpukernels_torch.tuning import SearchSpace, Tunable, resolve
+from tpukernels_torch.tuning import (SearchSpace, Tunable, plan_memo,
+                                     resolve)
 from tpukernels_torch.utils import cdiv
 
 # elements per tile of the kernel: 1024 (one 16-byte load for each of
@@ -65,6 +70,14 @@ def resolve_tile(x=None) -> int:
     return tile
 
 
+def tile_plan(x) -> int:
+    """:func:`resolve_tile` of ``x``, memoised (:func:`tuning.plan_memo`)
+    on its length, dtype and device: it follows a changed
+    ``TPKT_SCAN_TILE`` or cache entry on the next call."""
+    return plan_memo(TUNABLES, (x.numel(), x.dtype, x.device.type,
+                                x.device.index), resolve_tile, x)
+
+
 def check_length(name: str, x) -> None:
     if x.numel() > MAX_N:
         raise ValueError(f"{name}: {x.numel()} elements; at most {MAX_N}")
@@ -74,7 +87,9 @@ def _flat(x):
     if x.dtype not in DTYPES:
         raise TypeError(f"scan takes float32 or int32, got {x.dtype}")
     check_length("scan", x)
-    return x.reshape(-1).contiguous()
+    if x.dim() != 1 or not x.is_contiguous():
+        x = x.reshape(-1).contiguous()
+    return x
 
 
 def inclusive_scan(x):
@@ -82,10 +97,10 @@ def inclusive_scan(x):
     1-D tensor of the input's dtype on its device."""
     x = _flat(x)
     if x.device.type == "cpu":
-        return scan_plain(x)
+        return scan_plain(x, tile_plan(x))
     if x.device.type != "cuda":
         raise ValueError(f"scan: unsupported device {x.device}")
-    return _scan_cuda(x, resolve_tile(x))
+    return _scan_cuda(x, tile_plan(x))
 
 
 def exclusive_scan(x):
@@ -99,10 +114,48 @@ def exclusive_scan(x):
     return out
 
 
-def scan_state(n: int, tile: int, device):
-    """The look-back's zeroed scratch: a tile counter and one status word
-    per tile, 64 bits each."""
-    return torch.zeros(cdiv(n, tile) + 1, dtype=torch.int64, device=device)
+# (kind, device index, raw stream) -> a kernel's scratch on that stream
+_SCRATCH: dict = {}
+
+
+def scratch(kind: str, words: int, x, where=None):
+    """``(key, buffer)``: at least ``words`` 64-bit words of scratch for
+    the kernels of ``kind`` on ``x``'s device and current stream
+    (``where``, when the caller has looked them up:
+    :func:`_build.device_stream`).
+
+    The kernels that take it need it zero and leave it zero
+    (``csrc/scan.cuh``, ``csrc/histogram.cu``), so one buffer per (kind,
+    device, stream) serves every call and no call pays a fill launch: it
+    is made zeroed on first use, and made anew, larger, when a call
+    needs more words. Two streams never share one, so calls in flight on
+    two streams do not meet. A caller whose launch fails drops the
+    buffer (:func:`drop_scratch`). A buffer made while its stream is
+    being captured into a CUDA graph belongs to that graph and is not
+    kept: call once on the stream before the capture begins and the
+    graph holds the kernel alone."""
+    key = (kind, *(where or _build.device_stream(x)))
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(max(words, 1024), dtype=torch.int64,
+                          device=x.device)
+        if not torch.cuda.is_current_stream_capturing():
+            _SCRATCH[key] = buf
+    return key, buf
+
+
+def drop_scratch(key) -> None:
+    """Forget the scratch of ``key``: a launch on it failed, and what it
+    holds is not known."""
+    _SCRATCH.pop(key, None)
+
+
+def scan_state(n: int, tile: int, x, nbins: int = 0, where=None):
+    """The look-back's scratch (:func:`scratch`) for a scan of ``n``
+    elements in tiles of ``tile``: the tile counter (with the count of
+    finished blocks), one status word per tile and, for the fused pass,
+    ``nbins`` 32-bit bins."""
+    return scratch("scan", cdiv(n, tile) + 1 + cdiv(nbins, 2), x, where)
 
 
 def _scan_cuda(x, tile):
@@ -110,11 +163,15 @@ def _scan_cuda(x, tile):
     out = torch.empty_like(x)
     if n == 0:  # a grid of 0 blocks is a launch error
         return out
-    state = scan_state(n, tile, x.device)
+    where = _build.device_stream(x)
+    key, state = scan_state(n, tile, x, 0, where)
     fn = _build.function("scan", "tpkt_scan", _ARGTYPES)
-    rc = _build.launch(fn, x, x.data_ptr(), out.data_ptr(), state.data_ptr(),
-                       n, tile // TILES[0], int(x.dtype == torch.float32))
+    rc = _build.launch_at(fn, *where, x.data_ptr(), out.data_ptr(),
+                          state.data_ptr(), n, tile // TILES[0],
+                          int(x.dtype == torch.float32))
     LAUNCHES["scan"] += 1
+    if rc != 0:
+        drop_scratch(key)
     _build.check(rc, "tpkt_scan")
     return out
 

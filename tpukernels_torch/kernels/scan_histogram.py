@@ -4,8 +4,9 @@ Port of ``tpukernels/kernels/scan_histogram.py``. The ``fuse`` knob
 (``TPKT_SCANHIST_FUSE``, default ``off``, parsed fail-loud) picks the
 path, as the reference's own fuse knob does:
 
-- ``off`` (the path of record) calls :func:`scan.inclusive_scan` and
-  :func:`histogram.histogram`, two kernels that read ``x`` twice;
+- ``off`` (the path of record) runs the kernels of
+  :func:`scan.inclusive_scan` and :func:`histogram.histogram`, which
+  read ``x`` twice;
 - ``on`` launches ``csrc/scan_histogram.cu`` (replaces the TPU's
   ``_fused_kernel``): the scan kernel also counts each element into its
   block's bins while it holds it, so ``x`` is read once.
@@ -27,7 +28,8 @@ from tpukernels_torch import _build
 from tpukernels_torch.kernels import LAUNCHES
 from tpukernels_torch.kernels import histogram as _hist
 from tpukernels_torch.kernels import scan as _scan
-from tpukernels_torch.tuning import SearchSpace, Tunable, resolve
+from tpukernels_torch.tuning import (SearchSpace, Tunable, plan_memo,
+                                     resolve)
 
 TUNABLES = SearchSpace(
     kernel="scan_histogram",
@@ -48,33 +50,58 @@ _ARGTYPES = (
 )
 
 
+def launch_plan(x, nbins: int) -> tuple:
+    """``(fuse, tile, blocks_per_sm)`` of a call on ``x`` (flat int32)
+    and ``nbins`` bins: this module's ``fuse``, the scan's ``tile`` and,
+    for ``off``, the histogram's ``blocks_per_sm`` (None for ``on``),
+    each resolved env > cache > default (fail-loud) by its own module.
+    One memo (:func:`tuning.plan_memo`) over the three knob spaces."""
+    return plan_memo((TUNABLES, _scan.TUNABLES, _hist.TUNABLES),
+                     (x.numel(), nbins, x.device.type, x.device.index),
+                     _launch_plan, x, nbins)
+
+
+def _launch_plan(x, nbins):
+    n = x.numel()
+    fuse = resolve(TUNABLES, shape=(n, nbins), dtype="int32",
+                   device=x.device)["fuse"]
+    per_sm = (_hist._launch_plan(n, nbins, x.device) if fuse == "off"
+              else None)
+    return fuse, _scan.resolve_tile(x), per_sm
+
+
 def scan_histogram(x, nbins: int):
     """``(inclusive_scan(x), histogram(x, nbins))`` of ``x`` cast to
     int32: a new (n,) and a new (nbins,) int32 tensor."""
     nbins = _hist.check_nbins(nbins)
-    x = _hist.as_int32(x)
-    fuse = resolve(TUNABLES, shape=(x.numel(), nbins), dtype="int32",
-                   device=x.device)["fuse"]
-    if fuse == "off":
-        return _scan.inclusive_scan(x), _hist.histogram(x, nbins)
-    if x.device.type == "cpu":
-        return scan_histogram_plain(x, nbins)
+    x = _hist.as_int32(x)  # once: both halves take it as it is
+    fuse, tile, per_sm = launch_plan(x, nbins)
+    if x.device.type == "cpu":  # both plain plans, whatever fuse says
+        return _scan.scan_plain(x, tile), _hist.histogram_plain(x, nbins)
     if x.device.type != "cuda":
         raise ValueError(f"scan_histogram: unsupported device {x.device}")
-    return _fused_cuda(x, nbins, _scan.resolve_tile(x))
+    if fuse == "off":  # the two standalone kernels
+        return (_scan._scan_cuda(x, tile),
+                _hist._histogram_cuda(x, nbins, per_sm))
+    return _fused_cuda(x, nbins, tile)
 
 
 def _fused_cuda(x, nbins, tile):
     n = x.numel()
     out = torch.empty_like(x)
-    hist = torch.zeros(nbins, dtype=torch.int32, device=x.device)
+    hist = _hist.bins_out(nbins, n, x)
     if n == 0:  # a grid of 0 blocks is a launch error
         return out, hist
-    state = _scan.scan_state(n, tile, x.device)
+    where = _build.device_stream(x)
+    key, state = _scan.scan_state(
+        n, tile, x, nbins if nbins <= _hist.SMEM_BINS else 0, where)
     fn = _build.function("scan_histogram", "tpkt_scan_histogram", _ARGTYPES)
-    rc = _build.launch(fn, x, x.data_ptr(), out.data_ptr(), hist.data_ptr(),
-                       state.data_ptr(), n, nbins, tile // _scan.TILES[0])
+    rc = _build.launch_at(fn, *where, x.data_ptr(), out.data_ptr(),
+                          hist.data_ptr(), state.data_ptr(), n, nbins,
+                          tile // _scan.TILES[0])
     LAUNCHES["scan_histogram"] += 1
+    if rc != 0:
+        _scan.drop_scratch(key)
     _build.check(rc, "tpkt_scan_histogram")
     return out, hist
 

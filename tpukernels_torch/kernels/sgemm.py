@@ -1,18 +1,20 @@
 """SGEMM: out = alpha * A @ B + beta * C for float32 matrices of any shape.
 
 Port of ``tpukernels/kernels/sgemm.py``. On a CUDA tensor the wrapper
-launches one of two kernels, as the reference's ``depth`` knob picks:
+launches one of two entries, as the reference's ``depth`` knob picks,
+both instantiations of one kernel (``csrc/sgemm_ring.cuh``: a ring of
+shared-memory stages filled by TMA, feeding ``wgmma`` in every mode):
 
 - depth 1: ``csrc/sgemm.cu`` (replaces the TPU's ``_sgemm_kernel``),
-  the K blocks through two shared-memory stages filled by TMA (the
-  reference's depth 1 is double-buffered too), ``wgmma`` for the bf16
-  modes and fp32 FMAs for ``float32``;
+  two stages, as the reference's depth 1 is double-buffered by Pallas;
 - depth 2 or 3: ``csrc/sgemm_pipelined.cu`` (replaces
-  ``_sgemm_pipelined_kernel``), the K blocks through a ring of
-  ``depth`` stages filled by cp.async, ``mma.sync`` for the bf16 modes.
+  ``_sgemm_pipelined_kernel``), ``depth`` stages. The reference's depth
+  2 is a hand-made ring of two slots, so depth 2 at one tile is the
+  instantiation depth 1 runs; depth 3 is the ring depth 1 does not have.
 
-The two sum in different orders, so they agree within
-:func:`contract`, not bitwise. On a CPU tensor it runs
+Each output is one accumulator summed over k in the same order whatever
+the stage count, so at the same tile, mode and order the two entries
+agree bitwise, at every depth. On a CPU tensor the wrapper runs
 :func:`sgemm_plain`, the same arithmetic in plain PyTorch;
 :func:`sgemm_reference` is the oracle.
 
@@ -31,15 +33,21 @@ entry cannot change the contract a result is held to):
   hi/lo halves (``x.to(torch.bfloat16)`` rounds to nearest even, as the
   reference's ``reduce_precision(8, 7)`` does) and the kernel sums
   hi·hi + hi·lo + lo·hi in float32.
-- ``float32``: full fp32 on the CUDA cores.
+- ``float32``: six bf16 products, as the reference's ``float32``
+  (bf16 x 6): A and B are split into three bf16 pieces each
+  (:func:`_pieces_bf16`, 24 bits together) and the kernel sums a3·b1 +
+  a1·b3 + a2·b2 + a2·b1 + a1·b2 + a1·b1 in float32, 64 k at a time in
+  the tensor core and those sums with float32 adds.
 - ``default``: one bf16 product of A and B rounded to bf16.
 
 :func:`contract` states each mode's tolerance and its reason.
 
-Both kernels take their operands as :func:`operands` makes them: rows of
-whole 16 bytes (TMA's global strides and cp.async's copies need them),
-B transposed for the bf16 modes and A transposed for ``float32``, so
-that every tile is copied along its rows.
+Both entries take their operands as :func:`operands` makes them: bf16,
+rows of whole 16 bytes (TMA's global strides need them), B transposed,
+so that every tile is copied along its rows. On a CUDA tensor one more
+hand-written launch (``csrc/sgemm_prep.cu``) makes them, split,
+transpose and padding at once; on a CPU tensor :func:`operands_plain`
+does, its plain version.
 
 Bound on the card at 1024³: operations; see the notes in ``sgemm.cu``
 and ``sgemm_pipelined.cu``.
@@ -62,14 +70,17 @@ from tpukernels_torch.utils import cdiv
 PRECISIONS = ("high", "float32", "default")
 _MODE = {"high": (0, "split3"), "float32": (1, "float32"),
          "default": (2, "bf16")}
+# bf16 matrices an operand is given as
+_PIECES = {"high": 2, "float32": 3, "default": 1}
 
-# (bm, bn, bk sizes) each kernel is built for, every combination in
-# every mode (each size added costs build time): depth 1 csrc/sgemm.cu,
-# depths 2/3 csrc/sgemm_pipelined.cu (csrc/sgemm.cuh)
+# (bm, bn, bk sizes) each entry is built for, every combination in every
+# mode: depth 1 csrc/sgemm.cu, depths 2/3 csrc/sgemm_pipelined.cu, one
+# kernel (csrc/sgemm_ring.cuh) and so one set; bk is one 128-byte
+# swizzled row of bf16
 TILES = {1: ((128, 64), (128, 64), (64,)),
-         2: ((128, 64), (128,), (32, 64))}
+         2: ((128, 64), (128, 64), (64,))}
 # the knobs' sweep values: every size some kernel builds
-BM_SIZES, BN_SIZES, BK_SIZES = (128, 64), (128, 64), (32, 64)
+BM_SIZES, BN_SIZES, BK_SIZES = (128, 64), (128, 64), (64,)
 DEPTHS, ORDERS = (1, 2, 3), ("ij", "ji")
 
 
@@ -81,36 +92,34 @@ def tiles(depth: int) -> tuple:
 def _smem_bytes(params, shape=None, precision="high"):
     """Shared memory a block of the kernel ``params["depth"]`` selects
     needs for the knob set ``params`` (shape-blind, as the reference's
-    VMEM model).
+    VMEM model): its stages of NOPS·(bm + bn)·64 bf16 (NOPS 2 for the
+    hi/lo pairs of ``high``, 3 for the pieces of ``float32``, 1 for
+    ``default``), plus 1024 bytes to align the ring for the 128-byte
+    swizzle and two 8-byte mbarriers a stage.
 
-    - depth 1 (``sgemm.cu``): the largest tile it builds within the
-      preferences (the smallest where none is), in two stages, as the
-      reference's ``buf = 2`` at depth 1, of NOPS·(bm + bn)·bk elements
-      (NOPS 2 for the hi/lo pairs of ``high``; bf16, or fp32 for
-      ``float32``), plus 1024 bytes to align the ring for the 128-byte
-      swizzle and two 8-byte mbarriers a stage;
-    - depth 2/3 (``sgemm_pipelined.cu``): the preferences as given (one
-      under the smallest built size counts as that size), ``depth``
-      stages of NOPS·(bm + bn)·(bk + 8)·2 bytes (bf16 rows padded by 8),
-      or bk·(bm + 4 + bn)·4 for ``float32`` (A^T rows padded by 4).
+    - depth 1 (``sgemm.cu``): two stages, as the reference's ``buf = 2``
+      at depth 1, of the largest tile it builds within the preferences
+      (the smallest where none is);
+    - depth 2/3 (``sgemm_pipelined.cu``): ``depth`` stages of the
+      ``bm``/``bn`` preferences as given (one under the smallest built
+      size counts as that size), so a preference no tile could serve is
+      refused before a tile is picked.
 
-    ``high`` needs the most in the bf16 modes, so it is the default the
-    space prunes by. Split3 at 128 x 64 x 64, depth 1, takes 99 360 B;
-    at 128 x 128 x 32, depth 2, 81 920 B."""
+    ``high`` is the precision of record, so it is the default the space
+    prunes by. Split3 at 128 x 64, depth 1 or 2, takes 99 360 B; at
+    128 x 128, depth 3, 197 680 B, one block a SM. ``float32`` at
+    128 x 128 fits two stages (197 664 B) and not three (295 984 B)."""
     depth = max(1, params.get("depth", 1))
-    nops = 2 if precision == "high" else 1
+    nops = _PIECES[precision]
+    bms, bns, bks = tiles(depth)
     if depth == 1:
-        bm, bn, bk = (_pick_block(1 << 30, params[k], sizes)
-                      for k, sizes in zip(("bm", "bn", "bk"), tiles(1)))
-        elem = 4 if precision == "float32" else 2
-        return 2 * nops * (bm + bn) * bk * elem + 1024 + 2 * 2 * 8
-    bm, bn, bk = (max(params[k], min(sizes))
-                  for k, sizes in zip(("bm", "bn", "bk"), tiles(depth)))
-    if precision == "float32":
-        stage = bk * (bm + 4 + bn) * 4
+        bm, bn = (_pick_block(1 << 30, params[k], sizes)
+                  for k, sizes in (("bm", bms), ("bn", bns)))
     else:
-        stage = nops * (bm + bn) * (bk + 8) * 2
-    return depth * stage
+        bm, bn = (max(params[k], min(sizes))
+                  for k, sizes in (("bm", bms), ("bn", bns)))
+    stages = max(depth, 2)
+    return stages * nops * (bm + bn) * bks[0] * 2 + 1024 + 16 * stages
 
 
 TUNABLES = SearchSpace(
@@ -118,17 +127,17 @@ TUNABLES = SearchSpace(
     bench_shape=(1024, 1024, 1024),
     bench_dtype="float32",
     sources=("tpukernels_torch/kernels/sgemm.py",
-             "tpukernels_torch/csrc/sgemm.cuh",
+             "tpukernels_torch/csrc/sgemm_ring.cuh",
              "tpukernels_torch/csrc/hopper.cuh",
              "tpukernels_torch/csrc/sgemm.cu",
-             "tpukernels_torch/csrc/sgemm_pipelined.cu"),
+             "tpukernels_torch/csrc/sgemm_pipelined.cu",
+             "tpukernels_torch/csrc/sgemm_prep.cu"),
     tunables=(
-        # depth 1 at 128 x 64 gives 128 blocks at 1024^2 for 132 SMs;
-        # depth 2/3 builds bn 128 only, so it keeps 128 x 128
+        # 128 x 64 gives 128 blocks at 1024^2 for 132 SMs, at every depth
         Tunable("bm", env="TPKT_SGEMM_BM", default=128, values=BM_SIZES),
         Tunable("bn", env="TPKT_SGEMM_BN", default=64, values=BN_SIZES),
-        Tunable("bk", env="TPKT_SGEMM_BK", default=32, values=BK_SIZES),
-        # 1: sgemm.cu, TMA + wgmma, two stages; 2/3: sgemm_pipelined.cu
+        Tunable("bk", env="TPKT_SGEMM_BK", default=64, values=BK_SIZES),
+        # 1: sgemm.cu, two stages; 2/3: sgemm_pipelined.cu, `depth` stages
         Tunable("depth", env="TPKT_SGEMM_DEPTH", default=1, values=DEPTHS,
                 most=DEPTHS[-1]),
         Tunable("order", env="TPKT_SGEMM_ORDER", default="ij",
@@ -148,6 +157,12 @@ _ENTRIES = {
     2: ("sgemm_pipelined", "tpkt_sgemm_pipelined",
         _HEAD + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)),
 }
+# (mode, a, a's strides, b, b's strides, a0, a1, b0, b1, m, k, n, lda,
+# ldb, stream): the entry of sgemm_prep.cu
+_PREP_ARGTYPES = ((ctypes.c_int,)
+                  + (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong) * 2
+                  + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+                  + (ctypes.c_void_p,))
 
 
 def contract(precision: str, k: int, alpha: float) -> tuple:
@@ -158,7 +173,8 @@ def contract(precision: str, k: int, alpha: float) -> tuple:
     - ``float32``: rtol 2e-5; atol 2.5e-7·k·max(|alpha|, 1). Summing k
       unit-scale products in fp32 one after another errs by about
       2^-23/sqrt(12)·k/sqrt(2) ≈ 2.4e-8·k (std), so the atol is ~10
-      stds; it covers the elements near zero that rtol cannot.
+      stds; it covers the elements near zero that rtol cannot. The six
+      bf16 products leave out terms of 2^-24 a product.
     - ``default``: rtol 1e-2; atol 2^-5·sqrt(k)·max(|alpha|, 1).
       Rounding both operands to bf16 (unit roundoff 2^-8) gives each
       product a relative error of std ~0.0032, so a length-k dot
@@ -240,6 +256,17 @@ def _split_bf16(x):
     return hi, lo
 
 
+def _pieces_bf16(x):
+    """x ≈ x1 + x2 + x3, all bf16: each the remainder so far rounded to
+    nearest even, 24 significant bits together; stacked (3, rows, cols).
+    The first two are :func:`_split_bf16`'s."""
+    out = []
+    for _ in range(3):
+        out.append(x.to(torch.bfloat16))
+        x = x - out[-1]  # exact: a piece widens exactly to float32
+    return torch.stack(out)
+
+
 def _whole_rows(t, mult):
     """``t`` (rows, cols) contiguous and 16-byte aligned, its rows padded
     with zeros to a multiple of ``mult`` elements (a copy only when
@@ -285,30 +312,77 @@ def sgemm(alpha, a, b, beta, c, precision: str | None = None):
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out
-    ops, kp = operands(a, b, precision)
-    return launch(float(alpha), ops, kp, float(beta), c.contiguous(), out,
-                  precision, p)
+    # buf holds the operands until the kernel that reads them is enqueued
+    buf, ptrs, kp = _prepare(a, b, precision)
+    return _launch(float(alpha), ptrs, kp, float(beta), c.contiguous(), out,
+                   precision, p)
 
 
 def operands(a, b, precision):
-    """``(ops, k)`` as the kernels take them: four operands (None where
-    a mode has fewer) whose rows are whole 16-byte chunks, and the inner
-    dimension they walk.
+    """``(ops, kp)`` as the kernels take them: four bf16 operands (None
+    where a mode has fewer) whose rows are whole 16-byte chunks, and the
+    inner dimension they walk, kp = k padded with zeros to a multiple of
+    8.
 
-    - bf16 modes: A (m, kp) and B^T (n, kp), bf16 (hi/lo pairs for
-      ``high``), kp = k padded with zeros to a multiple of 8;
-    - ``float32``: A^T (k, m4) and B (k, n4), m and n padded with zeros
-      to multiples of 4; k itself.
+    - ``high``: A hi, A lo (m, kp), B^T hi, B^T lo (n, kp);
+    - ``default``: A (m, kp), None, B^T (n, kp), None;
+    - ``float32``: the three pieces of A one after another (3m, kp),
+      None, those of B^T (3n, kp), None.
 
-    The split into bf16 halves stays here, outside the kernel, as the
-    reference keeps ``_split_bf16`` outside its Pallas kernel.
-    """
-    if precision == "float32":
-        return (_whole_rows(a.t(), 4), None, _whole_rows(b, 4), None), \
-            a.shape[1]
+    The split into bf16 halves stays outside the matrix kernel, as the
+    reference keeps ``_split_bf16`` outside its Pallas kernel: on CUDA
+    tensors one launch of ``csrc/sgemm_prep.cu`` writes all the
+    operands (:func:`_prepare`); on CPU tensors :func:`operands_plain`
+    makes them. The two agree bitwise for finite inputs."""
+    if a.device.type != "cuda":
+        return operands_plain(a, b, precision)
+    buf, _, kp = _prepare(a, b, precision)
+    m, n = a.shape[0], b.shape[1]
+    if precision == "high":
+        return buf.split((m, m, n, n)), kp
+    parts = _PIECES[precision]
+    a0, b0 = buf.split((parts * m, parts * n))
+    return (a0, None, b0, None), kp
+
+
+def _prepare(a, b, precision):
+    """``(buf, ptrs, kp)``: the operands of :func:`operands` for CUDA
+    tensors, written by one launch of ``tpkt_sgemm_prep``: the tensor
+    that holds them, the four device addresses (None where a mode has
+    fewer) and the row length. The operands lie one after another in one
+    allocation, each starting at a whole row of kp·2 bytes, a multiple
+    of 16."""
+    (m, k), n = a.shape, b.shape[1]
+    kp = cdiv(k, 8) * 8
+    parts = _PIECES[precision]
+    buf = torch.empty((parts * (m + n), kp), dtype=torch.bfloat16,
+                      device=a.device)
+    base, row = buf.data_ptr(), 2 * kp
+    if precision == "high":
+        ptrs = (base, base + m * row, base + 2 * m * row,
+                base + (2 * m + n) * row)
+    else:
+        ptrs = (base, None, base + parts * m * row, None)
+    if k > 0:  # with k = 0 there is nothing to write
+        fn = _build.function("sgemm_prep", "tpkt_sgemm_prep", _PREP_ARGTYPES)
+        rc = _build.launch(fn, a, _MODE[precision][0], a.data_ptr(),
+                           a.stride(0), a.stride(1), b.data_ptr(),
+                           b.stride(0), b.stride(1), *ptrs, m, k, n, kp, kp)
+        LAUNCHES["sgemm_prep"] += 1
+        _build.check(rc, f"tpkt_sgemm_prep[{precision}]")
+    return buf, ptrs, kp
+
+
+def operands_plain(a, b, precision):
+    """Plain PyTorch version of the operand preparation: what
+    :func:`operands` returns, made with tensor ops; any device."""
     bt = b.t().contiguous()
     if precision == "high":
         ops = (*_split_bf16(a.contiguous()), *_split_bf16(bt))
+    elif precision == "float32":
+        m, n, k = *a.shape[:1], *bt.shape
+        ops = (_pieces_bf16(a).reshape(3 * m, k), None,
+               _pieces_bf16(bt).reshape(3 * n, k), None)
     else:
         ops = (a.to(torch.bfloat16), None, bt.to(torch.bfloat16), None)
     ops = tuple(None if t is None else _whole_rows(t, 8) for t in ops)
@@ -316,19 +390,22 @@ def operands(a, b, precision):
 
 
 def launch(alpha, ops, kp, beta, c, out, precision, p):
-    """out = alpha * A @ B + beta * c by the kernel ``p["depth"]``
+    """out = alpha * A @ B + beta * c by the entry ``p["depth"]``
     selects, on ``(ops, kp)`` as :func:`operands` makes them; ``c`` and
     ``out`` contiguous (m, n) on the operands' card."""
+    ptrs = [None if t is None else t.data_ptr() for t in ops]
+    return _launch(alpha, ptrs, kp, beta, c, out, precision, p)
+
+
+def _launch(alpha, ptrs, kp, beta, c, out, precision, p):
     m, n = out.shape
     mode, suffix = _MODE[precision]
-    lda, ldb = ops[0].shape[1], ops[2].shape[1]
-    ptrs = [None if t is None else t.data_ptr() for t in ops]
     depth = p["depth"]
     lib, entry, argtypes = _ENTRIES[1 if depth == 1 else 2]
     fn = _build.function(lib, entry, argtypes)
     ring = () if depth == 1 else (depth,)
     rc = _build.launch(fn, out, mode, *ptrs, c.data_ptr(), out.data_ptr(), m,
-                       n, kp, lda, ldb, alpha, beta, p["bm"], p["bn"],
+                       n, kp, kp, kp, alpha, beta, p["bm"], p["bn"],
                        p["bk"], *ring, int(p["order"] == "ji"))
     LAUNCHES[f"{lib}_{suffix}"] += 1
     _build.check(rc, f"{entry}[{precision}]")
@@ -336,8 +413,9 @@ def launch(alpha, ops, kp, beta, c, out, precision, p):
 
 
 def sgemm_plain(alpha, a, b, beta, c, precision="high"):
-    """The kernels' arithmetic in plain PyTorch: the same bf16 split or
-    rounding, products taken in float32. On the card this relies on
+    """The kernels' arithmetic in plain PyTorch: the same bf16 split,
+    pieces or rounding, products taken in float32. On the card this
+    relies on
     ``torch.backends.cuda.matmul.allow_tf32`` being False (PyTorch's
     default)."""
     precision = _resolve_precision(precision)
@@ -348,7 +426,9 @@ def sgemm_plain(alpha, a, b, beta, c, precision="high"):
     elif precision == "default":
         acc = a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
     else:
-        acc = a @ b
+        a1, a2, a3 = _pieces_bf16(a).float()
+        b1, b2, b3 = _pieces_bf16(b).float()
+        acc = a3 @ b1 + a1 @ b3 + a2 @ b2 + a2 @ b1 + a1 @ b2 + a1 @ b1
     return alpha * acc + beta * c
 
 

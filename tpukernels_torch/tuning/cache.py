@@ -48,13 +48,34 @@ _REJECT_NOTED: set = set()  # (key, reason) already on stderr
 COUNTS = {"hits": 0, "misses": 0, "rejections": 0}
 
 
+_ENV = getattr(os.environ, "_data", None)  # the dict behind os.environ
+_ENV_KEYS: dict = {}  # variable name -> the key that dict files it under
+
+
+def env_raw(name: str):
+    """The value of the environment variable ``name`` as ``os.environ``
+    stores it (bytes on POSIX), None when it is unset. It follows every
+    change made through ``os.environ``, as ``os.environ.get`` does, for
+    a dict lookup: ``os.environ.get`` encodes the name and decodes the
+    value on every read and raises and catches a KeyError on a miss,
+    1.6 us a read where a whole call of a small kernel takes 20-30. For
+    memo keys and the checks below, on every kernel call's path."""
+    if _ENV is None:
+        return os.environ.get(name)
+    key = _ENV_KEYS.get(name)
+    if key is None:
+        key = _ENV_KEYS[name] = os.environ.encodekey(name)
+    return _ENV.get(key)
+
+
 def enabled() -> bool:
-    raw = os.environ.get("TPKT_TUNING_CACHE")
-    return raw is None or raw.strip().lower() not in _DISABLED
+    if env_raw("TPKT_TUNING_CACHE") is None:
+        return True
+    return os.environ["TPKT_TUNING_CACHE"].strip().lower() not in _DISABLED
 
 
 def path() -> str:
-    d = os.environ.get("TPKT_TUNING_CACHE_DIR")
+    d = env_raw("TPKT_TUNING_CACHE_DIR")
     p = _PATHS.get(d)
     if p is None:
         p = _PATHS[d] = _cachedir.tuning_cache_path()

@@ -182,16 +182,22 @@ _PLANS: dict = {}  # memo of plan_memo(): key -> (cache state, plan)
 _PLANS_MAX = 256
 
 
-def plan_memo(space: SearchSpace, key, make: Callable, *args):
+def plan_memo(space, key, make: Callable, *args):
     """``make(*args)``, memoised per process: a wrapper's launch plan,
     built from :func:`resolve` and the device, costs a lookup once it is
-    made. The memo is keyed on ``key`` (the call's shape and device), the
-    raw env value of every knob of ``space`` and the tuning cache's state
+    made. ``space`` is the :class:`SearchSpace` whose knobs the plan
+    reads, or a tuple of them for a plan that reads several. The memo is
+    keyed on ``key`` (the call's shape and device), the raw env value of
+    every knob of ``space`` and the tuning cache's state
     (:func:`cache.state`), so a changed env knob or cache entry takes
     effect on the next call, as an unmemoised resolve would."""
     state = cache.state()
-    memo_key = (space.kernel, key, id(state),
-                *map(os.environ.get, space.envs))
+    if isinstance(space, SearchSpace):
+        names, envs = space.kernel, space.envs
+    else:
+        names = tuple(sp.kernel for sp in space)
+        envs = tuple(e for sp in space for e in sp.envs)
+    memo_key = (names, key, id(state), *map(cache.env_raw, envs))
     hit = _PLANS.get(memo_key)
     if hit is not None and hit[0] is state:
         return hit[1]
