@@ -9,16 +9,18 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
 1. prints the card (``nvidia-smi`` name and power limit) and toolchain,
    and turns TF32 off for float32 matmuls;
 2. builds every kernel, in parallel, and prints the build times, the
-   registers and spills ptxas reports, and the count of the SGEMM
-   kernels' tensor-core, TMA and mbarrier instructions in their SASS
-   (both SGEMM libraries must show wgmma and TMA and no mma.sync);
+   registers and spills ptxas reports (the 2-D Jacobi must not spill),
+   and the count of the SGEMM kernels' tensor-core, TMA and mbarrier
+   instructions in their SASS (both SGEMM libraries must show wgmma and
+   TMA and no mma.sync);
 3. holds each kernel against its plain PyTorch version on the card at
    the sizes of the main path and at ragged ones, with the tolerance
    stated beside each check: the depth-1 SGEMM at every tile it builds,
    the pipelined SGEMM (depth 2/3, both grid orders, two tiles) also
    bitwise against itself at depth 2 order ij and against the depth-1
-   SGEMM, SGEMM's operand preparation bitwise against its plain
-   version, the scan family also call after call on one scratch
+   SGEMM, SGEMM's operand preparation and the 2-D Jacobi (ragged,
+   narrow, all-boundary and unaligned grids too) bitwise against their
+   plain versions, the scan family also call after call on one scratch
    buffer, across a growing buffer and on two streams;
 4. drives the main path end to end — ``registry.dispatch`` of
    ``vector_add``, ``sgemm``, ``stencil2d``, ``stencil3d``, ``nbody``,
@@ -40,9 +42,10 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    depth at 4096^3, each with the device time of its kernel alone and of
    its operand preparation, at depth 3 also with and without a wgmma
    group in flight, ``float32`` SGEMM's share of its contract's bound
-   (six bf16 products: the run fails at half), and for the scan at 2^26
+   (six bf16 products: the run fails at half), for the scan at 2^26
    its resident blocks a SM and its time on capped grids and without its
-   look-back.
+   look-back, and for the 2-D and 3-D Jacobi every fusion depth k and
+   the HBM floor of their passes (``pass_bytes_ms``).
 
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -356,6 +359,10 @@ def phase_build():
             f"spill stores {stores} B, spill loads {loads} B, "
             f"{len(re.findall('serializ', text))} wgmma serialisation "
             "warnings")
+        # the 2-D wavefront keeps every level in registers
+        if name == "jacobi2d" and (stores or loads):
+            raise AssertionError("ptxas spills in jacobi2d: the levels of "
+                                 "the wavefront left the registers")
     # what the SGEMM kernels were compiled to: HGMMA is wgmma, UTMALDG a
     # TMA tile load, SYNCS the mbarrier operations, HMMA mma.sync
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -402,15 +409,24 @@ def phase_kernels(torch, gen):
           V.saxpy_reference(SAXPY_ALPHA, x[1:], y[1:]), 1e-5, 1e-6)
     errs.update(sgemm_kernels(torch, gen))
 
+    # 2-D Jacobi bitwise: the canary, the remainder pass, ragged widths
+    # and heights, grids narrower than a warp's strip, all-boundary grids
     for (h, w), iters, k in (((40, 200), 4, None), ((1024, 1536), 13, 1),
-                              ((1024, 1536), 13, 8),
+                              ((1024, 1536), 13, 8), ((1023, 1537), 13, 3),
+                              ((1023, 1537), 13, 8), ((5, 4099), 9, 8),
+                              ((4099, 5), 9, 8), ((2, 2), 5, 8),
+                              ((1, 300), 5, 8),
                               ((4096, 4096), 1000, None)):
         x = randn(h, w)
-        e = check(f"jacobi2d {h}x{w} iters={iters} k={k or 'default'}",
-                  J.jacobi2d(x, iters, k=k), J.jacobi2d_plain(x, iters),
-                  1e-4, 1e-5)
+        e = check_exact(
+            f"jacobi2d {h}x{w} iters={iters} k={k or 'default'}",
+            J.jacobi2d(x, iters, k=k), J.jacobi2d_plain(x, iters))
         if (h, w) == (4096, 4096):
             errs["jacobi2d"] = e
+    # a storage offset of one float: rows start off 16-byte alignment
+    x = randn(777 * 1032 + 1)[1:].view(777, 1032)
+    check_exact("jacobi2d 777x1032 iters=10 k=8 unaligned",
+                J.jacobi2d(x, 10, k=8), J.jacobi2d_plain(x, 10))
 
     n3 = STENCIL3D_N
     for shape, iters, k in (((8, 24, 132), 2, None), ((33, 70, 130), 9, 1),
@@ -1202,6 +1218,10 @@ def phase_times(torch, gen, peaks):
         8 * h * w, 5 * (h - 2) * (w - 2) * iters, fp32, bw)
     # the k-sweep pass structure moves 8 bytes per cell per launch
     row["pass_bytes_ms"] = 8 * h * w * row["launches_per_call"] / bw * 1e3
+    # every fusion depth the kernel takes: the default is the fastest
+    row["per_k_ms"] = {k2: time_ms(lambda: J.jacobi2d(x, iters, k=k2), 3,
+                                   warmup=1)
+                       for k2 in range(1, J.HALO_MAX + 1)}
     out["jacobi2d"] = row
 
     canary("jacobi2d canary", J.jacobi2d, J.jacobi2d_plain, (40, 200), 4,
@@ -1288,6 +1308,8 @@ def phase_times(torch, gen, peaks):
         if "scan_hist_melem_s" in r:
             extra += (f", scan_hist_melem_s {r['scan_hist_melem_s']:.1f}, "
                       f"passes' bytes {r['pass_bytes_ms']:.6g} ms")
+        elif "pass_bytes_ms" in r:
+            extra += f", passes' bytes {r['pass_bytes_ms']:.6g} ms"
         log(f"time {label}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{r['bound_ms']:.6g} ms ({r['bound_by']}), launches/call "
@@ -1778,9 +1800,13 @@ def main(argv=None):
                                             "plain_ms", "bound_ms",
                                             "bound_by")}
 
-    kernels.append(entry("jacobi2d", jc, times["jacobi2d"], errs["jacobi2d"],
-                         also_replaces=b3.where, shape=[4096, 4096],
-                         iters=1000, canary=canary("jacobi2d canary")))
+    t2 = times["jacobi2d"]
+    kernels.append(entry("jacobi2d", jc, t2, errs["jacobi2d"],
+                         also_replaces=b3.where, shape=t2["shape"],
+                         iters=t2["iters"], k=t2["k"],
+                         pass_bytes_ms=t2["pass_bytes_ms"],
+                         per_k_ms=t2["per_k_ms"],
+                         canary=canary("jacobi2d canary")))
     t3 = times["jacobi3d"]
     kernels.append(entry("jacobi3d", j3, t3, errs["jacobi3d"],
                          also_replaces=b5.where, shape=t3["shape"],

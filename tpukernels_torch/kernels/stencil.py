@@ -7,7 +7,9 @@ are held fixed.
 - 2-D: 0.25 × (((N + S) + W) + E). On a CUDA tensor the wrapper
   launches ``csrc/jacobi2d.cu`` (replaces both the TPU's
   ``_jacobi2d_small_kernel`` and ``_jacobi2d_blocked_kernel``) once per
-  pass of ``k`` fused sweeps.
+  pass of ``k`` fused sweeps: one warp a strip of columns and a segment
+  of rows, marching down it with the sweeps in registers; the geometry
+  is :func:`plan2d`.
 - 3-D: ((((z-1 + z+1) + y-1) + y+1) + x-1) + x+1, then × (1/6). On a
   CUDA tensor the wrapper launches ``csrc/jacobi3d.cu`` (replaces both
   ``_jacobi3d_small_kernel`` and ``_jacobi3d_blocked_kernel``) once per
@@ -27,6 +29,8 @@ notes in ``jacobi2d.cu`` and ``jacobi3d.cu``).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -72,6 +76,52 @@ _ARGTYPES3D = (
 )
 
 
+# csrc/jacobi2d.cu's march: a lane holds V columns, a warp LANES lanes
+V, LANES = 4, 32
+LOAD_W = V * LANES  # columns a warp loads
+SEG_MIN = 16  # fewest owned rows a segment
+FILL_WARPS = 132 * 8  # warps a launch aims at: 8 a SM on the H100's 132
+
+
+class Plan2d(NamedTuple):
+    """One 2-D pass's launch geometry: a warp loads ``LOAD_W`` columns
+    starting ``halo`` before its ``strip`` owned ones, and the ``seg``
+    owned rows of its segment with ``sweeps`` rows above and below;
+    ``nx`` strips by ``ny`` segments, one warp each."""
+
+    halo: int
+    strip: int
+    seg: int
+    nx: int
+    ny: int
+
+
+def plan2d(h: int, w: int, sweeps: int) -> Plan2d:
+    """The geometry ``csrc/jacobi2d.cu``'s ``make_plan`` launches one
+    pass of ``sweeps`` sweeps of an (h, w) grid with: the halo is
+    ``sweeps`` rounded up to ``V``; segments are cut so the launch has
+    about ``FILL_WARPS`` warps, none under ``SEG_MIN`` rows."""
+    halo = -(-sweeps // V) * V
+    strip = LOAD_W - 2 * halo
+    nx = -(-w // strip)
+    seg = max(SEG_MIN, -(-h // max(1, FILL_WARPS // nx)))
+    return Plan2d(halo, strip, seg, nx, -(-h // seg))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_agrees(h: int, w: int, sweeps: int) -> None:
+    """Raise unless the kernel's own geometry for (h, w, sweeps) is
+    :func:`plan2d`'s, the one the CPU tests prove exact."""
+    out = (ctypes.c_int * 5)()
+    fn = _build.function("jacobi2d", "tpkt_jacobi2d_plan",
+                         (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+    _build.check(fn(h, w, sweeps, ctypes.addressof(out)),
+                 "tpkt_jacobi2d_plan")
+    if tuple(out) != plan2d(h, w, sweeps):
+        raise RuntimeError(f"jacobi2d.cu plans {tuple(out)} for {(h, w)} at "
+                           f"{sweeps} sweeps, plan2d {plan2d(h, w, sweeps)}")
+
+
 def passes(iters: int, k: int) -> list:
     """Sweeps per launch: ``iters = passes·k + remainder``, the
     remainder as a last, shorter pass."""
@@ -105,6 +155,8 @@ def jacobi2d(x, iters: int, k: int | None = None):
         return jacobi2d_plain(x, iters)
     if x.device.type != "cuda":
         raise ValueError(f"jacobi2d: unsupported device {x.device}")
+    for sweeps in set(passes(iters, k)) if x.numel() else ():
+        _plan_agrees(*x.shape, sweeps)
     return _passes_cuda("jacobi2d", _ARGTYPES, x.contiguous(), int(iters), k)
 
 
