@@ -9,10 +9,12 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
 1. prints the card (``nvidia-smi`` name and power limit) and toolchain,
    and turns TF32 off for float32 matmuls;
 2. builds every kernel, in parallel, and prints the build times, the
-   registers and spills ptxas reports (the 2-D Jacobi must not spill),
-   and the count of the SGEMM kernels' tensor-core, TMA and mbarrier
-   instructions in their SASS (both SGEMM libraries must show wgmma and
-   TMA and no mma.sync);
+   registers and spills ptxas reports (the 2-D Jacobi and N-body must
+   not spill), the count of the SGEMM kernels' tensor-core, TMA and
+   mbarrier instructions in their SASS (both SGEMM libraries must show
+   wgmma and TMA and no mma.sync), and for each N-body instantiation
+   (r i-bodies a thread, s groups a block) its registers, its SASS mix
+   (FFMA, FADD, FMUL, MUFU, LDS) and its pair loop's issue slots a pair;
 3. holds each kernel against its plain PyTorch version on the card at
    the sizes of the main path and at ragged ones, with the tolerance
    stated beside each check: the depth-1 SGEMM at every tile it builds,
@@ -21,7 +23,8 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    SGEMM, SGEMM's operand preparation and the 2-D Jacobi (ragged,
    narrow, all-boundary and unaligned grids too) bitwise against their
    plain versions, the scan family also call after call on one scratch
-   buffer, across a growing buffer and on two streams;
+   buffer, across a growing buffer and on two streams, N-body at ragged
+   sizes, in every (r, s) instantiation, and twice bit for bit;
 4. drives the main path end to end — ``registry.dispatch`` of
    ``vector_add``, ``sgemm``, ``stencil2d``, ``stencil3d``, ``nbody``,
    ``scan``, ``scan_exclusive``, ``histogram`` and ``scan_histogram``
@@ -44,8 +47,10 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    group in flight, ``float32`` SGEMM's share of its contract's bound
    (six bf16 products: the run fails at half), for the scan at 2^26
    its resident blocks a SM and its time on capped grids and without its
-   look-back, and for the 2-D and 3-D Jacobi every fusion depth k and
-   the HBM floor of their passes (``pass_bytes_ms``).
+   look-back, for the 2-D and 3-D Jacobi every fusion depth k and
+   the HBM floor of their passes (``pass_bytes_ms``), and for N-body
+   its forces launch alone, every (r, s, bi, bj) of a sweep, the SM
+   clock under load and the issue floor it gives (``issue_floor_ms``).
 
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -91,6 +96,9 @@ STENCIL3D_N, STENCIL3D_ITERS = 384, 8
 # differ)
 JACOBI_BAND = (1e-4, 1e-5)
 NBODY_BAND = (2e-3, 2e-4)
+# N-body sizes either side of a warp, a tile and a block, and one past
+# the configuration of record
+NBODY_RAGGED = (1, 2, 31, 33, 257, 4097, NBODY_N + 1)
 # scan + histogram: the configuration of record (scan_hist_melem_s,
 # 2^22 int32 in [0, 256), 256 bins), which fits in the 50 MB L2, and a
 # size that streams device memory
@@ -359,10 +367,11 @@ def phase_build():
             f"spill stores {stores} B, spill loads {loads} B, "
             f"{len(re.findall('serializ', text))} wgmma serialisation "
             "warnings")
-        # the 2-D wavefront keeps every level in registers
-        if name == "jacobi2d" and (stores or loads):
-            raise AssertionError("ptxas spills in jacobi2d: the levels of "
-                                 "the wavefront left the registers")
+        # the 2-D wavefront keeps every level in registers, N-body its
+        # i-bodies and sums
+        if name in ("jacobi2d", "nbody") and (stores or loads):
+            raise AssertionError(f"ptxas spills in {name}: the registers "
+                                 "the design keeps its state in overflowed")
     # what the SGEMM kernels were compiled to: HGMMA is wgmma, UTMALDG a
     # TMA tile load, SYNCS the mbarrier operations, HMMA mma.sync
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -379,13 +388,104 @@ def phase_build():
         if not (counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
                 and counts["HMMA"] == 0):
             raise AssertionError(f"{name} is not on TMA + wgmma: {counts}")
+    return nbody_build(cuobjdump)
+
+
+NBODY_MIX = ("FFMA", "FADD", "FMUL", "MUFU", "LDS")
+
+
+def nbody_build(cuobjdump):
+    """Each ``nbody.cu`` instantiation, keyed ``(r, s)``: its registers
+    and spill bytes (ptxas's report), the count of each of
+    :data:`NBODY_MIX` in its SASS, and its pair loop: the backward
+    branch's body with the most MUFU instructions an instruction (the
+    unrolled loop over a tile), its instructions and mix a pair (one
+    MUFU.RSQ a pair) — the issue slots a pair."""
+    from tpukernels_torch import _build
+
+    lib = _build.library_path("nbody")
+    out = {}
+    for chunk in lib.with_suffix(".log").read_text().split(
+            "Compiling entry function")[1:]:
+        rs = re.search(r"nbody_forces_kernelILi(\d+)ELi(\d+)E", chunk)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        if not (rs and regs):
+            raise AssertionError(f"no ptxas report of an nbody kernel in "
+                                 f"{chunk[:200]!r}")
+        spill = sum(map(int, re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                        chunk)))
+        out[(int(rs[1]), int(rs[2]))] = {"registers": int(regs[1]),
+                                         "spill_bytes": spill}
+    sass = run([cuobjdump, "-sass", str(lib)])
+    if not sass:
+        raise RuntimeError("cuobjdump gave no SASS for nbody")
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        rs = re.match(r"\S*nbody_forces_kernelILi(\d+)ELi(\d+)E", fn)
+        if rs:
+            out[(int(rs[1]), int(rs[2]))].update(pair_loop(fn))
+    missing = [k for k, v in out.items() if "slots_per_pair" not in v]
+    if missing or not out:
+        raise AssertionError(f"no pair loop found in the SASS of {missing}")
+    for (r, s_), v in sorted(out.items()):
+        log(f"nbody r={r} s={s_}: {v['registers']} registers, spill "
+            f"{v['spill_bytes']} B, SASS {json.dumps(v['mix'])}, pair loop "
+            f"{v['loop_instructions']} instructions for {v['loop_pairs']} "
+            f"pairs: {v['slots_per_pair']:.3f} issue slots a pair "
+            f"{json.dumps(v['mix_per_pair'])}")
+    return out
+
+
+_SASS_LINE = re.compile(
+    r"^\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)([^;]*);", re.M)
+
+
+def pair_loop(fn_sass):
+    """The mix of one SASS function and of its pair loop (see
+    :func:`nbody_build`). A branch target is an address (``BRA 0x230``)
+    or a label (``BRA `(.L_x_3)``, the label on a line of its own before
+    the instruction it names)."""
+    insts, labels, pending = [], {}, []
+    for line in fn_sass.splitlines():
+        lab = re.match(r"^\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab[1])
+            continue
+        m = _SASS_LINE.match(line)
+        if not m:
+            continue
+        addr = int(m[1], 16)
+        for name in pending:
+            labels[name] = addr
+        pending = []
+        insts.append((addr, m[2], m[3]))
+    mix = {op: sum(1 for _, o, _ in insts if o == op) for op in NBODY_MIX}
+    best = None
+    for addr, op, rest in insts:
+        if op != "BRA":
+            continue
+        hexa = re.search(r"0x([0-9a-f]+)", rest)
+        lab = re.search(r"\((\.L_x_\d+)\)", rest)
+        target = int(hexa[1], 16) if hexa else labels.get(lab[1]) if lab \
+            else None
+        if target is None or target > addr:
+            continue
+        body = [o for a, o, _ in insts if target <= a <= addr and o != "NOP"]
+        pairs = body.count("MUFU")
+        if pairs and (best is None or pairs / len(body) >
+                      best[0].count("MUFU") / len(best[0])):
+            best = (body, pairs)
+    if best is None:
+        return {"mix": mix}
+    body, pairs = best
+    return {"mix": mix, "loop_instructions": len(body), "loop_pairs": pairs,
+            "slots_per_pair": len(body) / pairs,
+            "mix_per_pair": {op: body.count(op) / pairs for op in NBODY_MIX}}
 
 
 def phase_kernels(torch, gen):
     """Each kernel against its plain version; returns max_abs_err at the
     main-path sizes."""
     log("== phase 3: kernels against their plain versions")
-    from tpukernels_torch.kernels import nbody as NB
     from tpukernels_torch.kernels import sgemm as S, stencil as J
     from tpukernels_torch.kernels import vector_add as V
 
@@ -440,17 +540,37 @@ def phase_kernels(torch, gen):
             errs["jacobi3d"] = e
         del x
 
-    for n, steps in ((192, 1), (1000, 2), (4096, 1), (NBODY_N, 1)):
+    errs["nbody_forces"] = nbody_checks(torch, gen)
+    errs.update(sgemm_pipelined_kernels(torch, gen))
+    errs.update(sgemm_prep_checks(torch, gen))
+    errs.update(scan_kernels(torch, gen))
+    return errs
+
+
+def nbody_checks(torch, gen):
+    """Phase 3 for N-body: the wrapper at the main path's size and at
+    ragged ones against the chunked plain version (and the pairwise
+    oracle where it fits), every (r, s) instantiation at the main path's
+    size, a second call bit for bit, and eps = 0 giving NaN; returns
+    max_abs_err at the main path's size."""
+    from tpukernels_torch.kernels import nbody as NB
+
+    for n, steps in ((192, 1), (1000, 2), (4096, 1), (NBODY_N, 1),
+                     *((n, 1) for n in NBODY_RAGGED)):
         b = bodies(gen, n)
         got = stacked(NB.nbody_step(*b, steps=steps))
-        e = check(f"nbody n={n} steps={steps} vs chunked plain", got,
-                  stacked(NB.nbody_plain(*b, steps=steps)), *NBODY_BAND)
+        want = stacked(NB.nbody_plain(*b, steps=steps))
+        e = check(f"nbody n={n} steps={steps} vs chunked plain", got, want,
+                  *NBODY_BAND)
         if n <= 4096:  # the pairwise oracle makes (n, n) temporaries
             check(f"nbody n={n} steps={steps} vs oracle", got,
                   stacked(NB.nbody_reference(*b, steps=steps)), 1e-3, 1e-3)
         if n == NBODY_N:
-            errs["nbody_forces"] = e
-        del b, got
+            err = e
+            nbody_instantiations(torch, NB, b, want)
+            again = stacked(NB.nbody_step(*b, steps=steps))
+            check_exact(f"nbody n={n}: a second call", again, got)
+        del b, got, want
     b = bodies(gen, 192)
     for label, out in (("kernel", NB.nbody_step(*b, eps=0.0)),
                        ("plain", NB.nbody_plain(*b, eps=0.0))):
@@ -459,10 +579,34 @@ def phase_kernels(torch, gen):
                                  "give NaN everywhere")
     log("PASS nbody eps=0: every output NaN in kernel and plain version "
         "(self-pairs 0*inf), as the reference")
-    errs.update(sgemm_pipelined_kernels(torch, gen))
-    errs.update(sgemm_prep_checks(torch, gen))
-    errs.update(scan_kernels(torch, gen))
-    return errs
+    return err
+
+
+def nbody_bi(r, s):
+    """The default i-bodies a block, cut so that a block of ``s``
+    groups of ``r`` i-bodies a thread stays within the most threads a
+    block: every instantiation then runs as built."""
+    from tpukernels_torch.kernels import nbody as NB
+
+    return min(NB._tiles()[0], NB.MAX_THREADS // s * r)
+
+
+def nbody_instantiations(torch, NB, b, want):
+    """Every (r, s) instantiation of ``nbody.cu`` at the size of ``b``,
+    one step through the wrapper's integration, against ``want`` (the
+    plain version's step)."""
+    import functools
+
+    n = b[0].numel()
+    for r, s in NB.RS_BUILT:
+        plan = NB.plan_forces(n, nbody_bi(r, s), NB._tiles()[1], r, s)
+        if (plan.r, plan.s) != (r, s):
+            raise AssertionError(f"nbody: the plan for r={r} s={s} runs "
+                                 f"{plan}")
+        got = NB._advance(functools.partial(NB._forces_cuda, plan=plan),
+                          tuple(b), 1e-3, 1e-2, 1)
+        check(f"nbody n={n} r={r} s={s} bi={plan.bi} vs chunked plain",
+              stacked(got), want, *NBODY_BAND)
 
 
 def sgemm_kernels(torch, gen):
@@ -1115,7 +1259,7 @@ def scan_host_us(torch, SC, H, SH, x, nbins):
     return us
 
 
-def phase_times(torch, gen, peaks):
+def phase_times(torch, gen, peaks, nbody):
     log("== phase 5: times (CUDA events, after warm-up)")
     from tpukernels_torch.kernels import nbody as NB
     from tpukernels_torch.kernels import sgemm as S, stencil as J
@@ -1248,30 +1392,22 @@ def phase_times(torch, gen, peaks):
     canary("jacobi3d canary", J.jacobi3d, J.jacobi3d_plain, (8, 24, 132), 2,
            k3, 6)
 
-    n = NBODY_N
-    b = bodies(gen, n)
-    bi, bj = NB._tiles()
-    eps2 = NB._eps2(1e-2)  # the configuration of record
-    row = {
-        "n": n, "steps": 1, "bi": bi, "bj": bj,
-        "ms": time_ms(lambda: NB.nbody_step(*b), 10),
-        "plain_ms": time_ms(lambda: NB.nbody_plain(*b), 1, warmup=1),
-        "library_ms": None,
-        "launches_per_call": 1,
-        # the forces launch alone, without the six integration ops
-        "forces_ms": time_ms(lambda: NB._forces_cuda(
-            b[0], b[1], b[2], b[6], eps2, bi, bj), 10),
-    }
-    # 20 flops per pair, the reference's CostEstimate; 7 arrays in, 6 out
-    row["bound_ms"], row["bound_by"] = bound(4 * 13 * n, 20 * n * n, fp32,
-                                             bw)
-    out["nbody"] = row
+    out["nbody"] = nbody_times(torch, NB, gen, peaks, nbody)
     out.update(scan_times(torch, gen, peaks))
 
     for label, r in out.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        extra = (f", forces launch alone {r['forces_ms']:.4f} ms"
-                 if "forces_ms" in r else "")
+        extra = ""
+        if "forces_ms" in r:
+            extra += (f", forces launch alone {r['forces_ms']:.4f} ms (r="
+                      f"{r['r']} s={r['s']}, {r['threads']} threads a "
+                      f"block), issue floor {r['issue_floor_ms']:.4f} ms at "
+                      f"{r['issue_slots_per_pair']:.3f} slots a pair and "
+                      f"{r['sm_clock_mhz']} MHz (most {r['max_sm_clock_mhz']}"
+                      "), registers " + json.dumps(r["registers"])
+                      + ", per (r, s, bi, bj): " + ", ".join(
+                          f"{k} {ms:.4f} ms"
+                          for k, ms in r["per_config_ms"].items()))
         if "per_k_ms" in r:
             extra += ", per k: " + ", ".join(
                 f"k={kk} {ms:.4f} ms" for kk, ms in r["per_k_ms"].items())
@@ -1315,6 +1451,82 @@ def phase_times(torch, gen, peaks):
             f"{r['bound_ms']:.6g} ms ({r['bound_by']}), launches/call "
             f"{r['launches_per_call']}{extra}")
     return out
+
+
+# the N-body sweep: i-bodies a thread, groups a block, i-bodies a
+# block, j-bodies a tile (a block's)
+NBODY_SWEEP = {"r": (2, 4), "s": (1, 2, 4, 8), "bi": (128, 256, 512),
+               "bj": (512, 1024, 2048)}
+
+
+def sm_clock_mhz(torch, fn, calls=600, samples=3):
+    """(SM clock, most SM clock) in MHz as ``nvidia-smi`` reports them
+    while ``calls`` calls of ``fn`` run on the card: the median of
+    ``samples`` readings."""
+    for _ in range(calls):
+        fn()
+    reads = []
+    for _ in range(samples):
+        line = run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                    "--format=csv,noheader,nounits"])
+        if not line:
+            raise RuntimeError("nvidia-smi gave no SM clock")
+        reads.append([int(v) for v in line.splitlines()[0].split(",")])
+    torch.cuda.synchronize()
+    reads.sort()
+    return tuple(reads[len(reads) // 2])
+
+
+def nbody_times(torch, NB, gen, peaks, nbody):
+    """N-body at the configuration of record: a call, the forces launch
+    alone, the plain version, the bound; the SM clock under load and the
+    issue floor it gives with the SASS's slots a pair (phase 2); every
+    (r, s, bi, bj) of :data:`NBODY_SWEEP` (a plan that halves s is timed
+    once, under the (r, s) it runs)."""
+    _, bw, _, fp32 = peaks
+    n = NBODY_N
+    b = bodies(gen, n)
+    bi, bj = NB._tiles()
+    plan = NB.plan_forces(n, bi, bj)
+    eps2 = NB._eps2(1e-2)  # the configuration of record
+
+    def forces(p):
+        return lambda: NB._forces_cuda(b[0], b[1], b[2], b[6], eps2, p)
+
+    row = {
+        "n": n, "steps": 1, "bi": bi, "bj": bj, "r": plan.r, "s": plan.s,
+        "threads": plan.threads,
+        "ms": time_ms(lambda: NB.nbody_step(*b), 10),
+        "plain_ms": time_ms(lambda: NB.nbody_plain(*b), 1, warmup=1),
+        "library_ms": None,
+        "launches_per_call": 1,
+        # the forces launch alone, without the six integration ops
+        "forces_ms": time_ms(forces(plan), 10),
+    }
+    # 20 flops per pair, the reference's CostEstimate; 7 arrays in, 6 out
+    row["bound_ms"], row["bound_by"] = bound(4 * 13 * n, 20 * n * n, fp32,
+                                             bw)
+    sweep = {}
+    for r in NBODY_SWEEP["r"]:
+        for s in NBODY_SWEEP["s"]:
+            for bi2 in NBODY_SWEEP["bi"]:
+                for bj2 in NBODY_SWEEP["bj"]:
+                    p = NB.plan_forces(n, bi2, bj2, r, s)
+                    key = f"r={p.r} s={p.s} bi={bi2} bj={bj2}"
+                    if key not in sweep:
+                        sweep[key] = time_ms(forces(p), 5, warmup=1)
+    row["per_config_ms"] = sweep
+    row["registers"] = {f"r={r} s={s}": v["registers"]
+                        for (r, s), v in sorted(nbody.items())}
+    row["sass_per_pair"] = nbody[(plan.r, plan.s)]["mix_per_pair"]
+    slots = nbody[(plan.r, plan.s)]["slots_per_pair"]
+    clock, most = sm_clock_mhz(torch, forces(plan))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row.update(issue_slots_per_pair=slots, sm_clock_mhz=clock,
+               max_sm_clock_mhz=most, sms=sms,
+               issue_floor_ms=slots * n * n / (32 * 4 * sms * clock * 1e6)
+               * 1e3)
+    return row
 
 
 def sgemm_parts(torch, S, a, b, c, prec, calls):
@@ -1678,11 +1890,11 @@ def main(argv=None):
 
     card = phase_toolchain(torch)
     peaks = peaks_for(torch.cuda.get_device_name(0))
-    phase_build()
+    nbody = phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     errs = phase_kernels(torch, gen)
     launches = phase_main_path(torch, gen)
-    times = phase_times(torch, gen, peaks)
+    times = phase_times(torch, gen, peaks, nbody)
 
     # B3/B4, B5/B6 and B9/B10 share an entry: the dict keeps B4, B6 and
     # B10, and B3, B5 and B10 stand in also_replaces
@@ -1815,8 +2027,12 @@ def main(argv=None):
                          canary=canary("jacobi3d canary")))
     tn = times["nbody"]
     kernels.append(entry("nbody_forces", nb, tn, errs["nbody_forces"],
-                         n=tn["n"], steps=tn["steps"],
-                         forces_ms=tn["forces_ms"]))
+                         **{k: tn[k] for k in (
+                             "n", "steps", "bi", "bj", "r", "s", "threads",
+                             "forces_ms", "issue_floor_ms",
+                             "issue_slots_per_pair", "sass_per_pair",
+                             "sm_clock_mhz", "max_sm_clock_mhz", "sms",
+                             "registers", "per_config_ms")}))
 
     def at(label, *keys):  # one timed row, its keys picked
         keys = keys or ("n", "ms", "plain_ms", "library_ms", "bound_ms",

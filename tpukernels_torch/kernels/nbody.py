@@ -7,9 +7,10 @@ CUDA tensor the accelerations come from ``csrc/nbody.cu`` (replaces
 the TPU's ``_forces_kernel``), one launch per step; the integration
 stays six elementwise torch ops between launches, as the JAX package
 keeps it outside Pallas: it cannot go into the forces kernel, whose
-other blocks still read the old positions. On a CPU tensor the
-accelerations come from the plain version, chunked over i.
-:func:`nbody_reference` is the pairwise oracle.
+other blocks still read the old positions. The launch's geometry is
+:func:`plan_forces`. On a CPU tensor the accelerations come from the
+plain version, chunked over i. :func:`nbody_reference` is the pairwise
+oracle.
 
 Bound on the card: operations, 20 flops per pair (see ``nbody.cu``).
 """
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -32,13 +34,69 @@ TUNABLES = SearchSpace(
     sources=("tpukernels_torch/kernels/nbody.py",
              "tpukernels_torch/csrc/nbody.cu"),
     tunables=(
-        # i-bodies (threads) per block, a multiple of 32 up to 1024:
-        # at 65 536 bodies 256 gives 256 blocks, about two per SM
+        # i-bodies per block, a multiple of 32 up to 1024: at 65 536
+        # bodies 256 gives 256 blocks, about two per SM
         Tunable("bi", env="TPKT_NBODY_BI", default=256),
-        # j-bodies per shared-memory tile, 1..3072 (16 bytes each)
-        Tunable("bj", env="TPKT_NBODY_BJ", default=1024),
+        # j-bodies per shared-memory tile for the whole block, 1..3072
+        # (16 bytes each), bj / S a group: 2048 the fastest of
+        # chip_smoke.py's sweep (512, 1024, 2048)
+        Tunable("bj", env="TPKT_NBODY_BJ", default=2048),
     ),
 )
+
+# (R, S) instantiations of nbody.cu: i-bodies a thread, groups a block
+RS_BUILT = tuple((r, s) for r in (2, 4) for s in (1, 2, 4, 8))
+# the (R, S) the wrapper launches, from chip_smoke.py's sweep
+DEFAULT_RS = (4, 8)
+# the most threads a block (nbody.cu's kMaxThreads, its launch bounds)
+MAX_THREADS = 512
+
+
+class ForcesPlan(NamedTuple):
+    """One launch of ``nbody.cu``. Thread t of group g of block b holds
+    the i-bodies ``b·bi + t + k·group_threads`` (k < r; those at or past
+    bi in the block, or past n, are not stored); group g walks the
+    j-bodies ``[g·per, (g + 1)·per)`` in tiles of ``tile``, those at or
+    past n padding of mass 0; the S partial sums of an i-body are added
+    in group order."""
+
+    bi: int
+    grid: int  # blocks
+    threads: int  # a block: s · group_threads
+    r: int  # i-bodies a thread
+    s: int  # groups a block
+    group_threads: int  # bi / r rounded up to a warp
+    tile: int  # j-bodies a group stages in shared memory at once
+    per: int  # j-bodies a group walks, a multiple of tile
+    n_pad: int  # s · per >= n
+
+    def j_ranges(self) -> tuple:
+        return tuple((g * self.per, (g + 1) * self.per)
+                     for g in range(self.s))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_forces(n: int, bi: int, bj: int, r: int | None = None,
+                s: int | None = None) -> ForcesPlan:
+    """The launch for n bodies, bi i-bodies a block and tiles of bj
+    j-bodies a block: (r, s) from :data:`DEFAULT_RS` unless given, s
+    halved until the block has at most :data:`MAX_THREADS` threads. A
+    group's share of n is cut into the fewest tiles of at most bj / s
+    bodies, all of one size, so little of the j-range is padding."""
+    r = DEFAULT_RS[0] if r is None else r
+    s = DEFAULT_RS[1] if s is None else s
+    if (r, s) not in RS_BUILT:
+        raise ValueError(f"nbody: no kernel for r={r}, s={s}; built: "
+                         f"{RS_BUILT}")
+    t = (-(-bi // r) + 31) // 32 * 32
+    while s > 1 and s * t > MAX_THREADS:
+        s //= 2
+    share = -(-n // s)
+    tiles = -(-share // max(1, bj // s))
+    tile = -(-share // tiles)
+    per = tiles * tile
+    return ForcesPlan(bi, -(-n // bi), s * t, r, s, t, tile, per, s * per)
+
 
 # i-rows per chunk of the plain version: one (chunk, n) float32
 # temporary at n = 65 536 is 256 MiB, where an unchunked (n, n) one
@@ -48,7 +106,8 @@ PLAIN_CHUNK = 1024
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
 )
 
 
@@ -90,13 +149,14 @@ def nbody_step(px, py, pz, vx, vy, vz, m, dt=1e-3, eps=1e-2, steps=1):
         return nbody_plain(*arrs, dt=dt, eps=eps, steps=steps)
     if dev != "cuda":
         raise ValueError(f"nbody_step: unsupported device {px.device}")
-    bi, bj = _tiles(px.numel(), px.device)
-    forces = functools.partial(_forces_cuda, bi=bi, bj=bj)
+    n = px.numel()
+    plan = plan_forces(n, *_tiles(n, px.device)) if n else None
+    forces = functools.partial(_forces_cuda, plan=plan)
     return _advance(forces, tuple(a.contiguous() for a in arrs), dt, eps,
                     steps)
 
 
-def _forces_cuda(px, py, pz, m, eps2, bi, bj):
+def _forces_cuda(px, py, pz, m, eps2, plan):
     n = px.numel()
     ax, ay, az = (torch.empty_like(px) for _ in range(3))
     if n == 0:
@@ -104,7 +164,8 @@ def _forces_cuda(px, py, pz, m, eps2, bi, bj):
     fn = _build.function("nbody", "tpkt_nbody_forces", _ARGTYPES)
     rc = _build.launch(fn, px, px.data_ptr(), py.data_ptr(), pz.data_ptr(),
                        m.data_ptr(), ax.data_ptr(), ay.data_ptr(),
-                       az.data_ptr(), n, eps2, bi, bj)
+                       az.data_ptr(), n, eps2, plan.bi, plan.r, plan.s,
+                       plan.tile, plan.per)
     LAUNCHES["nbody_forces"] += 1
     _build.check(rc, "tpkt_nbody_forces")
     return ax, ay, az
