@@ -9,8 +9,8 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
 1. prints the card (``nvidia-smi`` name and power limit) and toolchain,
    and turns TF32 off for float32 matmuls;
 2. builds every kernel, in parallel, and prints the build times, the
-   registers and spills ptxas reports (the 2-D Jacobi and N-body must
-   not spill), the count of the SGEMM kernels' tensor-core, TMA and
+   registers and spills ptxas reports (the 2-D and 3-D Jacobi and
+   N-body must not spill), the count of the SGEMM kernels' tensor-core, TMA and
    mbarrier instructions in their SASS (both SGEMM libraries must show
    wgmma and TMA and no mma.sync), and for each N-body instantiation
    (r i-bodies a thread, s groups a block) its registers, its SASS mix
@@ -20,8 +20,9 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    stated beside each check: the depth-1 SGEMM at every tile it builds,
    the pipelined SGEMM (depth 2/3, both grid orders, two tiles) also
    bitwise against itself at depth 2 order ij and against the depth-1
-   SGEMM, SGEMM's operand preparation and the 2-D Jacobi (ragged,
-   narrow, all-boundary and unaligned grids too) bitwise against their
+   SGEMM, SGEMM's operand preparation and the 2-D and 3-D Jacobi
+   (ragged, narrow, all-boundary and unaligned grids too; the 3-D at
+   every fusion depth k and every ring depth) bitwise against their
    plain versions, the scan family also call after call on one scratch
    buffer, across a growing buffer and on two streams, N-body at ragged
    sizes, in every (r, s) instantiation, and twice bit for bit;
@@ -48,7 +49,9 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    (six bf16 products: the run fails at half), for the scan at 2^26
    its resident blocks a SM and its time on capped grids and without its
    look-back, for the 2-D and 3-D Jacobi every fusion depth k and
-   the HBM floor of their passes (``pass_bytes_ms``), and for N-body
+   the HBM floor of their passes (``pass_bytes_ms``), for the 3-D also
+   every ring depth, the halo's redundancy at each k and each
+   instantiation's registers, and for N-body
    its forces launch alone, every (r, s, bi, bj) of a sweep, the SM
    clock under load and the issue floor it gives (``issue_floor_ms``).
 
@@ -91,10 +94,8 @@ GEMM_TILES = (("tile default", {}),
               ("tile 64x128", {"TPKT_SGEMM_BM": 64, "TPKT_SGEMM_BN": 128}))
 NBODY_N = 1 << 16  # the configuration of record: dt 1e-3, eps 1e-2, 1 step
 STENCIL3D_N, STENCIL3D_ITERS = 384, 8
-# the C golden checkers' bars: c/stencil.c (Jacobi, bitwise expected),
-# c/nbody.c (N-body against its plain version; rsqrtf and the sum order
-# differ)
-JACOBI_BAND = (1e-4, 1e-5)
+# c/nbody.c's golden checker's bar (N-body against its plain version;
+# rsqrtf and the sum order differ)
 NBODY_BAND = (2e-3, 2e-4)
 # N-body sizes either side of a warp, a tile and a block, and one past
 # the configuration of record
@@ -367,9 +368,9 @@ def phase_build():
             f"spill stores {stores} B, spill loads {loads} B, "
             f"{len(re.findall('serializ', text))} wgmma serialisation "
             "warnings")
-        # the 2-D wavefront keeps every level in registers, N-body its
+        # the Jacobi wavefronts keep every level in registers, N-body its
         # i-bodies and sums
-        if name in ("jacobi2d", "nbody") and (stores or loads):
+        if name in ("jacobi2d", "jacobi3d", "nbody") and (stores or loads):
             raise AssertionError(f"ptxas spills in {name}: the registers "
                                  "the design keeps its state in overflowed")
     # what the SGEMM kernels were compiled to: HGMMA is wgmma, UTMALDG a
@@ -389,6 +390,31 @@ def phase_build():
                 and counts["HMMA"] == 0):
             raise AssertionError(f"{name} is not on TMA + wgmma: {counts}")
     return nbody_build(cuobjdump)
+
+
+def jacobi3d_registers():
+    """``{sweeps: (registers, spill bytes)}`` of each ``jacobi3d.cu``
+    instantiation, from its ptxas report."""
+    from tpukernels_torch import _build
+
+    out = {}
+    log_ = _build.library_path("jacobi3d").with_suffix(".log").read_text()
+    for chunk in log_.split("Compiling entry function")[1:]:
+        s = re.search(r"jacobi3d_kernelILi(\d+)E", chunk)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        if s and regs:
+            out[int(s[1])] = (int(regs[1]), sum(map(int, re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", chunk))))
+    return dict(sorted(out.items()))
+
+
+def stencil3d_redundancy(J, n, k):
+    """Cells a pass of ``k`` sweeps loads and sweeps over the cells of an
+    n^3 grid: the windows in x and y and the segments' extra planes in z
+    (``plan3d`` on device 0's SMs)."""
+    p = J.plan3d(n, n, n, k, J.sm_count(0))
+    wx, wy = J.window3d(k)
+    return p.nx * wx * p.ny * wy * p.nz * (p.seg + 2 * k) / n ** 3
 
 
 NBODY_MIX = ("FFMA", "FADD", "FMUL", "MUFU", "LDS")
@@ -528,17 +554,32 @@ def phase_kernels(torch, gen):
     check_exact("jacobi2d 777x1032 iters=10 k=8 unaligned",
                 J.jacobi2d(x, 10, k=8), J.jacobi2d_plain(x, 10))
 
+    # 3-D Jacobi bitwise: the canary, every k at a ragged shape (and
+    # remainder passes), every ring depth at the size of record, thin and
+    # ragged grids, all-boundary grids
     n3 = STENCIL3D_N
-    for shape, iters, k in (((8, 24, 132), 2, None), ((33, 70, 130), 9, 1),
-                            ((33, 70, 130), 9, 2), ((33, 70, 130), 9, None),
-                            ((n3, n3, n3), STENCIL3D_ITERS, None)):
+    cases = [((8, 24, 132), 2, None, None),
+             *[((33, 70, 130), 9, k, None) for k in range(1, 9)],
+             ((33, 70, 130), 16, 8, None), ((2, 70, 130), 9, None, None),
+             ((33, 1, 130), 9, None, None), ((33, 70, 1), 9, 8, None),
+             ((5, 389, 1031), 9, None, None), ((5, 389, 1031), 8, 8, None),
+             ((2, 2, 2), 5, 8, None), ((1, 300, 300), 3, 8, None),
+             *[((n3, n3, n3), STENCIL3D_ITERS, None, depth)
+               for depth in range(1, J.RING_MAX + 1)],
+             ((n3, n3, n3), STENCIL3D_ITERS, 8, None)]
+    for shape, iters, k, depth in cases:
         x = randn(*shape)
-        e = check(f"jacobi3d {'x'.join(map(str, shape))} iters={iters} "
-                  f"k={k or 'default'}", J.jacobi3d(x, iters, k=k),
-                  J.jacobi3d_plain(x, iters), *JACOBI_BAND)
+        e = check_exact(
+            f"jacobi3d {'x'.join(map(str, shape))} iters={iters} "
+            f"k={k or 'default'} depth={depth or 'default'}",
+            J.jacobi3d(x, iters, k=k, depth=depth), J.jacobi3d_plain(x, iters))
         if shape[0] == n3:
             errs["jacobi3d"] = e
         del x
+    # a storage offset of one float: rows start off 16-byte alignment
+    x = randn(33 * 70 * 132 + 1)[1:].view(33, 70, 132)
+    check_exact("jacobi3d 33x70x132 iters=9 k=4 unaligned",
+                J.jacobi3d(x, 9, k=4), J.jacobi3d_plain(x, 9))
 
     errs["nbody_forces"] = nbody_checks(torch, gen)
     errs.update(sgemm_pipelined_kernels(torch, gen))
@@ -1376,6 +1417,7 @@ def phase_times(torch, gen, peaks, nbody):
     k3 = J.resolve_k(None, 3)
     row = {
         "shape": [n3] * 3, "iters": iters, "k": k3,
+        "depth": J.resolve_depth(),
         "ms": time_ms(lambda: J.jacobi3d(x, iters), 10),
         "plain_ms": time_ms(lambda: J.jacobi3d_plain(x, iters), 2, warmup=1),
         "library_ms": None,
@@ -1384,9 +1426,16 @@ def phase_times(torch, gen, peaks, nbody):
     row["bound_ms"], row["bound_by"] = bound(
         8 * n3 ** 3, 6 * (n3 - 2) ** 3 * iters, fp32, bw)
     row["pass_bytes_ms"] = 8 * n3 ** 3 * row["launches_per_call"] / bw * 1e3
-    # every fusion depth the kernel takes: the default is the fastest
+    # every fusion depth and ring depth the kernel takes: the defaults
+    # are the fastest
     row["per_k_ms"] = {kk3: time_ms(lambda: J.jacobi3d(x, iters, k=kk3), 10)
                        for kk3 in range(1, J.HALO3D_MAX + 1)}
+    row["per_depth_ms"] = {
+        dd: time_ms(lambda: J.jacobi3d(x, iters, depth=dd), 10)
+        for dd in range(1, J.RING_MAX + 1)}
+    row["halo_redundancy"] = {kk3: stencil3d_redundancy(J, n3, kk3)
+                              for kk3 in range(1, J.HALO3D_MAX + 1)}
+    row["registers"] = jacobi3d_registers()
     out["jacobi3d"] = row
     del x
     canary("jacobi3d canary", J.jacobi3d, J.jacobi3d_plain, (8, 24, 132), 2,
@@ -1411,6 +1460,14 @@ def phase_times(torch, gen, peaks, nbody):
         if "per_k_ms" in r:
             extra += ", per k: " + ", ".join(
                 f"k={kk} {ms:.4f} ms" for kk, ms in r["per_k_ms"].items())
+        if "per_depth_ms" in r:
+            extra += ", per depth: " + ", ".join(
+                f"depth={dd} {ms:.4f} ms"
+                for dd, ms in r["per_depth_ms"].items())
+            extra += ", halo redundancy " + ", ".join(
+                f"k={kk} {v:.3f}" for kk, v in r["halo_redundancy"].items())
+            extra += ", (registers, spill bytes) " + json.dumps(
+                r["registers"])
         if "knobs" in r:
             extra += f", knobs {json.dumps(r['knobs'])}"
         if "blocks" in r:
@@ -2016,14 +2073,14 @@ def main(argv=None):
     kernels.append(entry("jacobi2d", jc, t2, errs["jacobi2d"],
                          also_replaces=b3.where, shape=t2["shape"],
                          iters=t2["iters"], k=t2["k"],
-                         pass_bytes_ms=t2["pass_bytes_ms"],
                          per_k_ms=t2["per_k_ms"],
                          canary=canary("jacobi2d canary")))
     t3 = times["jacobi3d"]
     kernels.append(entry("jacobi3d", j3, t3, errs["jacobi3d"],
-                         also_replaces=b5.where, shape=t3["shape"],
-                         iters=t3["iters"], k=t3["k"],
-                         per_k_ms=t3["per_k_ms"],
+                         also_replaces=b5.where,
+                         **{k: t3[k] for k in (
+                             "shape", "iters", "k", "depth", "per_k_ms",
+                             "per_depth_ms", "registers")},
                          canary=canary("jacobi3d canary")))
     tn = times["nbody"]
     kernels.append(entry("nbody_forces", nb, tn, errs["nbody_forces"],
@@ -2042,7 +2099,7 @@ def main(argv=None):
     big, rec = f"n={STREAM_N}", f"n={SCAN_N}"
     one = ("n", "ms", "device_ms", "plain_ms", "library_ms",
            "library_device_ms", "launches_per_call", "bound_ms", "bound_by")
-    sh = one + ("pass_bytes_ms", "scan_hist_melem_s")
+    sh = one + ("scan_hist_melem_s",)
     t = times[f"scan {rec}"]
     kernels.append(entry("scan", by_id["B8"], t, errs["scan"], n=SCAN_N,
                          dtype="int32", device_ms=t["device_ms"],
