@@ -35,7 +35,25 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    off — checks each result against the port's oracle (N-body at 65 536
    bodies against its chunked plain version; the int32 keys bitwise),
    shows which kernel each SGEMM call launched and where its knobs came
-   from, and shows from the launch counters that every kernel ran;
+   from, and shows from the launch counters that every kernel ran (the
+   integrity guard's first-trust canaries are spent before the counted
+   run, so each dispatch moves only its own launches);
+4b. runs the output-integrity guard of ``registry.dispatch`` on the card
+   (its state and the journal in a temporary directory): the tripwire on
+   NaN/inf at the first, a middle and the last element; envelopes
+   recorded from the CPU oracle, then every key's canary operands and
+   the configurations of record dispatched, with a first-trust canary
+   for each key (tier 2 for the exact keys, tier 3 for the float ones)
+   and no failure and no check error; three injected faults
+   (``corrupt_output`` on sgemm, caught within one call and quarantined
+   at the second, ``nan_output`` on stencil3d at tier 1,
+   ``corrupt_output`` on histogram at tier 2) read back from the
+   journal, then a clean deep check; the cost of the guard (the wrapper
+   alone, and dispatch with the guard off, as a tripwire and full, host
+   clock, in turns), each key's first-trust canary split into its
+   kernel run and its CPU oracle, and the device's idle share over
+   guarded dispatches (``torch.profiler``, "not measured" when it shows
+   no device time);
 5. times each kernel, its plain version and, where one exists, the
    single PyTorch call computing the same function, with CUDA events,
    beside the least time the card could take (``bound_ms``); for SAXPY,
@@ -181,10 +199,14 @@ def check_exact(label, got, want):
 
 @contextlib.contextmanager
 def knobs(**values):
-    """Set environment knobs (``TPKT_*``) for the body, then restore
-    them."""
+    """Set environment knobs (``TPKT_*``) for the body (a None value
+    unsets one), then restore them."""
     old = {k: os.environ.get(k) for k in values}
-    os.environ.update({k: str(v) for k, v in values.items()})
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
     try:
         yield
     finally:
@@ -988,6 +1010,7 @@ def phase_main_path(torch, gen):
     from tpukernels_torch import interop, registry
     from tpukernels_torch.kernels import LAUNCHES, reset_launches
     from tpukernels_torch.kernels import nbody as NB, sgemm as S
+    from tpukernels_torch.obs import metrics
     from tpukernels_torch.resilience import integrity
     from tpukernels_torch.tuning import cache
 
@@ -1074,6 +1097,10 @@ def phase_main_path(torch, gen):
         label = "n=2^22" + (" nbins=256" if st else "") + "".join(
             f" fuse={v}" for v in env.values())
         record.append((name, label, (x,), st, None, None, env))
+    # the configurations of record (phase 4b guards them): every row but
+    # SGEMM's tuned path and the fused scan + histogram
+    of_record = [r for r in record
+                 if not r[6] or r[6] == {"TPKT_SCANHIST_FUSE": "off"}]
     canaries = [
         (name, "canary", interop.to_port(name, integrity.build_args(name)),
          integrity.CANARY_CONFIGS[name]["statics"], None, None, {})
@@ -1081,6 +1108,12 @@ def phase_main_path(torch, gen):
                      "nbody", "scan", "scan_exclusive", "histogram",
                      "scan_histogram")
     ]
+    # a key's first dispatch also runs the integrity guard's first-trust
+    # canary through the key's kernel: spend those here, before the
+    # counts are zeroed, so that each dispatch below moves only its own
+    # launches (phase 4b checks the guard itself)
+    for name, _, args, st, _, _, env in canaries:
+        registry.dispatch(name, *args, **st)
     torch.cuda.synchronize()
 
     deltas = []  # per call: the launch counters it moved
@@ -1093,6 +1126,7 @@ def phase_main_path(torch, gen):
                        if v != before[k]})
         return out
 
+    canaries_before = metrics.counter("integrity.deep_checks")
     reset_launches()
     registry.reset_calls()
     outs = [run(name, args, st, env)
@@ -1100,6 +1134,9 @@ def phase_main_path(torch, gen):
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     calls = registry.calls()
+    if metrics.counter("integrity.deep_checks") != canaries_before:
+        raise AssertionError("the integrity guard ran a canary inside the "
+                             "counted run: the launch deltas include it")
 
     for (name, label, args, st, band, oracle, _), out in zip(
             record + canaries, outs):
@@ -1139,7 +1176,324 @@ def phase_main_path(torch, gen):
     idle = [k for k, v in launches.items() if v <= 0]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
-    return launches
+    guard_clean(metrics, "phase 4")
+    return launches, of_record
+
+
+def guard_clean(metrics, where):
+    """Fail unless the integrity guard counted no failure and no error
+    of its own on a clean path."""
+    bad = {k: metrics.counter(f"integrity.{k}")
+           for k in ("failures", "check_errors", "rejections")}
+    if any(bad.values()):
+        raise AssertionError(f"{where}: the integrity guard counted {bad} "
+                             "on a clean path")
+    log(f"PASS {where}: integrity guard clean "
+        f"({metrics.counter('integrity.checks')} checks, "
+        f"{metrics.counter('integrity.deep_checks')} canaries)")
+
+
+# the guard-cost turns: the wrapper alone, the wrapper with a
+# synchronise after each call (what a synchronise a call costs by
+# itself), then registry.dispatch with the guard off (TPKT_INTEGRITY=0),
+# as a tripwire and full
+GUARD_TURNS = ("wrapper", "synced", "off", "tripwire", "full", "full",
+               "tripwire", "off", "synced", "wrapper")
+GUARD_KNOB = {"off": "0", "tripwire": "tripwire", "full": None}
+GUARD_CALLS = 64  # calls a turn: one sampled canary a full turn
+
+
+def phase_guarded(torch, of_record, peaks):
+    """Phase 4b: the output-integrity guard of ``registry.dispatch`` on
+    the card, its clean path, three injected faults and its costs."""
+    log("== phase 4b: guarded dispatch (the output-integrity guard)")
+    from tpukernels_torch import interop, registry
+    from tpukernels_torch.obs import metrics, trace
+    from tpukernels_torch.resilience import faults, integrity, journal
+
+    dev = torch.device("cuda")
+    keys = registry.names()
+    bw = peaks[1]
+    jpath = journal.path()
+
+    def events(since):
+        return journal.load_events([jpath])[0][since:]
+
+    def mark():
+        return len(events(0))
+
+    def plan(p):
+        if p is None:
+            os.environ.pop("TPKT_FAULT_PLAN", None)
+        else:
+            os.environ["TPKT_FAULT_PLAN"] = json.dumps(p)
+        faults.reload_plan()
+
+    def dispatch(row):
+        name, _, args, st, _, _, env = row
+        with knobs(**env):
+            return registry.dispatch(name, *args, **st)
+
+    # the tripwire on the card: NaN, +inf and -inf at the first, a middle
+    # and the last element are each caught
+    probe = torch.zeros(STENCIL3D_N ** 2, device=dev)
+    for value in (float("nan"), float("inf"), float("-inf")):
+        for pos in (0, probe.numel() // 2, probe.numel() - 1):
+            bad = probe.clone()
+            bad[pos] = value
+            if integrity.tripwire_ok(bad) or integrity.tripwire_ok(
+                    (probe, bad)):
+                raise AssertionError(f"tripwire missed {value} at {pos}")
+    if not integrity.tripwire_ok((probe, probe)):
+        raise AssertionError("tripwire tripped on a finite result")
+    log("PASS tripwire on the card: NaN, +inf, -inf caught at the first, "
+        "a middle and the last element, alone and in a tuple")
+
+    # 1. clean path: envelopes from the CPU oracle, every key's canary
+    # operands, then the configurations of record
+    integrity.reset()
+    metrics.clear("integrity.")
+    rows = integrity.record_all(echo=log)
+    if len(rows) != len(keys) or any("error" in r for r in rows):
+        raise AssertionError(f"envelopes not recorded: {rows}")
+    since = mark()
+    with knobs(TPKT_TRACE=1):
+        trace.reload()
+        for k in keys:
+            registry.dispatch(k, *interop.to_port(
+                k, integrity.build_args(k), dev),
+                **integrity.CANARY_CONFIGS[k]["statics"])
+    trace.reload()
+    for row in of_record:
+        dispatch(row)
+    torch.cuda.synchronize()
+    first_trust = {e["name"].rsplit("/", 1)[-1]: e["wall_s"] * 1e3
+                   for e in events(since) if e["kind"] == "span"
+                   and "/integrity/canary/" in e["name"]}
+    for k in keys:
+        tier = 2 if integrity.tolerance(k)[0] == "exact" else 3
+        ran = {t: metrics.counter(f"integrity.tier{t}.{k}") for t in (2, 3)}
+        if ran[tier] != 1 or ran[5 - tier] != 0 or k not in first_trust:
+            raise AssertionError(f"{k}: first-trust canaries {ran}, span "
+                                 f"{k in first_trust}; expected one at tier "
+                                 f"{tier}")
+        log(f"PASS guard first trust {k}: tier {tier}, "
+            f"{first_trust[k]:.3f} ms")
+    guard_clean(metrics, "phase 4b clean path")
+    if metrics.counter("integrity.deep_checks") != len(keys):
+        raise AssertionError("a canary beyond first trust on the clean path")
+
+    # 2. chaos on the card: each injected fault is caught at its tier, in
+    # a fresh guard state, as a process meeting a corrupt kernel has: the
+    # first-trust canary catches a finite corruption within one call
+    integrity.reset()
+    gemm = next(r for r in of_record if r[0] == "sgemm" and not r[3])
+    cube = next(r for r in of_record if r[0] == "stencil3d")
+    hist = next(r for r in of_record if r[0] == "histogram")
+
+    def caught(label, row, fault, tier, then=()):
+        plan({fault: {"kernel": row[0], "site": "registry"}})
+        since = mark()
+        dispatch(row)
+        torch.cuda.synchronize()
+        got = [(e["kind"], e.get("tier")) for e in events(since)
+               if e["kind"].startswith("output_integrity")]
+        want = [("output_integrity_failed", tier), *then]
+        if got != want:
+            raise AssertionError(f"{label}: events {got}, expected {want}")
+        log(f"PASS chaos {label}: {fault} caught at tier {tier}"
+            + "".join(f", then {k}" for k, _ in then))
+
+    caught("sgemm call 1", gemm, "corrupt_output", 3)
+    caught("sgemm call 2", gemm, "corrupt_output", 3,
+           [("output_integrity_quarantined", None)])
+    if not integrity.is_quarantined("sgemm"):
+        raise AssertionError("sgemm not quarantined after two failures")
+    caught("stencil3d", cube, "nan_output", 1)
+    caught("histogram", hist, "corrupt_output", 2)
+    # the plan cleared: a quarantined key is canary-checked and clean;
+    # the quarantine cleared: a fresh first-trust canary is clean
+    plan(None)
+    failures = metrics.counter("integrity.failures")
+    deep = metrics.counter("integrity.tier3.sgemm")
+    dispatch(gemm)
+    os.remove(integrity.quarantine_path())
+    integrity.reset()
+    dispatch(gemm)
+    torch.cuda.synchronize()
+    if (metrics.counter("integrity.failures") != failures
+            or metrics.counter("integrity.tier3.sgemm") != deep + 2
+            or integrity.is_quarantined("sgemm")):
+        raise AssertionError("no clean deep check after the chaos")
+    if metrics.counter("integrity.check_errors"):
+        raise AssertionError("the guard counted check errors in the chaos")
+    log("PASS chaos cleared: sgemm canary-checked clean while quarantined "
+        "and after the quarantine was cleared")
+
+    # 3. costs: the wrapper alone, then dispatch with the guard off, as a
+    # tripwire and full (sample 64), host clock around GUARD_CALLS calls
+    # ending in a synchronise, in turns
+    integrity.reset()
+    metrics.clear("integrity.")
+    costs = {}
+    for row in of_record:
+        name, label, args, st, _, _, env = row
+        fn = registry.lookup(name)
+        out = fn(*args, **st)
+        leaves = out if isinstance(out, tuple) else (out,)
+        trip_bytes = sum(4 * t.numel() for t in leaves
+                         if t.is_floating_point())
+        ms = {m: [] for m in GUARD_TURNS}
+        with knobs(**env):
+            for mode in GUARD_TURNS:
+                if mode == "wrapper":
+                    call = lambda: fn(*args, **st)  # noqa: E731
+                elif mode == "synced":
+                    call = lambda: (fn(*args, **st),  # noqa: E731
+                                    torch.cuda.synchronize())
+                else:
+                    call = lambda: registry.dispatch(  # noqa: E731
+                        name, *args, **st)
+                with knobs(TPKT_INTEGRITY=GUARD_KNOB.get(mode)):
+                    call()
+                    call()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(GUARD_CALLS):
+                        call()
+                    torch.cuda.synchronize()
+                    ms[mode].append((time.perf_counter() - t0)
+                                    / GUARD_CALLS * 1e3)
+        costs[f"{name} {label}"] = {
+            "key": name, "turns_ms": ms,
+            **{m: sum(v) / len(v) for m, v in ms.items()},
+            "tripwire_bytes": trip_bytes,
+            "tripwire_floor_ms": trip_bytes / bw * 1e3}
+        c = costs[f"{name} {label}"]
+        log(f"guard cost {name} {label}: wrapper {c['wrapper']:.4f} ms, "
+            f"synchronised {c['synced']:.4f}, "
+            f"dispatch off {c['off']:.4f}, tripwire {c['tripwire']:.4f}, "
+            f"full {c['full']:.4f} (host clock, {GUARD_CALLS} calls a turn, "
+            f"turns {json.dumps({m: [round(x, 4) for x in v] for m, v in ms.items()})}); "
+            f"tripwire reads {trip_bytes} B, HBM floor "
+            f"{c['tripwire_floor_ms']:.6f} ms")
+    guard_clean(metrics, "phase 4b costs")
+    reduction = tripwire_reduction(torch, of_record, bw)
+
+    # each key's first-trust canary, split: the kernel run on the card
+    # (warm, 5 runs), the whole check a sampled canary runs (warm, 5
+    # runs: the envelope's CRC for an exact key, the oracle compare for a
+    # float one) and the CPU oracle (cold: its memo dropped)
+    canary = {}
+    for k in keys:
+        tier = 2 if integrity.tolerance(k)[0] == "exact" else 3
+
+        def deep():
+            if tier == 2:
+                ran, failure = integrity.fingerprint_check(k, device=dev)
+                if not ran:
+                    raise AssertionError(f"{k}: no envelope for tier 2")
+            else:
+                failure = integrity.cross_check(k, device=dev)
+            if failure:
+                raise AssertionError(f"{k}: canary failed: {failure}")
+
+        split = {}
+        for part, fn in (("kernel_ms", lambda: integrity.run_canary(
+                k, device=dev)), ("deep_ms", deep)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+                torch.cuda.synchronize()
+            split[part] = (time.perf_counter() - t0) / 5 * 1e3
+        integrity.reset()
+        t0 = time.perf_counter()
+        integrity.oracle_outputs(k)
+        split["oracle_ms"] = (time.perf_counter() - t0) * 1e3
+        canary[k] = {"first_trust_ms": first_trust[k], **split}
+        log(f"guard canary {k}: first trust {first_trust[k]:.3f} ms (the "
+            f"span, at tier {tier}), kernel run on the card "
+            f"{split['kernel_ms']:.3f} ms, whole check warm "
+            f"{split['deep_ms']:.3f} ms, CPU oracle cold "
+            f"{split['oracle_ms']:.3f} ms")
+    return {"costs": costs, "canary": canary, "reduction": reduction,
+            "idle": idle_share(torch, of_record, dispatch)}
+
+
+def tripwire_reduction(torch, of_record, bw):
+    """The tripwire's reduction alone on the device (CUDA events) for the
+    two largest float results of record, beside ``isfinite().all()``,
+    which writes and reads a bool tensor between its two passes."""
+    from tpukernels_torch import registry
+
+    inf = float("inf")
+    out = {}
+    for name in ("vector_add", "stencil3d"):
+        row = max((r for r in of_record if r[0] == name),
+                  key=lambda r: r[2][-1].numel())
+        x = registry.lookup(name)(*row[2], **row[3])
+        r = {"n": x.numel(),
+             "vector_norm_inf_ms": time_ms(
+                 lambda: torch.linalg.vector_norm(x, inf), 50),
+             "isfinite_all_ms": time_ms(lambda: torch.isfinite(x).all(), 50),
+             "floor_4n_ms": 4 * x.numel() / bw * 1e3,
+             "floor_6n_ms": 6 * x.numel() / bw * 1e3}
+        out[f"{name} {row[1]}"] = r
+        log(f"tripwire reduction {name} {row[1]}: vector_norm(inf) "
+            f"{r['vector_norm_inf_ms']:.4f} ms on the device (4 B an "
+            f"element: floor {r['floor_4n_ms']:.4f}), isfinite().all() "
+            f"{r['isfinite_all_ms']:.4f} (6 B: floor "
+            f"{r['floor_6n_ms']:.4f}), CUDA events")
+    return out
+
+
+def idle_share(torch, of_record, dispatch):
+    """The device's idle share over one guarded dispatch of each
+    configuration of record (full guard, first trust spent), from
+    ``torch.profiler``'s device time; None with the reason when the
+    profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for row in of_record:
+        dispatch(row)
+    torch.cuda.synchronize()
+    walls = []  # the same window without the profiler, three times
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for row in of_record:
+            dispatch(row)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for row in of_record:
+                dispatch(row)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy_us = sum(getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0))
+                      for e in prof.key_averages())
+    except Exception as e:  # noqa: BLE001 — optional: reported, not fatal
+        log(f"device idle share: not measured ({e!r})")
+        return None
+    if busy_us <= 0:
+        log("device idle share: not measured (the profiler shows no device "
+            "time)")
+        return None
+    share = max(0.0, 1.0 - busy_us / wall_us)
+    plain = max(0.0, 1.0 - busy_us / min(walls))
+    log(f"device idle share over one guarded dispatch of each "
+        f"configuration of record: {share:.4f} under the profiler (device "
+        f"busy {busy_us:.1f} us of {wall_us:.1f} us, torch.profiler); "
+        f"{plain:.4f} against the same window unprofiled (host clock "
+        f"{', '.join(f'{w:.1f}' for w in walls)} us)")
+    return {"idle_share": share, "idle_share_unprofiled": plain,
+            "busy_us": busy_us, "wall_us": wall_us,
+            "unprofiled_wall_us": walls}
 
 
 def lookup_us(cache, S, stat=False, calls=2000):
@@ -1932,6 +2286,37 @@ def scan_probe(torch, SC, x):
     return probe
 
 
+# phase 5's row of each configuration of record, by phase 4's label
+PHASE5_ROW = {
+    f"vector_add n={1 << 20}": f"saxpy n={1 << 20}",
+    f"vector_add n={1 << 26}": f"saxpy n={1 << 26}",
+    "sgemm 1024^3 (precision of record)": "sgemm[high]",
+    "sgemm 1024^3 precision=float32": "sgemm[float32]",
+    "sgemm 1024^3 precision=default": "sgemm[default]",
+    "stencil2d 4096^2 iters=1000": "jacobi2d",
+    f"stencil3d {STENCIL3D_N}^3 iters={STENCIL3D_ITERS}": "jacobi3d",
+    f"nbody n={NBODY_N} steps=1": "nbody",
+    "scan n=2^22": f"scan n={SCAN_N}",
+    "histogram n=2^22 nbins=256": f"histogram n={SCAN_N}",
+    "scan_histogram n=2^22 nbins=256 fuse=off":
+        f"scan_histogram[off] n={SCAN_N}",
+}
+
+
+def guard_costs(guarded, times):
+    """Each configuration of record's guarded dispatch (phase 4b) beside
+    its wrapper's ``ms`` and ``device_ms`` (phase 5)."""
+    for label, c in guarded["costs"].items():
+        row = times.get(PHASE5_ROW.get(label, ""), {})
+        ms = "—" if "ms" not in row else f"{row['ms']:.4f}"
+        dev = "—" if "device_ms" not in row else f"{row['device_ms']:.4f}"
+        log(f"guarded dispatch {label}: off {c['off']:.4f} ms, tripwire "
+            f"{c['tripwire']:.4f}, full {c['full']:.4f}, wrapper "
+            f"{c['wrapper']:.4f} (host clock); phase 5 ms {ms}, device_ms "
+            f"{dev} (CUDA events); tripwire floor "
+            f"{c['tripwire_floor_ms']:.6f} ms")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1943,6 +2328,22 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     import tpukernels_torch  # noqa: F401  (fails outside the repository)
+
+    # the integrity guard's state and the journal live in a temporary
+    # directory; the guard runs as shipped (no plan, full, sample 64)
+    state = tempfile.mkdtemp(prefix="tpkt_smoke_")
+    for var in ("TPKT_FAULT_PLAN", "TPKT_INTEGRITY", "TPKT_INTEGRITY_SAMPLE",
+                "TPKT_INTEGRITY_QUARANTINE_AFTER", "TPKT_TRACE"):
+        os.environ.pop(var, None)
+    os.environ["TPKT_INTEGRITY_DIR"] = os.path.join(state, "integrity")
+    os.environ["TPKT_HEALTH_JOURNAL"] = os.path.join(state, "health.jsonl")
+    try:
+        return run_all(torch, args)
+    finally:
+        shutil.rmtree(state, ignore_errors=True)
+
+
+def run_all(torch, args):
     from tpukernels_torch.kernels import TPU_KERNELS
 
     card = phase_toolchain(torch)
@@ -1950,8 +2351,11 @@ def main(argv=None):
     nbody = phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     errs = phase_kernels(torch, gen)
-    launches = phase_main_path(torch, gen)
+    launches, of_record = phase_main_path(torch, gen)
+    guarded = phase_guarded(torch, of_record, peaks)
+    del of_record
     times = phase_times(torch, gen, peaks, nbody)
+    guard_costs(guarded, times)
 
     # B3/B4, B5/B6 and B9/B10 share an entry: the dict keeps B4, B6 and
     # B10, and B3, B5 and B10 stand in also_replaces

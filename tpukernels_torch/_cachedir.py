@@ -1,7 +1,8 @@
-"""Where the port keeps its state, and how it reads it back.
+"""Where the port keeps its state, and how it reads and writes it.
 
-The port's own copy of ``tuning_cache_path`` and ``read_json_memoized``
-in ``tpukernels/_cachedir.py``. The state lives in the repository's
+The port's own copy of ``tuning_cache_path``, ``read_json_memoized``,
+``locked_json_update`` and the integrity guard's paths in
+``tpukernels/_cachedir.py``. The state lives in the repository's
 ``.tpkt_cache/`` (gitignored) unless an env var redirects it; the env is
 read on every call, so a test's redirect takes effect at once.
 """
@@ -15,13 +16,33 @@ import sys
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _state_dir(var: str, env: dict | None) -> str:
+    target = os.environ if env is None else env
+    return target.get(var) or os.path.join(_REPO, ".tpkt_cache")
+
+
 def tuning_cache_path(env: dict | None = None) -> str:
     """``$TPKT_TUNING_CACHE_DIR/tuning.json``, else
     ``<repo>/.tpkt_cache/tuning.json``."""
-    target = os.environ if env is None else env
-    d = target.get("TPKT_TUNING_CACHE_DIR") or os.path.join(_REPO,
-                                                           ".tpkt_cache")
-    return os.path.join(d, "tuning.json")
+    return os.path.join(_state_dir("TPKT_TUNING_CACHE_DIR", env),
+                        "tuning.json")
+
+
+def integrity_dir(env: dict | None = None) -> str:
+    """State directory of the output-integrity guard
+    (``resilience/integrity.py``): its envelope manifest and quarantine
+    ledger. ``$TPKT_INTEGRITY_DIR``, else ``<repo>/.tpkt_cache``; tests
+    and chaos runs redirect it, so an injected fault never quarantines
+    the repository's own kernel configurations."""
+    return _state_dir("TPKT_INTEGRITY_DIR", env)
+
+
+def integrity_manifest_path(env: dict | None = None) -> str:
+    return os.path.join(integrity_dir(env), "integrity.json")
+
+
+def integrity_quarantine_path(env: dict | None = None) -> str:
+    return os.path.join(integrity_dir(env), "integrity_quarantine.json")
 
 
 _TORN_NOTED: set = set()
@@ -53,4 +74,27 @@ def read_json_memoized(path: str, memo: dict) -> dict:
     if not isinstance(data, dict):
         data = {}
     memo[path] = (stat_key, data)
+    return data
+
+
+def locked_json_update(path: str, mutate, load=None) -> dict:
+    """flock-serialised read-modify-write of one JSON state file: a lock
+    file beside it, a fresh read under the lock (``load(path)``, which
+    must return a dict no one else holds, or a plain tolerant read),
+    ``mutate(data)`` in place, and a
+    crash-consistent write (``resilience/atomic.py``). Returns the
+    written dict."""
+    import fcntl
+
+    from tpukernels_torch.resilience import atomic
+
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(f"{path}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        data = load(path) if load is not None else read_json_memoized(
+            path, {})
+        mutate(data)
+        atomic.dump_json(path, data)
     return data

@@ -305,16 +305,15 @@ def _knobs3d(shape, device) -> dict:
 
 
 def resolve_depth(depth=None, shape=None, device=None) -> int:
-    """Plane slots of the 3-D kernel's ring: ``depth`` if given (a
-    positive int), else the knob ``depth`` (``TPKT_STENCIL_DEPTH`` > the
-    tuning cache's entry for ``shape`` > 3), clamped to
-    :data:`RING_MAX`, the ring the kernel builds."""
+    """Plane slots of the 3-D kernel's ring: ``depth`` if given, else
+    the knob ``depth`` (``TPKT_STENCIL_DEPTH`` > the tuning cache's entry
+    for ``shape`` > 3), clamped as the reference clamps it,
+    ``max(1, int(depth))``, and then to :data:`RING_MAX`, the ring the
+    kernel builds."""
     if depth is None:
         depth = resolve(TUNABLES[1], shape=shape, dtype="float32",
                         device=device)["depth"]
-    elif isinstance(depth, bool) or int(depth) != depth or depth < 1:
-        raise ValueError(f"jacobi3d: depth={depth!r} is not a positive int")
-    return min(int(depth), RING_MAX)
+    return min(max(1, int(depth)), RING_MAX)
 
 
 def jacobi3d(x, iters: int, k: int | None = None, depth: int | None = None):

@@ -6,14 +6,20 @@ never when this module is imported. A key whose kernels are not ported
 yet raises ``KeyError`` naming its place in ROADMAP.md; it never falls
 through to anything else.
 
-``dispatch`` counts calls per key (:func:`calls`); the launch counts
-of the CUDA kernels themselves live in ``tpukernels_torch.kernels``.
+``dispatch`` is the guarded path (see its docstring); :func:`calls` reads
+its ``dispatch.calls.<key>`` counters. The launch counts of the CUDA
+kernels themselves live in ``tpukernels_torch.kernels``.
 """
 
 from __future__ import annotations
 
+import time as _time
 from typing import Callable, Dict
 
+from tpukernels_torch.obs import metrics as _metrics
+from tpukernels_torch.obs import trace as _trace
+from tpukernels_torch.resilience import faults as _faults
+from tpukernels_torch.resilience import integrity as _integrity
 from tpukernels_torch.tuning import space as _space
 
 # reference keys not ported yet -> where ROADMAP.md queues them (none:
@@ -26,8 +32,8 @@ DERIVED_KERNELS = {"scan_exclusive": "scan"}
 
 _REGISTRY: Dict[str, Callable] = {}
 _TUNABLES: Dict[str, "_space.SearchSpace"] = {}
-_CALLS: Dict[str, int] = {}
 _POPULATED = False
+_CALLS_PREFIX = "dispatch.calls."
 
 
 def _populate():
@@ -126,19 +132,41 @@ def knob_sources(name: str, shape=None, dtype=None, device=None) -> dict:
 
 
 def dispatch(name: str, *args, **statics):
-    """Run one kernel call through its wrapper: positional array
+    """Run one kernel call on the guarded path: positional array
     operands and host scalars, keyword statics (``iters``, ``k``,
-    ``depth``, ``precision``, ``dt``, ``eps``, ``steps``, ``nbins``)."""
-    fn = lookup(name)
-    out = fn(*args, **statics)
-    _CALLS[name] = _CALLS.get(name, 0) + 1
+    ``depth``, ``precision``, ``dt``, ``eps``, ``steps``, ``nbins``).
+
+    In the reference's order (``tpukernels/registry.py:111-163``): a
+    ``dispatch/<key>`` span opens (``obs/trace.py``, a no-op unless
+    ``TPKT_TRACE``); the fault point runs (``resilience/faults.py``,
+    one check unless ``TPKT_FAULT_PLAN``); the wrapper runs (the CUDA
+    kernel on a CUDA tensor); the output-integrity guard checks the
+    result (``resilience/integrity.py``: a NaN/Inf tripwire, canaries
+    on first trust and every ``TPKT_INTEGRITY_SAMPLE``-th call; it never
+    raises, and ``TPKT_INTEGRITY=0`` makes it one check); the span
+    closes; the ``dispatch.calls.<key>`` counter and the
+    ``dispatch.wall_s.<key>`` histogram (``obs/metrics.py``) record the
+    call. With the guard on, the tripwire's read of a float result makes
+    the call end when the device is done with it."""
+    t0 = _time.perf_counter()
+    with _trace.span(f"dispatch/{name}"):
+        _faults.dispatch_fault(name)
+        fn = lookup(name)
+        out = fn(*args, **statics)
+        out = _integrity.guard("registry", name, out, statics=statics)
+    _metrics.inc(_CALLS_PREFIX + name)
+    _metrics.observe(f"dispatch.wall_s.{name}", _time.perf_counter() - t0)
     return out
 
 
 def calls() -> Dict[str, int]:
-    """Calls ``dispatch`` made per key in this process."""
-    return dict(_CALLS)
+    """Calls ``dispatch`` made per key in this process: a view of the
+    ``dispatch.calls.<key>`` counters."""
+    return {k[len(_CALLS_PREFIX):]: v
+            for k, v in _metrics.counters(_CALLS_PREFIX).items()}
 
 
 def reset_calls() -> None:
-    _CALLS.clear()
+    """Zero the ``dispatch`` counters and wall-time histograms."""
+    _metrics.clear(_CALLS_PREFIX)
+    _metrics.clear("dispatch.wall_s.")

@@ -20,8 +20,8 @@ looked at again (one ``stat`` costs more than the whole lookup from the
 memo; ``chip_smoke.py`` phase 4 prints both), and re-read only when its
 (mtime, size) changed. :func:`put` drops the memo, so a process sees
 its own writes at once and another process's within ``RECHECK_S``.
-:func:`put` is atomic: flock, a fresh read under the lock, a temporary
-file, fsync, rename.
+:func:`put` is atomic (``_cachedir.locked_json_update``): flock, a
+fresh read under the lock, a temporary file, fsync, rename.
 ``TPKT_TUNING_CACHE=0`` (or ``off``/``none``) turns lookups off.
 
 Hits, misses and rejections are counted in :data:`COUNTS`.
@@ -219,10 +219,6 @@ def get(space, shape=None, dtype=None, kind=None, device=None):
 def put(space, params: dict, shape=None, dtype=None, kind=None,
         device=None, value=None, control=None) -> str:
     """Write one entry atomically; returns its key."""
-    import fcntl
-
-    from tpukernels_torch.resilience import atomic
-
     key = key_str(space.kernel, shape, dtype,
                   kind if kind is not None else device_kind(device))
     torch_v, cuda_v = _versions()
@@ -236,15 +232,12 @@ def put(space, params: dict, shape=None, dtype=None, kind=None,
         "git_head": _git("rev-parse", "HEAD"),
         "recorded": round(time.time(), 3),
     }
-    p = path()
-    os.makedirs(os.path.dirname(p), exist_ok=True)
-    with open(f"{p}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        forget()  # read afresh under the lock
-        data = dict(_cachedir.read_json_memoized(p, _FILE_MEMO))
+
+    def mutate(data):
         entries = data.get("entries")
         data["entries"] = dict(entries if isinstance(entries, dict) else {})
         data["entries"][key] = entry
-        atomic.dump_json(p, data)
+
+    _cachedir.locked_json_update(path(), mutate)
     forget()
     return key

@@ -208,6 +208,18 @@ def plan_memo(space, key, make: Callable, *args):
     return made
 
 
+def forget(kernel: str) -> int:
+    """Drop the memoised launch plans of ``kernel``, those of plans that
+    read its knobs among others' included; returns how many were
+    dropped. The integrity guard calls it when a result of ``kernel``
+    fails a check, so that the next call builds its plan afresh."""
+    drop = [k for k in _PLANS
+            if k[0] == kernel or (isinstance(k[0], tuple) and kernel in k[0])]
+    for k in drop:
+        del _PLANS[k]
+    return len(drop)
+
+
 def spaces_of(module) -> Sequence[SearchSpace]:
     """A module's exported TUNABLES as a flat sequence."""
     tun = getattr(module, "TUNABLES", None)
