@@ -73,6 +73,22 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    its forces launch alone, every (r, s, bi, bj) of a sweep, the SM
    clock under load and the issue floor it gives (``issue_floor_ms``).
 
+6. runs the repository's unchanged C drivers (``c/``) on the port: builds
+   the port's CPython shim (``csrc/tpkt_shim.c``) and the drivers into
+   ``tpukernels_torch/_build/``, runs ``test_shim_abi`` and every
+   single-device row of ``c/run_all.sh`` with ``--device=tpu --check``
+   and ``TPU_KERNELS_SHIM`` naming the shim (each must print its own
+   CHECK PASS), then each driver at its configuration of record with
+   ``--check --reps=5``, and proves from each child's journal
+   (``TPKT_TRACE``) that every call ran on the card through
+   ``registry.dispatch`` and that both first-trust canaries fell in the
+   checked call; an injected ``corrupt_output`` at site ``capi`` must fail
+   the C program's own check and ``fail_capi`` the program. It prints the
+   host<->card copy rates (pageable and pinned, 64 MiB) and one
+   ``{"c_entry": ...}`` JSON line a configuration: the driver's
+   ``time_ms`` and metric beside phase 5's wrapper ``ms``, the bytes the
+   adapter copies each way and their transfer bound.
+
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
 check raises: the script then exits non-zero and prints no result. It
@@ -83,6 +99,7 @@ it imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import json
@@ -129,6 +146,19 @@ SCAN_F32_BAND = (1e-4, 1e-2)
 GLOBAL_NBINS = 40000
 # a histogram above 256 bins, where the reference took its VPU kernel
 WIDE_NBINS = 1024
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def run_all_rows():
+    """The single-device ``run <driver> <flags>`` rows of c/run_all.sh
+    (phase 6 runs each through the port's shim)."""
+    rows = []
+    with open(os.path.join(REPO, "c", "run_all.sh")) as f:
+        for line in f:
+            m = re.match(r"run (\w+) (.*?)\s*(#.*)?$", line.rstrip("\n"))
+            if m and m.group(1) != "allreduce_bench":
+                rows.append((m.group(1), m.group(2).split()))
+    return rows
 
 
 def log(msg=""):
@@ -2317,6 +2347,368 @@ def guard_costs(guarded, times):
             f"{c['tripwire_floor_ms']:.6f} ms")
 
 
+# ---------------------------------------------------------------- phase 6
+
+# the C drivers at their configurations of record, each with --check and
+# five timed reps: (label, driver, flags, env, phase 5's wrapper row).
+# N-body takes one step (the C golden at 65 536 bodies and 10 steps is
+# 4.3e10 double-precision pairs on one core); its metric is per step.
+C_RECORD = (
+    ("vector_add 2^20", "vector_add", ["--n=1048576"], {},
+     f"saxpy n={1 << 20}"),
+    ("sgemm 1024^3", "sgemm", ["--n=1024"], {}, "sgemm[high]"),
+    ("sgemm 1024^3 depth 3", "sgemm", ["--n=1024"],
+     {"TPKT_SGEMM_DEPTH": "3"}, "sgemm[high] 1024^3 depth=3 order=ij"),
+    ("stencil 4096^2 x 1000", "stencil", ["--n=4096", "--iters=1000"], {},
+     "jacobi2d"),
+    ("stencil 384^3 x 8", "stencil", ["--z=384", "--n=384", "--iters=8"],
+     {}, "jacobi3d"),
+    ("scan_histogram 2^22", "scan_histogram", [f"--n={SCAN_N}"], {},
+     f"scan_histogram[off] n={SCAN_N}"),
+    ("scan_histogram 2^22 fuse on", "scan_histogram", [f"--n={SCAN_N}"],
+     {"TPKT_SCANHIST_FUSE": "on"}, f"scan_histogram[on] n={SCAN_N}"),
+    ("nbody 65536, 1 step", "nbody", ["--n=65536", "--iters=1"], {},
+     "nbody"),
+)
+C_REPS = 5
+_METRIC_LINE = re.compile(
+    r"kernel=(\S+) device=tpu n=(\d+) time_ms=([\d.]+) metric=(\S+) "
+    r"value=([\d.]+) unit=(\S+)")
+
+
+def c_flags(args):
+    """``{flag: int}`` of a driver's ``--name=value`` arguments."""
+    return {a[2:].split("=")[0]: int(a.split("=")[1]) for a in args
+            if "=" in a}
+
+
+def c_key(driver, args):
+    """The registry key a driver's row sends."""
+    if driver == "stencil":
+        return "stencil3d" if "z" in c_flags(args) else "stencil2d"
+    return driver
+
+
+def c_bytes(driver, args):
+    """(bytes up, bytes down) the adapter copies a call: the buffers it
+    uploads and the ones it writes back."""
+    f = c_flags(args)
+    n = f.get("n", 1 << 20)
+    if driver == "vector_add":
+        return 8 * n, 4 * n
+    if driver == "sgemm":
+        return 12 * n * n, 4 * n * n
+    if driver == "stencil":
+        cells = n * f.get("m", n) * f.get("z", 1)
+        return 4 * cells, 4 * cells
+    if driver == "scan_histogram":
+        return 4 * n, 4 * n + 4 * f.get("nbins", 256)
+    return 28 * n, 24 * n  # nbody: seven arrays up, six back
+
+
+def transfer_rates(torch):
+    """Host <-> card bytes/s of one 64 MiB copy each way, pageable (what
+    the adapters copy from and to: the driver's malloc'd buffers) and
+    pinned: host clock around a copy ending in a synchronise, best of
+    three after one warm-up."""
+    nbytes = 64 << 20
+    host = torch.ones(nbytes // 4)
+    pinned = torch.ones(nbytes // 4).pin_memory()
+    dev = torch.empty(nbytes // 4, device="cuda")
+
+    def rate(fn):
+        fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return nbytes / best
+
+    return {
+        "pageable": {"h2d": rate(lambda: dev.copy_(host)),
+                     "d2h": rate(lambda: host.copy_(dev))},
+        "pinned": {"h2d": rate(lambda: dev.copy_(pinned, non_blocking=True)),
+                   "d2h": rate(lambda: pinned.copy_(dev, non_blocking=True))},
+    }
+
+
+def journal_emit_us(state, calls=2000):
+    """Host µs of one journaled span (``TPKT_TRACE`` on), what each C
+    child pays per span in its timed calls."""
+    from tpukernels_torch.obs import trace
+
+    with knobs(TPKT_TRACE="1",
+               TPKT_HEALTH_JOURNAL=os.path.join(state, "emit.jsonl")):
+        trace.reload()
+        with trace.span("warm"):
+            pass
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            with trace.span("capi/probe", kernel="probe", device="cuda:0"):
+                pass
+        us = (time.perf_counter() - t0) / calls * 1e6
+    trace.reload()
+    return us
+
+
+def c_child(cbin, state, name, driver, args, env_extra, shim):
+    """Run one C driver through the port's shim, its journal and guard
+    state in ``state/<name>``; returns (process, its journal's events)."""
+    from tpukernels_torch.resilience import journal
+
+    d = os.path.join(state, name)
+    os.makedirs(d)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPKT_")}
+    env.update(TPU_KERNELS_SHIM=str(shim), TPKT_TRACE="1",
+               TPKT_HEALTH_JOURNAL=os.path.join(d, "journal.jsonl"),
+               TPKT_INTEGRITY_DIR=os.path.join(d, "integrity"),
+               TPKT_TUNING_CACHE_DIR=os.path.join(d, "tuning"), **env_extra)
+    cmd = [str(cbin / driver), "--device=tpu", *args]
+    p = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                       timeout=600, cwd=d)
+    with open(os.path.join(d, "out.log"), "w") as f:
+        f.write(f"$ {' '.join(cmd)}\n{p.stdout}\n--- stderr\n{p.stderr}")
+    events, _ = journal.load_events([os.path.join(d, "journal.jsonl")])
+    return p, events
+
+
+def c_path_proof(label, key, events, calls):
+    """Fail unless the journal shows ``calls`` C calls of ``key`` on the
+    card, each through ``dispatch/<key>``, and every canary span before
+    the second call ended (in the --check call); returns the C calls'
+    span walls in ms."""
+    spans = [e for e in events if e.get("kind") == "span"]
+    capi = [i for i, e in enumerate(spans) if e["name"] == f"capi/{key}"]
+    devs = {spans[i].get("device") for i in capi}
+    if len(capi) != calls or not all(str(d).startswith("cuda")
+                                     for d in devs):
+        raise AssertionError(f"{label}: {len(capi)} capi/{key} spans on "
+                             f"{devs}, expected {calls} on cuda")
+    dispatched = sum(e["name"] == f"capi/{key}/dispatch/{key}"
+                     for e in spans)
+    if dispatched != calls:
+        raise AssertionError(f"{label}: {dispatched} dispatch/{key} spans "
+                             f"under capi/{key}, expected {calls}")
+    canaries = [i for i, e in enumerate(spans)
+                if "integrity/canary/" in e["name"]]
+    if len(canaries) != 2 or max(canaries) > capi[1]:
+        raise AssertionError(f"{label}: canary spans at {canaries}, capi "
+                             f"calls at {capi}: expected the registry's and "
+                             "the capi site's first trust in the first call")
+    return [round(spans[i]["wall_s"] * 1e3, 4) for i in capi]
+
+
+def c_buffers(driver, args):
+    """The numpy buffers, C kernel name and params JSON a driver's row
+    sends to ``capi.run_from_c``, from a seeded generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    f = c_flags(args)
+    n = f.get("n", 1 << 20)
+
+    def unif(*shape):
+        return rng.uniform(-1, 1, shape).astype(np.float32)
+
+    if driver == "vector_add":
+        bufs, p = [unif(n), unif(n)], {"alpha": 2.5}
+    elif driver == "sgemm":
+        bufs, p = [unif(n, n), unif(n, n), unif(n, n)], {"alpha": 2.5,
+                                                         "beta": 0.5}
+    elif driver == "stencil":
+        shape = ((f["z"],) if "z" in f else ()) + (n, f.get("m", n))
+        bufs, p = [unif(*shape)], {"iters": f["iters"]}
+    elif driver == "scan_histogram":
+        bufs = [rng.integers(0, 256, n).astype(np.int32),
+                np.zeros(n, np.int32), np.zeros(256, np.int32)]
+        p = {"nbins": 256}
+    else:
+        bufs = [unif(n) for _ in range(7)]
+        p = {"dt": 1e-3, "eps": 1e-2, "steps": f["iters"]}
+    names = {"f": "f32", "i": "i32"}
+    p["buffers"] = [{"shape": list(b.shape), "dtype": names[b.dtype.kind]}
+                    for b in bufs]
+    return bufs, c_key(driver, args), json.dumps(p)
+
+
+def c_breakdown(torch, driver, args, env, state):
+    """Where a C call's time goes, measured in this process (a Python
+    host, no embedding) on the same shapes: ``capi.run_from_c`` with
+    tracing off and on, and its parts alone: the uploads of the
+    buffers the adapter copies to the card, the copies back into the
+    host buffers, and the capi site's host tripwire over them. Host
+    clock, each ending in a synchronise, best of 5 after one warm-up."""
+    from tpukernels_torch import capi
+    from tpukernels_torch.obs import trace
+    from tpukernels_torch.resilience import integrity
+
+    bufs, key, params = c_buffers(driver, args)
+    addrs = [b.ctypes.data for b in bufs]
+    host = [torch.from_numpy(b) for b in bufs]
+    outs = [host[i] for i in capi._OUTPUT_BUFFERS[key]]
+    ins = host[:1] if driver == "scan_histogram" else host
+    dev = [t.to("cuda") for t in host]
+
+    def best_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    with knobs(TPKT_INTEGRITY_DIR=os.path.join(state, "breakdown"),
+               TPKT_HEALTH_JOURNAL=os.path.join(state, "breakdown.jsonl"),
+               **env):
+        integrity.reset()
+        row = {"run_from_c_ms": best_ms(
+            lambda: capi.run_from_c(key, params, addrs))}
+        with knobs(TPKT_TRACE="1"):
+            trace.reload()
+            row["run_from_c_traced_ms"] = best_ms(
+                lambda: capi.run_from_c(key, params, addrs))
+        trace.reload()
+        row["upload_ms"] = best_ms(lambda: [t.to("cuda") for t in ins])
+        row["download_ms"] = best_ms(
+            lambda: [o.copy_(dev[i]) for o, i in
+                     zip(outs, capi._OUTPUT_BUFFERS[key])])
+        row["host_tripwire_ms"] = best_ms(lambda: integrity.tripwire_ok(outs))
+    integrity.reset()
+    return row
+
+
+def phase_c_entry(torch, times):
+    """Phase 6: the unchanged C drivers on the port through its shim."""
+    log("== phase 6: the C entry (c/ drivers -> port shim -> "
+        "registry.dispatch)")
+    from tpukernels_torch import _build
+
+    torch.cuda.empty_cache()
+    t_phase = t0 = time.perf_counter()
+    shim = _build.build_shim()
+    cbin = _build.build_c_drivers()
+    log(f"built {shim.name} and {len(_build.C_DRIVERS)} drivers into "
+        f"{cbin.relative_to(_build.BUILD_DIR.parent)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    libs = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
+    rates = transfer_rates(torch)
+    log("host<->card, 64 MiB, GB/s: " + ", ".join(
+        f"{kind} {way} {r[way] / 1e9:.2f}" for kind, r in rates.items()
+        for way in ("h2d", "d2h")))
+    state = tempfile.mkdtemp(prefix="tpkt_c_entry_")
+    try:
+        emit_us = journal_emit_us(state)
+        log(f"one journaled span: {emit_us:.1f} us (host)")
+        # correctness: test_shim_abi and c/run_all.sh's single-device rows
+        rows = [("test_shim_abi", "test_shim_abi", [])] + [
+            (f"run_all {i}", d, ["--check", "--reps=1", *a])
+            for i, (d, a) in enumerate(run_all_rows())]
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            done = list(pool.map(
+                lambda r: c_child(cbin, state, re.sub(r"\W+", "_", r[0]),
+                                  r[1], r[2], {}, shim), rows))
+        for (name, driver, args), (p, events) in zip(rows, done):
+            want = ("test_shim_abi: ALL PASS" if driver == "test_shim_abi"
+                    else f"kernel={driver} CHECK PASS")
+            if p.returncode != 0 or want not in p.stdout:
+                raise AssertionError(
+                    f"{driver} {' '.join(args)}: rc {p.returncode}\n"
+                    f"{p.stdout[-2000:]}\n{p.stderr[-3000:]}")
+            if driver != "test_shim_abi":
+                c_path_proof(f"{driver} {' '.join(args)}",
+                             c_key(driver, args), events, 3)
+            log(f"PASS C {' '.join([driver, *args])}: {want.split()[-1]}"
+                + ("" if driver == "test_shim_abi" else
+                   f" ({c_key(driver, args)} on the card, journal)"))
+        # the configurations of record, one child at a time
+        out = []
+        for label, driver, args, env, p5 in C_RECORD:
+            flags = ["--check", f"--reps={C_REPS}", *args]
+            p, events = c_child(cbin, state, re.sub(r"\W+", "_", label),
+                                driver, flags, env, shim)
+            m = _METRIC_LINE.search(p.stdout)
+            if (p.returncode != 0 or f"kernel={driver} CHECK PASS"
+                    not in p.stdout or not m):
+                raise AssertionError(f"C {label}: rc {p.returncode}\n"
+                                     f"{p.stdout[-2000:]}\n"
+                                     f"{p.stderr[-3000:]}")
+            walls = c_path_proof(label, c_key(driver, args), events,
+                                 2 + C_REPS)
+            up, down = c_bytes(driver, args)
+            wrapper = times[p5]["ms"]
+            row = {
+                "row": label, "cmd": [driver, "--device=tpu", *flags],
+                "env": env, "key": c_key(driver, args), "check": True,
+                "time_ms": float(m.group(3)), "metric": m.group(4),
+                "value": float(m.group(5)), "unit": m.group(6),
+                "wrapper_ms": wrapper, "wrapper_row": p5,
+                "h2d_bytes": up, "d2h_bytes": down,
+                "transfer_bound_ms": {
+                    kind: (up / r["h2d"] + down / r["d2h"]) * 1e3
+                    for kind, r in rates.items()},
+                "capi_wall_ms": {"check": walls[0], "warm_up": walls[1],
+                                 "reps": walls[2:]},
+            }
+            row["gap_ms"] = row["time_ms"] - wrapper
+            row["in_process"] = c_breakdown(torch, driver, args, env, state)
+            out.append(row)
+            log(f"PASS C {label}: CHECK PASS; time_ms {row['time_ms']:.3f} "
+                f"({row['metric']} {row['value']:.3f} {row['unit']}), "
+                f"wrapper {wrapper:.4f} ms, gap {row['gap_ms']:.3f} ms; "
+                f"transfer bound pageable "
+                f"{row['transfer_bound_ms']['pageable']:.3f} ms, pinned "
+                f"{row['transfer_bound_ms']['pinned']:.3f} ms; capi span "
+                f"ms first {walls[0]}, warm-up {walls[1]}, reps {walls[2:]}; "
+                "in this process (ms): " + ", ".join(
+                    f"{k[:-3]} {v:.3f}" for k, v in row["in_process"].items()))
+            print(json.dumps({"c_entry": row}), flush=True)
+        c_chaos(cbin, state, shim)
+        after = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
+        if after != libs:
+            raise AssertionError(f"a C child built a library: {libs} -> "
+                                 f"{after}")
+        log(f"PASS C children built nothing ({len(libs)} libraries); "
+            f"phase 6 wall {time.perf_counter() - t_phase:.1f} s")
+        return {"rows": out, "rates": rates, "journal_span_us": emit_us}
+    finally:
+        shutil.rmtree(state, ignore_errors=True)
+
+
+def c_chaos(cbin, state, shim):
+    """The guard at site capi guards the C program's own buffers: an
+    injected corruption fails the program's C check; ``fail_capi`` fails
+    the program."""
+    plan = {"corrupt_output": {"kernel": "sgemm", "site": "capi"}}
+    p, events = c_child(cbin, state, "chaos_corrupt", "sgemm",
+                        ["--check", "--reps=1", "--n=256"],
+                        {"TPKT_FAULT_PLAN": json.dumps(plan)}, shim)
+    failed = [e for e in events if e.get("kind") == "output_integrity_failed"
+              and e.get("site") == "capi" and e.get("kernel") == "sgemm"]
+    if p.returncode == 0 or "kernel=sgemm CHECK FAIL" not in p.stdout \
+            or not failed:
+        raise AssertionError(f"chaos corrupt_output at capi: rc "
+                             f"{p.returncode}, {len(failed)} failures "
+                             f"journaled\n{p.stdout[-2000:]}")
+    log(f"PASS chaos C corrupt_output at capi: the C program's check failed "
+        f"(rc {p.returncode}, {p.stdout.strip().splitlines()[0]}), tier "
+        f"{failed[0]['tier']} journaled")
+    p, events = c_child(cbin, state, "chaos_fail", "vector_add",
+                        ["--check", "--reps=1", "--n=1000"],
+                        {"TPKT_FAULT_PLAN":
+                         json.dumps({"fail_capi": "vector_add"})}, shim)
+    errors = [e for e in events if e.get("kind") == "capi_error"]
+    if p.returncode == 0 or not errors:
+        raise AssertionError(f"chaos fail_capi: rc {p.returncode}, "
+                             f"{len(errors)} capi_error events")
+    log(f"PASS chaos C fail_capi: rc {p.returncode}, capi_error journaled")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2356,6 +2748,7 @@ def run_all(torch, args):
     del of_record
     times = phase_times(torch, gen, peaks, nbody)
     guard_costs(guarded, times)
+    phase_c_entry(torch, times)
 
     # B3/B4, B5/B6 and B9/B10 share an entry: the dict keeps B4, B6 and
     # B10, and B3, B5 and B10 stand in also_replaces

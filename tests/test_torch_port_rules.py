@@ -8,6 +8,8 @@
   table, ported or pending, and every row names a Pallas kernel.
 - Pending registry keys raise KeyError.
 - The port's knobs use the ``TPKT_`` prefix, never ``TPK_``.
+- The C entry (``capi.py`` and the shim) names no module of the JAX
+  package and no JAX, and every knob it reads starts with ``TPKT_``.
 """
 
 import ast
@@ -43,7 +45,13 @@ def _port_modules():
 
 def _port_files():
     return [p for p in sorted(PORT.rglob("*"))
-            if p.suffix in (".py", ".cu", ".cuh") and "_build" not in p.parts]
+            if p.suffix in (".py", ".cu", ".cuh", ".c", ".h")
+            and "_build" not in p.parts]
+
+
+# the C entry: the module the shim imports, and the shim
+C_ENTRY = (PORT / "capi.py", PORT / "csrc" / "tpkt_shim.c",
+           PORT / "csrc" / "tpkt_shim.h")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -77,6 +85,27 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
     assert not re.search(r"\btpukernels\b(?!_torch)", src)
     assert not re.search(r"^\s*(import|from)\s+jax", src, re.M)
     assert "import jax" not in src
+
+
+@pytest.mark.parametrize("path", C_ENTRY, ids=lambda p: p.name)
+def test_c_entry_names_no_jax_and_no_reference_module(path):
+    src = path.read_text()
+    assert not re.search(r"\btpukernels\.", src), path
+    assert not re.search(r"\bjax", src, re.I), path
+    # the shim imports the port's C entry and nothing else
+    imported = re.findall(r"PyImport_ImportModule\((\w+|\"[^\"]*\")\)", src)
+    assert all(m == "CAPI_MODULE" for m in imported), imported
+    if path.suffix == ".c":
+        assert '#define CAPI_MODULE "tpukernels_torch.capi"' in src
+
+
+@pytest.mark.parametrize("path", C_ENTRY, ids=lambda p: p.name)
+def test_c_entry_knobs_use_the_port_prefix(path):
+    src = path.read_text()
+    read = re.findall(r"getenv\(\"(\w+)\"\)", src) + re.findall(
+        r"environ\.get\(\"(\w+)\"", src)
+    assert all(k.startswith("TPKT_") for k in read), read
+    assert path.suffix == ".h" or read
 
 
 def test_no_tpk_knob_prefix_in_port():

@@ -15,6 +15,14 @@ Every C entry takes device pointers and the CUDA stream as
 libraries link against the CUDA runtime only: the one CUDA driver call
 a kernel needs (``cuTensorMapEncodeTiled``, ``csrc/hopper.cuh``) is
 reached through ``cudaGetDriverEntryPoint``, not ``-lcuda``.
+
+Two builds use the host C compiler instead, for the C entry:
+:func:`build_shim` compiles the port's CPython shim
+(``csrc/tpkt_shim.c``) into ``_build/libtpkt_shim-<hash>.so``, and
+:func:`build_c_drivers` builds the repository's unchanged C drivers
+(``c/``) into ``_build/cbin/``. A driver run with ``--device=tpu`` and
+``TPU_KERNELS_SHIM`` naming the shim runs the port: in the port the
+``tpu`` label means "through the shim".
 """
 
 from __future__ import annotations
@@ -24,6 +32,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
+import tempfile
 import time
 from pathlib import Path
 
@@ -153,3 +164,122 @@ def launch_at(fn, dev: int, stream: int, *args) -> int:
         return fn(*args, stream)
     with torch.cuda.device(dev):
         return fn(*args, stream)
+
+
+# ---------------------------------------------------------------- C entry
+
+SHIM_SOURCE = CSRC / "tpkt_shim.c"
+C_DIR = _PKG.parent / "c"
+# the single-device drivers and the shim's ABI test (c/Makefile targets)
+C_DRIVERS = ("vector_add", "sgemm", "stencil", "scan_histogram", "nbody",
+             "test_shim_abi")
+SHIM_CFLAGS = ("-O2", "-Wall", "-Wextra", "-std=c11", "-shared", "-fPIC")
+
+
+def c_compiler(openmp: bool = False) -> str:
+    """Path of a host C compiler: ``gcc`` or ``cc`` on PATH, else the
+    system's ``/usr/bin`` one; with ``openmp``, the first that links an
+    ``-fopenmp`` program (the C drivers' flag; a toolchain can ship a
+    ``gcc`` without libgomp). Raises when there is none."""
+    found = [c for c in dict.fromkeys((shutil.which("gcc"), shutil.which("cc"),
+                                       "/usr/bin/gcc", "/usr/bin/cc"))
+             if c and os.access(c, os.X_OK)]
+    for cc in found:
+        if not openmp:
+            return cc
+        with tempfile.TemporaryDirectory() as d:
+            src = Path(d) / "omp.c"
+            src.write_text("int main(void) { return 0; }\n")
+            r = subprocess.run([cc, "-fopenmp", "-o", str(Path(d) / "omp"),
+                                str(src)], capture_output=True)
+        if r.returncode == 0:
+            return cc
+    raise RuntimeError(f"no C compiler{' with OpenMP' if openmp else ''} "
+                       f"found (tried {found or 'gcc, cc'}); the C entry "
+                       "needs one")
+
+
+def python_embed_flags() -> tuple:
+    """``(cflags, ldflags)`` that embed the running interpreter's
+    CPython: ``python3-config --embed`` of its version, with an rpath
+    for each library directory. Raises when no such ``python3-config``
+    is found or it belongs to another version."""
+    ver = f"{sys.version_info.major}.{sys.version_info.minor}"
+    exe = shutil.which(f"python{ver}-config") or shutil.which(
+        "python3-config")
+    if not exe:
+        raise RuntimeError(f"python{ver}-config / python3-config not found; "
+                           "the port's shim embeds CPython with it")
+
+    def ask(flag):
+        r = subprocess.run([exe, "--embed", flag], capture_output=True,
+                           text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"{exe} --embed {flag} failed: {r.stderr}")
+        return r.stdout.split()
+
+    cflags, ldflags = ask("--cflags"), ask("--ldflags")
+    if f"-lpython{ver}" not in ldflags:
+        raise RuntimeError(f"{exe} links {ldflags}, not the running "
+                           f"interpreter's libpython{ver}")
+    rpaths = [f"-Wl,-rpath,{f[2:]}" for f in ldflags if f.startswith("-L")]
+    return cflags, ldflags + rpaths
+
+
+def _site_packages() -> str:
+    """The running interpreter's site-packages, for the embedded one."""
+    paths = sysconfig.get_paths()
+    return os.pathsep.join(dict.fromkeys((paths["purelib"],
+                                          paths["platlib"])))
+
+
+def build_shim(out_dir=None) -> Path:
+    """Compile ``csrc/tpkt_shim.c`` into ``<out_dir>/libtpkt_shim-<hash>
+    .so`` (default ``_build/``) unless it is there, and return its path.
+    The repository root and the running interpreter's site-packages are
+    baked in; the hash covers the source, its header, the flags and the
+    Python version. A missing compiler or ``python3-config``, or a failed
+    build, raises."""
+    out_dir = Path(out_dir) if out_dir else BUILD_DIR
+    cc = c_compiler()
+    cflags, ldflags = python_embed_flags()
+    defines = (f'-DTPKT_DEFAULT_ROOT="{_PKG.parent}"',
+               f'-DTPKT_SITE_PACKAGES="{_site_packages()}"')
+    flags = [*SHIM_CFLAGS, *cflags, *ldflags, *defines]
+    h = hashlib.sha256(" ".join([sys.version, *flags]).encode())
+    for src in (SHIM_SOURCE, SHIM_SOURCE.with_suffix(".h")):
+        h.update(src.read_bytes())
+    out = out_dir / f"libtpkt_shim-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    r = subprocess.run([cc, *SHIM_CFLAGS, "-o", str(tmp), str(SHIM_SOURCE),
+                        *cflags, *ldflags, *defines],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"building {SHIM_SOURCE.name} failed "
+                           f"(rc {r.returncode}):\n{r.stdout}{r.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def build_c_drivers(bin_dir=None) -> Path:
+    """Build the unchanged C drivers of ``C_DRIVERS`` from ``c/`` into
+    ``bin_dir`` (default ``_build/cbin/``, never ``c/bin/``) with
+    ``c/Makefile`` (a command-line ``BIN`` and ``CC`` override its own:
+    ``CC`` is a compiler with OpenMP), and return the directory. ``make`` rebuilds only what is out of date; a missing
+    tool or a failed build raises."""
+    bin_dir = Path(bin_dir or BUILD_DIR / "cbin").resolve()
+    make = shutil.which("make")
+    if not make:
+        raise RuntimeError("make not found on PATH; the C drivers are "
+                           "built with c/Makefile")
+    r = subprocess.run([make, "-C", str(C_DIR), f"-j{len(C_DRIVERS)}",
+                        f"CC={c_compiler(openmp=True)}", f"BIN={bin_dir}",
+                        *(str(bin_dir / d) for d in C_DRIVERS)],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"building the C drivers failed (rc "
+                           f"{r.returncode}):\n{r.stdout}{r.stderr}")
+    return bin_dir

@@ -1,0 +1,285 @@
+"""The C entry of the port: the module the port's shim imports.
+
+The port's counterpart of ``tpukernels/capi.py``. The shim
+(``csrc/tpkt_shim.c``, built by ``_build.build_shim``) hands over the C
+driver's raw host pointers and a JSON description of their shapes,
+dtypes and scalar parameters. Each adapter wraps the pointers as numpy
+views (zero copy) and those as tensors (``torch.from_numpy``), uploads
+them to the device, runs the kernel through ``registry.dispatch`` (the
+guarded path), and copies the result back into the driver's buffers
+before it returns. The C timing loop around ``tpu_run`` therefore
+measures H2D + compute + D2H, as the reference's does.
+
+``run_from_c`` checks the buffer specs against the pointers and the
+kernel name, then runs, in order: the ``fail_capi``/``wedge_capi`` fault
+point, the adapter inside a ``capi/<kernel>`` span that carries the
+device it ran on (an error in either is counted in
+``capi.errors.<kernel>``, journaled as ``capi_error`` and raised again,
+so the shim returns 1), the wall clock, the output-integrity guard at
+site ``capi`` over the buffers the adapter wrote (its canary on the
+adapter's device; a leaf the guard corrupted is copied into the
+driver's buffer, so the C checker sees it), then ``capi.calls.<kernel>``
+and the ``capi.wall_s.<kernel>`` histogram.
+
+Knobs:
+
+- ``TPKT_CAPI_DEVICE``: unset means the card, and ``run_from_c`` raises
+  when there is none; ``cpu`` runs the plain PyTorch versions on the CPU
+  (the C host's counterpart of the tests' ``device="cpu"``). Nothing
+  falls back from the card to the CPU.
+- ``TPKT_MESH``: 1 (the default) is the only value this module runs;
+  above 1 raises. The reference's mesh branches, and its ``allreduce``
+  adapter, wait for the distributed slice (ROADMAP.md Queue A item 3).
+- ``TPKT_PROFILE=<dir>``: each call runs under ``torch.profiler``, and
+  its Chrome trace is written into ``<dir>`` as
+  ``capi_<pid>_<seq>_<kernel>.json`` when the call returns.
+
+:func:`shutdown_from_c`, which the shim calls when its C host exits,
+writes the metrics snapshot to the journal.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
+import itertools
+import json
+import math
+import os
+import time
+
+import numpy as np
+import torch
+
+from tpukernels_torch import registry
+from tpukernels_torch.obs import metrics as obs_metrics
+from tpukernels_torch.obs import trace
+from tpukernels_torch.resilience import faults, integrity, journal
+from tpukernels_torch.utils import pick_device
+
+# exactly the dtypes the C drivers send in their buffer specs
+_DTYPES = {
+    "f32": np.float32,
+    "i32": np.int32,
+}
+
+# C kernel names the reference serves and this module does not yet
+_WAITING = {
+    "allreduce": "the distributed slice (ROADMAP.md Queue A item 3)",
+}
+
+_DEVICES: dict = {}  # TPKT_CAPI_DEVICE's raw value -> the device it names
+_PROFILE_SEQ = itertools.count()  # profiled calls of this process
+
+
+def _device() -> torch.device:
+    """The device the adapters run on: the card, unless
+    ``TPKT_CAPI_DEVICE`` names another (``cpu``). Resolved through
+    ``pick_device``, which raises when the card is asked for and there
+    is none; a CUDA device carries its index, so spans name it."""
+    raw = os.environ.get("TPKT_CAPI_DEVICE")
+    dev = _DEVICES.get(raw)
+    if dev is None:
+        dev = pick_device(raw or None)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        _DEVICES[raw] = dev
+    return dev
+
+
+def _single_device():
+    """Raise unless ``TPKT_MESH`` asks for one device."""
+    n = int(os.environ.get("TPKT_MESH", "1"))
+    if n < 1:
+        raise ValueError(f"TPKT_MESH={n}: must be >= 1")
+    if n > 1:
+        raise NotImplementedError(
+            f"TPKT_MESH={n}: the C entry's mesh branches wait for the "
+            "distributed slice (ROADMAP.md Queue A item 3)")
+
+
+@contextlib.contextmanager
+def _profiled(kernel: str):
+    """One ``torch.profiler`` session around one call when
+    ``TPKT_PROFILE`` names a directory: its Chrome trace is written
+    there when the call returns. A session never outlives its call: a C
+    host's exit destroys the main thread's thread-local state (glibc runs
+    those destructors before any exit handler), where the profiler keeps
+    its own, so a session stopped at exit would crash the host."""
+    directory = os.environ.get("TPKT_PROFILE")
+    if not directory:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(directory, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        directory, f"capi_{os.getpid()}_{next(_PROFILE_SEQ)}_{kernel}.json"))
+
+
+def shutdown_from_c() -> int:
+    """Called by the shim when its C host exits (and by an explicit
+    ``tpu_shutdown``): write the metrics snapshot to the journal, since a
+    C host never finalises the interpreter."""
+    obs_metrics.emit_snapshot(site="capi.shutdown")
+    return 0
+
+
+def _wrap(addr: int, spec: dict) -> torch.Tensor:
+    """The driver's buffer at ``addr`` as a tensor over its memory (a
+    numpy view, then ``torch.from_numpy``: no copy)."""
+    dtype_name = spec.get("dtype")
+    if dtype_name not in _DTYPES:
+        raise ValueError(
+            f"unsupported buffer dtype {dtype_name!r}; the C ABI "
+            f"carries {sorted(_DTYPES)}"
+        )
+    dt = np.dtype(_DTYPES[dtype_name])
+    shape = tuple(int(d) for d in spec["shape"])
+    nbytes = dt.itemsize * math.prod(shape)
+    raw = (ctypes.c_char * nbytes).from_address(addr)
+    return torch.from_numpy(np.frombuffer(raw, dtype=dt).reshape(shape))
+
+
+def _adapt_vector_add(p, arrs, dev):
+    x, y = arrs
+    out = registry.dispatch("vector_add",
+                            float(np.float32(p.get("alpha", 1.0))),
+                            x.to(dev), y.to(dev))
+    y.copy_(out.view(y.shape))
+
+
+def _adapt_sgemm(p, arrs, dev):
+    a, b, c = arrs
+    out = registry.dispatch("sgemm", float(np.float32(p.get("alpha", 1.0))),
+                            a.to(dev), b.to(dev),
+                            float(np.float32(p.get("beta", 0.0))), c.to(dev))
+    c.copy_(out)
+
+
+def _adapt_stencil(name, p, arrs, dev):
+    _single_device()
+    (x,) = arrs
+    x.copy_(registry.dispatch(name, x.to(dev), iters=int(p["iters"])))
+
+
+def _scan(xd, exclusive):
+    return registry.dispatch("scan_exclusive" if exclusive else "scan", xd)
+
+
+def _adapt_scan(p, arrs, dev):
+    _single_device()
+    x, out = arrs
+    out.copy_(_scan(x.to(dev), bool(p.get("exclusive"))).view(out.shape))
+
+
+def _adapt_histogram(p, arrs, dev):
+    _single_device()
+    x, counts = arrs
+    counts.copy_(registry.dispatch("histogram", x.to(dev),
+                                   nbins=int(p["nbins"])))
+
+
+def _adapt_scan_histogram(p, arrs, dev):
+    """One upload of x feeds both halves. The inclusive pass dispatches
+    the registry's combined key, so ``TPKT_SCANHIST_FUSE`` applies on
+    the C path too; the exclusive one takes the two keys."""
+    _single_device()
+    x, scan_out, counts = arrs
+    xd = x.to(dev)
+    nbins = int(p["nbins"])
+    if p.get("exclusive"):
+        s = _scan(xd, True)
+        h = registry.dispatch("histogram", xd, nbins=nbins)
+    else:
+        s, h = registry.dispatch("scan_histogram", xd, nbins=nbins)
+    scan_out.copy_(s.view(scan_out.shape))
+    counts.copy_(h)
+
+
+def _adapt_nbody(p, arrs, dev):
+    _single_device()
+    out = registry.dispatch(
+        "nbody", *(a.to(dev) for a in arrs),
+        dt=float(p.get("dt", 1e-3)),
+        eps=float(p.get("eps", 1e-2)),
+        steps=int(p.get("steps", 1)),
+    )
+    for host, res in zip(arrs, out):
+        host.copy_(res)
+
+
+# buffer indices each adapter writes: the guard checks these only, since
+# a C caller may pass non-finite input data that a correct kernel must
+# not be failed for
+_OUTPUT_BUFFERS = {
+    "vector_add": (1,),          # y (in/out)
+    "sgemm": (2,),               # c (in/out)
+    "stencil2d": (0,),           # x (in/out)
+    "stencil3d": (0,),
+    "scan": (1,),                # out
+    "histogram": (1,),           # counts
+    "scan_histogram": (1, 2),    # scan_out, counts
+    "nbody": (0, 1, 2, 3, 4, 5),  # px..vz (m is input-only)
+}
+
+_ADAPTERS = {
+    "vector_add": _adapt_vector_add,
+    "sgemm": _adapt_sgemm,
+    "stencil2d": functools.partial(_adapt_stencil, "stencil2d"),
+    "stencil3d": functools.partial(_adapt_stencil, "stencil3d"),
+    "scan": _adapt_scan,
+    "histogram": _adapt_histogram,
+    "scan_histogram": _adapt_scan_histogram,
+    "nbody": _adapt_nbody,
+}
+
+
+def run_from_c(kernel: str, params_json: str, addrs) -> int:
+    """Run C kernel ``kernel`` on the driver's buffers at ``addrs``,
+    described by ``params_json``; returns 0 or raises (see the module's
+    docstring)."""
+    p = json.loads(params_json)
+    specs = p.get("buffers", [])
+    if len(specs) != len(addrs):
+        raise ValueError(
+            f"{kernel}: {len(addrs)} pointers but {len(specs)} buffer specs"
+        )
+    arrs = [_wrap(int(a), s) for a, s in zip(addrs, specs)]
+    fn = _ADAPTERS.get(kernel)
+    if fn is None:
+        if kernel in _WAITING:
+            raise KeyError(f"no C adapter for kernel {kernel!r} yet: it "
+                           f"waits for {_WAITING[kernel]}")
+        raise KeyError(
+            f"no C adapter for kernel {kernel!r}; known: {sorted(_ADAPTERS)}"
+        )
+    with _profiled(kernel):
+        t0 = time.perf_counter()
+        try:
+            faults.capi_fault(kernel)  # one is-None check without a plan
+            dev = _device()
+            with trace.span(f"capi/{kernel}", kernel=kernel,
+                            device=str(dev)):
+                fn(p, arrs, dev)
+        except Exception as e:  # noqa: BLE001 — journaled, then re-raised
+            obs_metrics.inc(f"capi.errors.{kernel}")
+            journal.emit("capi_error", kernel=kernel, error=repr(e))
+            raise
+        # H2D + compute + D2H, clocked before the guard, so a canary
+        # never lands in the latency histogram
+        wall_s = time.perf_counter() - t0
+        outs = [arrs[i] for i in _OUTPUT_BUFFERS[kernel]]
+        checked = integrity.guard("capi", kernel, outs, device=dev)
+        for mine, seen in zip(outs, checked):
+            if seen is not mine:  # a fault plan corrupted it: C sees it
+                mine.copy_(seen)
+    obs_metrics.inc(f"capi.calls.{kernel}")
+    obs_metrics.observe(f"capi.wall_s.{kernel}", wall_s)
+    return 0

@@ -1,10 +1,12 @@
 """Process-local metrics: counters, gauges and histograms.
 
 The port's own copy of the recording half of
-``tpukernels/obs/metrics.py``. A record is a dict update under one
-module lock, with no I/O, so callers record on every call:
-``registry.dispatch`` counts ``dispatch.calls.<key>`` and observes
-``dispatch.wall_s.<key>``; the integrity guard counts
+``tpukernels/obs/metrics.py``, and of its :func:`emit_snapshot`. A record
+is a dict update under one module lock, with no I/O, so callers record
+on every call: ``registry.dispatch`` counts ``dispatch.calls.<key>`` and
+observes ``dispatch.wall_s.<key>``; the C entry (``capi.run_from_c``)
+counts ``capi.calls.<k>`` and ``capi.errors.<k>`` and observes
+``capi.wall_s.<k>``; the integrity guard counts
 ``integrity.checks``, ``integrity.deep_checks``,
 ``integrity.tier<N>.<key>``, ``integrity.failures``,
 ``integrity.quarantines``, ``integrity.rejections`` and
@@ -16,13 +18,17 @@ scheme for every histogram, so two runs observing the same values
 produce the same buckets); :func:`snapshot` derives p50/p95/p99 from the
 buckets, clamped to the exact max. State is per process and
 thread-safe; :func:`reset` and :func:`clear` exist for tests and for
-callers that read a window.
+callers that read a window. :func:`emit_snapshot` writes the whole state
+to the journal once; the C entry calls it at shutdown, since a C host
+never finalises its interpreter.
 """
 
 from __future__ import annotations
 
 import math
 import threading
+
+from tpukernels_torch.resilience import journal
 
 _LOCK = threading.Lock()
 _COUNTERS: dict = {}
@@ -133,6 +139,17 @@ def snapshot() -> dict:
             "gauges": dict(_GAUGES),
             "histograms": {k: _hist_row(v) for k, v in _HISTS.items()},
         }
+
+
+def emit_snapshot(site: str | None = None):
+    """Emit one ``metrics`` journal event holding the full snapshot; a
+    no-op when nothing was recorded or journaling is off, so a process
+    that records nothing never creates a journal file."""
+    if not (_COUNTERS or _GAUGES or _HISTS):
+        return
+    if journal.path() is None:
+        return
+    journal.emit("metrics", site=site, **snapshot())
 
 
 def clear(prefix: str) -> None:

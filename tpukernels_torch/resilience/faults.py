@@ -28,7 +28,10 @@ narrows a key to processes whose environment holds those values:
   finite delta to the first element (only the canary tiers can catch
   it), ``nan`` writes a NaN into the first float leaf (tier 1's prey;
   on an int-only result it degrades to ``corrupt``). ``site`` omitted
-  matches any guarded path (``registry`` or ``manual``).
+  matches any guarded path (``registry``, ``capi`` or ``manual``).
+- ``"fail_capi": "sgemm"`` / ``"wedge_capi": "sgemm"`` — the C entry's
+  ``capi.run_from_c`` for that kernel raises, or hangs as
+  ``wedge_dispatch`` does, before its adapter runs.
 - ``"torn_write": {"path_substr": "integrity", "on_call": 1}`` — the
   ``on_call``-th matching ``resilience/atomic.py`` write leaves half
   its bytes in the temporary file and aborts before the rename
@@ -204,6 +207,21 @@ def apply_torn_write(spec: dict, path: str, tmp: str, data: bytes):
     if spec.get("mode") == "kill":
         os.kill(os.getpid(), signal.SIGKILL)
     raise OSError(f"injected fault: torn_write on {path}")
+
+
+def capi_fault(kernel: str):
+    """Injection point of ``capi.run_from_c``: ``fail_capi`` raises,
+    ``wedge_capi`` hangs."""
+    if _PLAN is None:
+        return
+    if _PLAN.get("fail_capi") == kernel:
+        journal.emit("fault_injected", site="capi", kernel=kernel,
+                     fault="fail_capi")
+        raise RuntimeError(f"injected fault: fail_capi {kernel}")
+    if _PLAN.get("wedge_capi") == kernel:
+        journal.emit("fault_injected", site="capi", kernel=kernel,
+                     fault="wedge_capi")
+        _wedge(f"wedge_capi {kernel}")
 
 
 def output_fault(site: str, kernel):

@@ -26,10 +26,11 @@ knob):
 
 Tiers 2 and 3 run a canary: ``registry.lookup(key)`` (not ``dispatch``:
 no recursion, no call counted) on :func:`build_args`'s operands, on the
-device of the guarded result, through the same ``output_fault`` point as
-the guarded result. The oracle runs on the CPU from the same numpy
-operands, once per process, so the card's result is never judged by the
-card. A canary runs on the first guarded call of a key a process makes
+device of the guarded result (or the one the caller names: the C entry
+guards host buffers, and its canary runs on the card), through the same
+``output_fault`` point as the guarded result. The oracle runs on the CPU
+from the same numpy operands, once per process, so the card's result is
+never judged by the card. A canary runs on the first guarded call of a key a process makes
 (first trust), every ``TPKT_INTEGRITY_SAMPLE``-th call after (default
 64; 0 keeps only the first), and on every call of a suspect or
 quarantined key.
@@ -733,9 +734,14 @@ def _fail(site, kernel, tier, detail, statics=None):
                      config=config, failures=failures)
 
 
-def guard(site: str, kernel, outputs, statics=None):
+def guard(site: str, kernel, outputs, statics=None, device=None):
     """Check one result and return it, unchanged unless a fault plan
-    corrupts it; never raises (see the module's docstring)."""
+    corrupts it; never raises (see the module's docstring). A canary
+    runs on ``device``, by default the device of the first tensor of
+    ``outputs``: the C entry guards host buffers and names the card its
+    adapter ran on. A corrupted leaf is a new tensor (the caller's
+    stays as it was), so a caller that must see the corruption in its
+    own buffer copies each returned leaf that is not its own back."""
     if not enabled():
         return outputs
     obs_metrics.inc("integrity.checks")
@@ -758,8 +764,8 @@ def guard(site: str, kernel, outputs, statics=None):
             if ((site, kernel) not in _DEEP_DONE or quarantined
                     or (every > 0 and n % every == 0)):
                 with trace.span(f"integrity/canary/{kernel}", site=site):
-                    tier, failure = _deep_check(site, kernel,
-                                                _device_of(outputs))
+                    tier, failure = _deep_check(
+                        site, kernel, device or _device_of(outputs))
                 _DEEP_DONE.add((site, kernel))
     except Exception as e:  # noqa: BLE001 — the guard must not crash
         _check_error(kernel, site, repr(e))
