@@ -89,6 +89,26 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    ``time_ms`` and metric beside phase 5's wrapper ``ms``, the bytes the
    adapter copies each way and their transfer bound.
 
+7. runs the serving daemon (``python -m tpukernels_torch.serve``) on the
+   card with no knob but its state paths and ``TPKT_TRACE=1``, and drives
+   it with the port's own client: the nine keys at their avatars
+   (``aot.BENCH_CONFIGS``), each from a seeded generator, on the inline
+   and the shm lane, bit for bit against ``registry.dispatch`` of the
+   same operands in this process and against the oracle; one request
+   under its avatar for SAXPY, scan and SGEMM (padded up, cut back); a
+   seeded Poisson burst of 200 SAXPY / scan / SGEMM requests from two
+   client threads, with per kernel the client's p50/p99, batch sizes,
+   queue waits, rejections (none), the journal's spans beside phase 5's
+   wrapper ms and the operand and result bytes against phase 6's copy
+   rates; the daemon's launch counts (every kernel of its default path
+   must launch); the first request of each bucket against the warm
+   ones; a second daemon whose first scan dispatch wedges (requeued once,
+   classified at site ``serve``, answered right); ``vector_add --check``
+   through the port's shim with ``TPKT_SERVE_SOCKET`` (served by the
+   daemon, under its pid); SIGTERM (rc 0, socket and pidfile gone,
+   ``serve_stop``); and that neither daemon built a library. It prints
+   one ``{"serve": ...}`` JSON line.
+
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
 check raises: the script then exits non-zero and prints no result. It
@@ -109,6 +129,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # published dense peaks (NVIDIA data sheets): bytes/s of device memory,
@@ -2709,6 +2730,580 @@ def c_chaos(cbin, state, shim):
     log(f"PASS chaos C fail_capi: rc {p.returncode}, capi_error journaled")
 
 
+# ---------------------------------------------------------------- phase 7
+
+# what the daemon launches at its avatars (aot.BENCH_CONFIGS) with no
+# knob set: B7, B1 and its prep launch, B4, B6, B12, B8, B9
+SERVE_PATH = ("saxpy", "sgemm_prep", "sgemm_split3", "jacobi2d", "jacobi3d",
+              "nbody_forces", "scan", "histogram")
+# the burst: about 200 requests at SERVE_RATE a second, Poisson, from
+# two client threads, over three kernels at their avatars
+SERVE_BURST = ("vector_add", "scan", "sgemm")
+SERVE_BURST_N, SERVE_RATE = 200, 40.0
+# phase 5's wrapper row of each burst kernel's configuration
+SERVE_P5 = {"vector_add": f"saxpy n={1 << 20}", "scan": f"scan n={SCAN_N}",
+            "sgemm": "sgemm[high]"}
+# one request under its avatar: operand shapes (padded up, cut back)
+SERVE_BELOW = {"vector_add": ((), (1_000_000,), (1_000_000,)),
+               "scan": ((4_000_000,),),
+               "sgemm": ((), (1000, 1000), (1000, 1000), (), (1000, 1000))}
+
+
+def serve_operands(rng, key, shapes, statics):
+    """Seeded numpy operands of ``key`` at ``shapes``: host scalars as
+    0-d float32, floats uniform in [-1, 1) (N-body masses in [0.5,
+    1.5)), int32 values in [0, nbins) (256 for the scans)."""
+    import numpy as np
+
+    out = []
+    for i, shape in enumerate(shapes):
+        if shape == ():
+            out.append(np.float32(rng.uniform(0.5, 2.0)))
+        elif key in ("scan", "scan_exclusive", "histogram",
+                     "scan_histogram"):
+            out.append(rng.integers(0, statics.get("nbins", 256), shape,
+                                    dtype=np.int32))
+        elif key == "nbody" and i == 6:
+            out.append(rng.random(shape, dtype=np.float32) + 0.5)
+        else:
+            out.append(rng.random(shape, dtype=np.float32) * 2 - 1)
+    return out
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def host_tensor(torch, a):
+    """A numpy result as a CPU tensor; a read-only one (a view of a
+    response's bytes) is copied first."""
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def serve_in_process(torch, key, args, statics):
+    """``registry.dispatch`` of numpy operands on the card, in this
+    process (as the daemon uploads them); numpy results, and the port
+    tensors for the oracle."""
+    from tpukernels_torch import interop, registry
+
+    targs = interop.to_port(key, args)
+    out = as_tuple(interop.from_port(registry.dispatch(key, *targs,
+                                                       **statics)))
+    return out, targs
+
+
+def serve_oracle_check(torch, label, key, targs, got, statics):
+    """The daemon's result against the port's oracle at
+    ``integrity.tolerance`` (N-body: its chunked plain version at the C
+    checker's bar, as in phase 4)."""
+    from tpukernels_torch.kernels import nbody as NB
+    from tpukernels_torch.resilience import integrity
+
+    kind, rtol, atol = integrity.tolerance(key)
+    fn = integrity.oracle(key)
+    if key == "nbody":
+        kind, (rtol, atol), fn = "band", NBODY_BAND, NB.nbody_plain
+    want = as_tuple(fn(*targs, **statics))
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = host_tensor(torch, g).to(w.device)
+        part = f" [{i}]" if len(want) > 1 else ""
+        if kind == "band":
+            check(f"{label}{part} vs oracle", g, w, rtol, atol)
+        else:
+            check_exact(f"{label}{part} vs oracle", g, w)
+
+
+def serve_same(torch, label, got, want):
+    """Fail unless the daemon's result is bit for bit the in-process one."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} outputs, expected "
+                             f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        part = f" [{i}]" if len(want) > 1 else ""
+        check_exact(f"{label}{part}", host_tensor(torch, g),
+                    host_tensor(torch, w))
+
+
+class ServeDaemon:
+    """One ``python -m tpukernels_torch.serve`` child on the card, its
+    socket, pidfile, journal, integrity state and tuning cache in
+    ``root/name``."""
+
+    def __init__(self, root, name, **env_extra):
+        self.dir = os.path.join(root, name)
+        os.makedirs(self.dir)
+        self.sock = os.path.join(self.dir, "s.sock")
+        self.journal = os.path.join(self.dir, "journal.jsonl")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("TPKT_")}
+        env.update(PYTHONPATH=REPO, TPKT_SERVE_DIR=self.dir,
+                   TPKT_HEALTH_JOURNAL=self.journal,
+                   TPKT_INTEGRITY_DIR=os.path.join(self.dir, "integrity"),
+                   TPKT_TUNING_CACHE_DIR=os.path.join(root, "tuning"),
+                   TPKT_TRACE="1", **env_extra)
+        self.out = open(os.path.join(self.dir, "stdout.txt"), "w")
+        self.err = open(os.path.join(self.dir, "stderr.txt"), "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "tpukernels_torch.serve", "--socket",
+             self.sock], cwd=REPO, env=env, stdout=self.out, stderr=self.err)
+        self.ready_s = None
+
+    def wait_ready(self, timeout=180):
+        from tpukernels_torch.serve import client as serve_client
+
+        deadline = time.monotonic() + timeout
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"serve daemon exited rc "
+                                     f"{self.proc.returncode}: "
+                                     f"{self.stderr()[-3000:]}")
+            try:
+                with serve_client.ServeClient(self.sock, timeout_s=30) as c:
+                    pong = c.ping()
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.1)
+        if self.ready_s is None:
+            self.ready_s = time.perf_counter() - self.t0
+        return pong
+
+    def stderr(self):
+        if not self.err.closed:
+            self.err.flush()
+        with open(os.path.join(self.dir, "stderr.txt")) as f:
+            return f.read()
+
+    def events(self, kind=None):
+        from tpukernels_torch.resilience import journal
+
+        recs, _ = journal.load_events([self.journal])
+        return [e for e in recs if kind is None or e.get("kind") == kind]
+
+    def stats(self):
+        from tpukernels_torch.serve import client as serve_client
+
+        with serve_client.ServeClient(self.sock, timeout_s=60) as c:
+            return c.stats()
+
+    def stop(self):
+        """SIGTERM; fail unless the daemon exits 0 with its socket and
+        pidfile gone, ``serve_stop`` journaled and nothing on stdout."""
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(30)
+            raise AssertionError(f"serve daemon {self.dir}: no exit 60 s "
+                                 "after SIGTERM")
+        self.out.close()
+        self.err.close()
+        with open(os.path.join(self.dir, "stdout.txt")) as f:
+            out = f.read()
+        left = [p for p in ("s.sock", "serve.pid")
+                if os.path.exists(os.path.join(self.dir, p))]
+        stops = self.events("serve_stop")
+        if rc != 0 or left or len(stops) != 1 or out:
+            raise AssertionError(
+                f"serve daemon {os.path.basename(self.dir)}: rc {rc}, left "
+                f"{left}, {len(stops)} serve_stop, stdout {out[:200]!r}")
+        return stops[0]
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        for f in (self.out, self.err):
+            if not f.closed:
+                f.close()
+
+
+def shm_lane_ms(np, up, down, reps=5):
+    """Host ms, best of ``reps``, of the client's two shm-lane steps in
+    this process: staging ``up`` bytes into a new ``/dev/shm`` segment
+    (create, allocate, write, close, unlink), and mapping a segment of
+    ``down`` bytes and copying it out, as ``ServeClient`` does."""
+    from tpukernels_torch.serve import protocol
+
+    src = np.ones(up, np.uint8)
+    seg = protocol.ShmSegment(down)
+    seg.write(np.ones(down, np.uint8))
+    best = {"stage_up": float("inf"), "copy_out": float("inf")}
+    try:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            _d, _w, segs, _n = protocol.stage_shm_payloads([src], 1)
+            for s in segs:
+                s.close()
+                s.unlink()
+            t1 = time.perf_counter()
+            mm = protocol.open_shm(seg.name, down)
+            np.array(np.frombuffer(mm, np.uint8))
+            mm.close()
+            t2 = time.perf_counter()
+            best["stage_up"] = min(best["stage_up"], (t1 - t0) * 1e3)
+            best["copy_out"] = min(best["copy_out"], (t2 - t1) * 1e3)
+    finally:
+        seg.close()
+        seg.unlink()
+    return best
+
+
+def pct(vals, q):
+    import numpy as np
+
+    return float(np.percentile(vals, q)) if len(vals) else None
+
+
+def serve_burst(torch, sock, operands, wants, seed):
+    """The seeded Poisson burst from two client threads (shm lane);
+    every response is checked bit for bit. Returns per request
+    (index, kernel, request id, client wall s, rejected)."""
+    import numpy as np
+
+    from tpukernels_torch.serve import client as serve_client
+
+    rng = np.random.default_rng(seed)
+    at = np.cumsum(rng.exponential(1 / SERVE_RATE, SERVE_BURST_N))
+    kinds = rng.choice(SERVE_BURST, SERVE_BURST_N)
+    results, errors = [], []
+    t0 = time.perf_counter() + 0.05
+
+    def worker(part):
+        with serve_client.ServeClient(sock, timeout_s=120) as c:
+            for i in range(part, SERVE_BURST_N, 2):
+                key = str(kinds[i])
+                delay = t0 + at[i] - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                rid = f"burst-{seed}-{i}"
+                c.next_request_id = rid
+                s0 = time.perf_counter()
+                try:
+                    got = as_tuple(c.dispatch(key, *operands[key]))
+                except serve_client.ServeRejected:
+                    results.append((i, key, rid, None, True))
+                    continue
+                wall = time.perf_counter() - s0
+                if not all(np.array_equal(g, w) and g.dtype == w.dtype
+                           for g, w in zip(got, wants[key])):
+                    errors.append(f"{rid} ({key}): differs from the "
+                                  "in-process dispatch")
+                results.append((i, key, rid, wall, False))
+
+    threads = [threading.Thread(target=worker, args=(p,)) for p in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(t.is_alive() for t in threads) or errors:
+        raise AssertionError(f"serve burst: {errors[:5]} "
+                             f"({len(errors)} errors)")
+    return sorted(results), time.perf_counter() - t0
+
+
+def phase_serve(torch, times, rates, args):
+    """Phase 7: the serving daemon on the card."""
+    log("== phase 7: the serving daemon (python -m tpukernels_torch.serve)")
+    from tpukernels_torch import _build
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="tpkt_serve_")
+    shim, cbin = _build.build_shim(), _build.build_c_drivers()  # phase 6's
+    libs = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
+    plan = json.dumps({"wedge_dispatch": {"kernel": "scan", "times": 1}})
+    main_d = ServeDaemon(root, "main")
+    chaos_d = ServeDaemon(root, "chaos", TPKT_FAULT_PLAN=plan,
+                          TPKT_SERVE_REQUEST_TIMEOUT_S="2")
+    try:
+        with knobs(TPKT_TUNING_CACHE_DIR=os.path.join(root, "tuning"),
+                   TPKT_SERVE_SHM=None, TPKT_SERVE_SHM_MIN_BYTES=None):
+            out = serve_drive(torch, times, rates, args, main_d, chaos_d,
+                              (shim, cbin))
+        # 8. clean stop
+        for d in (main_d, chaos_d):
+            stop = d.stop()
+            log(f"PASS serve clean stop {os.path.basename(d.dir)}: rc 0, "
+                f"socket and pidfile gone, serve_stop (served "
+                f"{stop['served']}, requeued {stop['requeued']}, uptime "
+                f"{stop['uptime_s']} s), stdout empty")
+        # 5. the daemons built nothing
+        after = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
+        if after != libs or any("nvcc" in d.stderr()
+                                for d in (main_d, chaos_d)):
+            raise AssertionError(f"a serve daemon built a library: {libs} "
+                                 f"-> {after}")
+        log(f"PASS serve daemons built nothing ({len(libs)} libraries)")
+        out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+        log(f"phase 7 wall {out['phase_s']:.1f} s")
+        print(json.dumps({"serve": out}), flush=True)
+        return out
+    finally:
+        main_d.kill()
+        chaos_d.kill()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def serve_first_vs_warm(main_d, burst):
+    """Step 5 of phase 7: the ``dispatch/<key>`` span of the daemon's
+    first request of each burst kernel's avatar bucket (the inline one
+    of step 2: it loads the kernel's library and makes its plan)
+    against the burst's warm p50 of the same span."""
+    spans = {(e.get("request_id"), e["name"]): e["wall_s"] * 1e3
+             for e in main_d.events("span")}
+    warm = {}
+    for key in SERVE_BURST:
+        first = spans[(f"avatar-{key}-inline",
+                       f"serve/{key}/dispatch/{key}")]
+        rest = burst[key]["span_ms_p50"][f"serve/{key}/dispatch/{key}"]
+        warm[key] = {"first_dispatch_ms": first, "warm_dispatch_ms_p50": rest}
+        if not first > rest:
+            raise AssertionError(f"serve {key}: first dispatch {first:.3f} "
+                                 f"ms, not slower than the warm p50 "
+                                 f"{rest:.3f} ms")
+        log(f"PASS serve warm {key}: first dispatch {first:.3f} ms (its "
+            f"library loaded, its plan made), warm p50 {rest:.3f} ms")
+    return warm
+
+
+def serve_drive(torch, times, rates, args, main_d, chaos_d, c_built):
+    """Steps 1-7 of phase 7 (item 7 of the module docstring)."""
+    import numpy as np
+
+    from tpukernels_torch import aot
+    from tpukernels_torch.resilience import integrity
+    from tpukernels_torch.serve import client as serve_client
+
+    # 1. start: both daemons were started together; wait for their pings
+    pong = main_d.wait_ready()
+    chaos_d.wait_ready()
+    if not pong["device"].startswith("cuda") or "shm" not in pong["lanes"]:
+        raise AssertionError(f"serve daemon: {pong}")
+    log(f"PASS serve start: pid {pong['pid']} on {pong['device']} "
+        f"({pong['device_kind']}, torch {pong['torch']}), lanes "
+        f"{pong['lanes']}, ping after {main_d.ready_s:.2f} s; chaos daemon "
+        f"after {chaos_d.ready_s:.2f} s")
+    before = main_d.stats()["launches"]
+    if any(before.values()):
+        raise AssertionError(f"a fresh daemon counts launches: {before}")
+
+    # 2. every key at its avatar, inline then shm, bitwise against the
+    # in-process dispatch and against the oracle
+    rng = np.random.default_rng(args.seed)
+    avatar, wants, operands = {}, {}, {}
+    for key, spec in aot.BENCH_CONFIGS.items():
+        statics = dict(spec["statics"])
+        ops = serve_operands(rng, key, [s for _k, s in spec["args"]],
+                             statics)
+        want, targs = serve_in_process(torch, key, ops, statics)
+        row = {}
+        for lane, shm in (("inline", "0"), ("shm", None)):
+            with knobs(TPKT_SERVE_SHM=shm), \
+                    serve_client.ServeClient(main_d.sock,
+                                             timeout_s=300) as c:
+                c.next_request_id = f"avatar-{key}-{lane}"
+                s0 = time.perf_counter()
+                got = as_tuple(c.dispatch(key, *ops, **statics))
+                row[f"{lane}_ms"] = (time.perf_counter() - s0) * 1e3
+                big = sum(np.asarray(a).nbytes >= 1 << 16 for a in ops)
+                if c.staged_payloads != (big if lane == "shm" else 0):
+                    raise AssertionError(f"serve {key} {lane}: "
+                                         f"{c.staged_payloads} operands "
+                                         "through /dev/shm")
+            serve_same(torch, f"serve {key} avatar {lane} vs in-process "
+                       "dispatch", got, want)
+            if lane == "inline":
+                serve_oracle_check(torch, f"serve {key} avatar", key, targs,
+                                   got, statics)
+        row["up_bytes"] = int(sum(np.asarray(a).nbytes for a in ops))
+        row["down_bytes"] = int(sum(w.nbytes for w in want))
+        avatar[key] = row
+        log(f"serve {key} avatar: client wall inline {row['inline_ms']:.3f} "
+            f"ms (the daemon's first request of the bucket), shm "
+            f"{row['shm_ms']:.3f} ms; {row['up_bytes'] / 2**20:.2f} MiB up, "
+            f"{row['down_bytes'] / 2**20:.2f} MiB down")
+        if key in SERVE_BURST:
+            operands[key], wants[key] = ops, want
+        del targs
+    torch.cuda.empty_cache()
+
+    # 3. below the avatar: padded up, cut back, against the unpadded
+    # in-process dispatch at the oracle's tolerance
+    below = {}
+    for key, shapes in SERVE_BELOW.items():
+        ops = serve_operands(rng, key, shapes, {})
+        want, _ = serve_in_process(torch, key, ops, {})
+        with serve_client.ServeClient(main_d.sock, timeout_s=300) as c:
+            c.next_request_id = f"below-{key}"
+            got = as_tuple(c.dispatch(key, *ops))
+        kind, rtol, atol = integrity.tolerance(key)
+        label = (f"serve {key} at "
+                 f"{'x'.join(map(str, max(shapes, key=len)))} padded to its "
+                 "avatar, vs in-process dispatch")
+        for g, w in zip(got, want):
+            g, w = host_tensor(torch, g), host_tensor(torch, w)
+            if kind == "band":
+                check(label, g, w, rtol, atol)
+            else:
+                check_exact(label, g, w)
+        (ev,) = [e for e in main_d.events("serve_request")
+                 if e.get("request_id") == f"below-{key}"]
+        if not ev["bucketed"] or not ev["pad_frac"] > 0:
+            raise AssertionError(f"serve {key} below its avatar: {ev}")
+        below[key] = {"shapes": [list(s) for s in shapes],
+                      "pad_frac": ev["pad_frac"],
+                      "wall_ms": ev["wall_s"] * 1e3}
+
+    # 4. the burst
+    results, burst_s = serve_burst(torch, main_d.sock, operands, wants,
+                                   args.seed)
+    stats = main_d.stats()
+    launches = {k: v - before.get(k, 0) for k, v in stats["launches"].items()
+                if v != before.get(k, 0)}
+    log("serve daemon kernels: " + json.dumps(launches))
+    idle = [k for k in SERVE_PATH if launches.get(k, 0) <= 0]
+    if idle:
+        raise AssertionError(f"kernels the daemon never launched: {idle}")
+    log(f"PASS serve path: every kernel of the daemon's default path "
+        f"launched ({', '.join(SERVE_PATH)})")
+    rejected = [r for r in results if r[4]]
+    reqs = {e.get("request_id"): e for e in main_d.events("serve_request")}
+    spans = {}
+    for e in main_d.events("span"):
+        rid = e.get("request_id")
+        if rid and rid.startswith("burst-"):
+            spans.setdefault(rid, {})[e["name"]] = e["wall_s"]
+    hists = stats["metrics"]["histograms"]
+    burst = {}
+    for key in SERVE_BURST:
+        mine = [r for r in results if r[1] == key and not r[4]]
+        walls = [r[3] * 1e3 for r in mine]
+        evs = [reqs[r[2]] for r in mine]
+        sp = [spans.get(r[2], {}) for r in mine]
+
+        def span_ms(name):
+            return [s[name] * 1e3 for s in sp if name in s]
+
+        up, down = avatar[key]["up_bytes"], avatar[key]["down_bytes"]
+        row = {
+            "n": len(mine), "rejected": sum(r[1] == key for r in rejected),
+            "wall_ms_p50": pct(walls, 50), "wall_ms_p99": pct(walls, 99),
+            "daemon_wall_ms_p50": pct([e["wall_s"] * 1e3 for e in evs], 50),
+            "batch_size_mean": float(np.mean([e["batch_size"] for e in evs])),
+            "batch_size_max": int(max(e["batch_size"] for e in evs)),
+            "queue_wait_ms_p50": pct([e["queue_wait_s"] * 1e3 for e in evs],
+                                     50),
+            "queue_wait_ms_p99": pct([e["queue_wait_s"] * 1e3 for e in evs],
+                                     99),
+            "span_ms_p50": {
+                name: pct(span_ms(name), 50) for name in (
+                    "serve/wait/queue", "serve/pad", f"serve/{key}",
+                    f"serve/{key}/dispatch/{key}")},
+            "wrapper_ms": times[SERVE_P5[key]]["ms"],
+            "up_bytes": up, "down_bytes": down,
+            "copy_bound_ms": {kind: (up / r["h2d"] + down / r["d2h"]) * 1e3
+                              for kind, r in rates.items()},
+        }
+        sv, dp = (row["span_ms_p50"][f"serve/{key}"],
+                  row["span_ms_p50"][f"serve/{key}/dispatch/{key}"])
+        row["copies_ms_p50"] = sv - dp if sv is not None and dp is not None \
+            else None
+        row["client_over_daemon_ms_p50"] = (row["wall_ms_p50"]
+                                            - row["daemon_wall_ms_p50"])
+        row["shm_lane_ms"] = shm_lane_ms(np, up, down)
+        burst[key] = row
+        log(f"serve burst {key}: {row['n']} requests, client wall p50 "
+            f"{row['wall_ms_p50']:.3f} / p99 {row['wall_ms_p99']:.3f} ms; "
+            f"batch size mean {row['batch_size_mean']:.2f} (max "
+            f"{row['batch_size_max']}); queue wait p50 "
+            f"{row['queue_wait_ms_p50']:.3f} / p99 "
+            f"{row['queue_wait_ms_p99']:.3f} ms; rejected {row['rejected']}; "
+            "span p50 ms " + ", ".join(
+                f"{k} {v:.3f}" for k, v in row["span_ms_p50"].items()
+                if v is not None)
+            + f"; serve - dispatch {row['copies_ms_p50']:.3f} ms; client wall "
+            f"- daemon wall p50 {row['client_over_daemon_ms_p50']:.3f} ms "
+            f"(this process alone: stage {up / 2**20:.1f} MiB into /dev/shm "
+            f"{row['shm_lane_ms']['stage_up']:.3f} ms, map and copy out "
+            f"{down / 2**20:.1f} MiB {row['shm_lane_ms']['copy_out']:.3f} ms)"
+            f"; wrapper "
+            f"(phase 5) {row['wrapper_ms']:.4f} ms; {up / 2**20:.1f} MiB up, "
+            f"{down / 2**20:.1f} MiB down: copy bound pageable "
+            f"{row['copy_bound_ms']['pageable']:.3f} ms, pinned "
+            f"{row['copy_bound_ms']['pinned']:.3f} ms")
+    if rejected:
+        raise AssertionError(f"serve burst: {len(rejected)} rejections at "
+                             "the default queue")
+    done = len(results)
+    log(f"PASS serve burst: {done} requests in {burst_s:.2f} s "
+        f"({done / burst_s:.1f}/s offered {SERVE_RATE}/s), 0 errors, 0 "
+        f"rejections; daemon serve.batch_size "
+        f"{ {k: hists['serve.batch_size'][k] for k in ('p50', 'max')} }, "
+        f"serve.queue_wait_s p50/p99 "
+        f"{hists['serve.queue_wait_s']['p50']:.6f}/"
+        f"{hists['serve.queue_wait_s']['p99']:.6f}")
+
+    warm = serve_first_vs_warm(main_d, burst)
+
+    # 6. one chaos drive: the first scan dispatch wedges
+    x = operands["scan"]
+    s0 = time.perf_counter()
+    with serve_client.ServeClient(chaos_d.sock, timeout_s=120) as c:
+        got = as_tuple(c.dispatch("scan", *x))
+    chaos_s = time.perf_counter() - s0
+    serve_same(torch, "serve chaos scan (wedged once) vs in-process "
+               "dispatch", got, wants["scan"])
+    requeued = chaos_d.events("serve_request_requeued")
+    verdicts = [e for e in chaos_d.events("wedge_classification")
+                if e.get("site") == "serve"]
+    if len(requeued) != 1 or not verdicts:
+        raise AssertionError(f"serve chaos: {len(requeued)} requeues, "
+                             f"{len(verdicts)} classifications at serve")
+    log(f"PASS serve chaos wedge_dispatch: answered in {chaos_s:.2f} s, one "
+        f"serve_request_requeued, wedge_classification "
+        f"{[v['verdict'] for v in verdicts]} at site serve")
+
+    # 7. a C driver through the daemon
+    shim, cbin = c_built
+    n_before = len(main_d.events("serve_request"))
+    p, cev = c_child(cbin, main_d.dir, "c_child", "vector_add",
+                     ["--check", "--reps=1", f"--n={1 << 20}"],
+                     {"TPKT_SERVE_SOCKET": main_d.sock}, shim)
+    served = main_d.events("serve_request")[n_before:]
+    capi = [e for e in cev if e.get("kind") == "span"
+            and e.get("name") == "capi/vector_add"]
+    local = [e for e in cev if e.get("kind") == "span"
+             and "dispatch/" in e.get("name", "")]
+    if (p.returncode != 0 or "kernel=vector_add CHECK PASS" not in p.stdout
+            or len(served) != len(capi) or not capi or local
+            or any(e["pid"] != main_d.proc.pid or e["kernel"] != "vector_add"
+                   for e in served)):
+        raise AssertionError(f"serve C driver: rc {p.returncode}, "
+                             f"{len(served)} served, {len(capi)} capi spans, "
+                             f"{len(local)} in-process dispatches\n"
+                             f"{p.stdout[-2000:]}\n{p.stderr[-2000:]}")
+    m = _METRIC_LINE.search(p.stdout)
+    log(f"PASS serve C vector_add --check through the daemon: CHECK PASS, "
+        f"{len(served)} serve_request under the daemon's pid "
+        f"{main_d.proc.pid}, none in process; time_ms "
+        f"{m.group(3) if m else '?'}")
+    return {
+        "device": pong["device"], "device_kind": pong["device_kind"],
+        "ready_s": round(main_d.ready_s, 3), "launches": launches,
+        "avatar": avatar, "below": below, "burst": burst,
+        "burst_s": burst_s, "warm": warm, "chaos_s": chaos_s,
+        "c_time_ms": float(m.group(3)) if m else None,
+        "daemon_hists": {k: {q: hists[k][q] for q in ("count", "p50", "p99",
+                                                      "max")}
+                         for k in ("serve.batch_size", "serve.queue_wait_s")},
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2732,6 +3327,8 @@ def main(argv=None):
     try:
         return run_all(torch, args)
     finally:
+        # the metrics exit flush must not write into the removed directory
+        os.environ.pop("TPKT_HEALTH_JOURNAL", None)
         shutil.rmtree(state, ignore_errors=True)
 
 
@@ -2748,7 +3345,8 @@ def run_all(torch, args):
     del of_record
     times = phase_times(torch, gen, peaks, nbody)
     guard_costs(guarded, times)
-    phase_c_entry(torch, times)
+    c_entry = phase_c_entry(torch, times)
+    serve = phase_serve(torch, times, c_entry["rates"], args)
 
     # B3/B4, B5/B6 and B9/B10 share an entry: the dict keeps B4, B6 and
     # B10, and B3, B5 and B10 stand in also_replaces
@@ -2763,6 +3361,7 @@ def run_all(torch, args):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return {"name": name, "route": "cuda", "source": row.port_source,
                 "replaces": row.where, "launches": launches[name],
+                "serve_launches": serve["launches"].get(name, 0),
                 "max_abs_err": err, **{k: t[k] for k in keys}, **extra}
 
     t = times[f"saxpy n={1 << 20}"]
@@ -2856,6 +3455,7 @@ def run_all(torch, args):
         "source": HELPER_KERNELS["sgemm_prep"].source,
         "replaces": HELPER_KERNELS["sgemm_prep"].replaces,
         "launches": launches["sgemm_prep"],
+        "serve_launches": serve["launches"].get("sgemm_prep", 0),
         "max_abs_err": errs["sgemm_prep"], "shape": t["shape"],
         "precision": "high", "library_ms": None,
         **{key: t[key] for key in prep_keys},

@@ -51,7 +51,8 @@ def rig(monkeypatch, tmp_path):
     for var in ("TPKT_FAULT_PLAN", "TPK_FAULT_PLAN", "TPKT_INTEGRITY",
                 "TPKT_INTEGRITY_SAMPLE", "TPKT_MESH", "TPK_MESH",
                 "TPKT_PROFILE", "TPU_KERNELS_PROFILE", "TPKT_TRACE",
-                "TPKT_SGEMM_PRECISION", "TPK_SERVE_SOCKET"):
+                "TPKT_SGEMM_PRECISION", "TPK_SERVE_SOCKET",
+                "TPKT_SERVE_SOCKET"):
         monkeypatch.delenv(var, raising=False)
     _reload()
     metrics.reset()

@@ -35,6 +35,7 @@ import subprocess
 import sys
 import sysconfig
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -52,6 +53,10 @@ NVCC_FLAGS = (
 
 _LIBS: dict = {}  # name -> loaded ctypes.CDLL, once per process
 _FUNCS: dict = {}  # C symbol -> its ctypes function, argtypes set
+# held while a library is built and loaded, or a function looked up:
+# two threads (the serving daemon's workers) must not both run nvcc for
+# one library (they would share its temporary file) or load it twice
+_LOAD_LOCK = threading.RLock()
 
 
 def nvcc() -> str:
@@ -114,8 +119,11 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        build((name,))
-        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build((name,))
+                lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
 
 
@@ -125,10 +133,13 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     process."""
     fn = _FUNCS.get(symbol)
     if fn is None:
-        fn = getattr(library(name), symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _FUNCS[symbol] = fn
+        with _LOAD_LOCK:
+            fn = _FUNCS.get(symbol)
+            if fn is None:
+                fn = getattr(library(name), symbol)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                _FUNCS[symbol] = fn
     return fn
 
 

@@ -1,8 +1,8 @@
 """Where the port keeps its state, and how it reads and writes it.
 
 The port's own copy of ``tuning_cache_path``, ``read_json_memoized``,
-``locked_json_update`` and the integrity guard's paths in
-``tpukernels/_cachedir.py``. The state lives in the repository's
+``locked_json_update``, the integrity guard's paths and the serving
+daemon's paths in ``tpukernels/_cachedir.py``. The state lives in the repository's
 ``.tpkt_cache/`` (gitignored) unless an env var redirects it; the env is
 read on every call, so a test's redirect takes effect at once.
 """
@@ -43,6 +43,28 @@ def integrity_manifest_path(env: dict | None = None) -> str:
 
 def integrity_quarantine_path(env: dict | None = None) -> str:
     return os.path.join(integrity_dir(env), "integrity_quarantine.json")
+
+
+def serve_dir(env: dict | None = None) -> str:
+    """Runtime directory of the serving daemon (``serve/server.py``): its
+    Unix-domain socket and its flocked pidfile. ``$TPKT_SERVE_DIR``, else
+    ``<repo>/.tpkt_cache``; tests redirect it, so a test daemon never
+    collides with an operator's."""
+    return _state_dir("TPKT_SERVE_DIR", env)
+
+
+def serve_socket_path(env: dict | None = None) -> str:
+    """The daemon's socket: ``$TPKT_SERVE_SOCKET`` when set (also the C
+    entry's routing switch, ``capi.py``), else ``serve.sock`` under
+    :func:`serve_dir`."""
+    target = os.environ if env is None else env
+    return target.get("TPKT_SERVE_SOCKET") or os.path.join(
+        serve_dir(env), "serve.sock")
+
+
+def serve_pidfile_path(env: dict | None = None) -> str:
+    """The daemon's pidfile, held under ``flock`` while it runs."""
+    return os.path.join(serve_dir(env), "serve.pid")
 
 
 _TORN_NOTED: set = set()

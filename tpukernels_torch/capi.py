@@ -27,6 +27,16 @@ Knobs:
   when there is none; ``cpu`` runs the plain PyTorch versions on the CPU
   (the C host's counterpart of the tests' ``device="cpu"``). Nothing
   falls back from the card to the CPU.
+- ``TPKT_SERVE_SOCKET``: when set, the adapters are clients of the
+  serving daemon on that socket (``serve/``; one ``ServeClient`` a
+  thread): the driver's buffers go to the daemon as numpy views (the shm
+  lane for large ones, when the daemon offers it), the daemon runs
+  ``registry.dispatch`` on its card, and the results come back into the
+  buffers. A rejection is retried on the daemon's hint up to 10 times; a
+  dispatch error the daemon reports is raised. When the daemon is
+  unusable (transport trouble, or still rejecting), one stderr note is
+  printed and the call takes the in-process path, which runs the same
+  kernel on the same card.
 - ``TPKT_MESH``: 1 (the default) is the only value this module runs;
   above 1 raises. The reference's mesh branches, and its ``allreduce``
   adapter, wait for the distributed slice (ROADMAP.md Queue A item 3).
@@ -47,7 +57,10 @@ import itertools
 import json
 import math
 import os
+import sys
+import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -71,6 +84,8 @@ _WAITING = {
 
 _DEVICES: dict = {}  # TPKT_CAPI_DEVICE's raw value -> the device it names
 _PROFILE_SEQ = itertools.count()  # profiled calls of this process
+_SERVE_TLS = threading.local()  # .client: this thread's ServeClient
+_SERVE_WARNED: list = []  # [True] once the unusable-daemon note printed
 
 
 def _device() -> torch.device:
@@ -147,66 +162,118 @@ def _wrap(addr: int, spec: dict) -> torch.Tensor:
     return torch.from_numpy(np.frombuffer(raw, dtype=dt).reshape(shape))
 
 
+def _serve(sock: str, kernel: str, args, statics):
+    """``kernel`` on the serving daemon at ``sock``: the host tensors
+    go as numpy views, the scalars as float32. Returns the result as
+    tensors over the response's bytes (read only by the adapters'
+    copies into the driver's buffers), or None when the call must take
+    the in-process path (see the module's docstring)."""
+    from tpukernels_torch.serve import client as serve_client
+    from tpukernels_torch.serve import protocol as serve_protocol
+
+    np_args = tuple(a.numpy() if isinstance(a, torch.Tensor)
+                    else np.float32(a) for a in args)
+    try:
+        cli = getattr(_SERVE_TLS, "client", None)
+        if cli is None or cli.socket_path != sock:
+            cli = _SERVE_TLS.client = serve_client.ServeClient(sock)
+        out = serve_client.dispatch_with_backpressure(cli, kernel, np_args,
+                                                      statics)
+    except serve_client.ServeRejected:
+        print(f"# capi: serve daemon at {sock} rejected {kernel} 10x - "
+              "falling back in-process", file=sys.stderr)
+        return None
+    except serve_client.ServeError:
+        raise  # the daemon ran it and it failed: that is the answer
+    except (OSError, serve_protocol.ProtocolError) as e:
+        _SERVE_TLS.client = None
+        if not _SERVE_WARNED:
+            _SERVE_WARNED.append(True)
+            print(f"# capi: serve daemon at {sock} unusable ({e!r}) - "
+                  "falling back in-process", file=sys.stderr)
+        return None
+    # the response's arrays are read-only views of its bytes
+    warnings.filterwarnings("ignore",
+                            message="The given NumPy array is not writable",
+                            category=UserWarning)
+    if isinstance(out, tuple):
+        return tuple(torch.from_numpy(o) for o in out)
+    return torch.from_numpy(out)
+
+
+def _dispatch(dev, kernel: str, *args, **statics):
+    """``registry.dispatch`` of ``kernel`` on ``dev`` (host tensors are
+    uploaded; one already on ``dev`` is used as it is), or on the
+    serving daemon when ``TPKT_SERVE_SOCKET`` names one."""
+    sock = os.environ.get("TPKT_SERVE_SOCKET")
+    if sock:
+        out = _serve(sock, kernel, args, statics)
+        if out is not None:
+            return out
+    return registry.dispatch(
+        kernel, *(a.to(dev) if isinstance(a, torch.Tensor) else a
+                  for a in args), **statics)
+
+
 def _adapt_vector_add(p, arrs, dev):
     x, y = arrs
-    out = registry.dispatch("vector_add",
-                            float(np.float32(p.get("alpha", 1.0))),
-                            x.to(dev), y.to(dev))
+    out = _dispatch(dev, "vector_add", float(np.float32(p.get("alpha", 1.0))),
+                    x, y)
     y.copy_(out.view(y.shape))
 
 
 def _adapt_sgemm(p, arrs, dev):
     a, b, c = arrs
-    out = registry.dispatch("sgemm", float(np.float32(p.get("alpha", 1.0))),
-                            a.to(dev), b.to(dev),
-                            float(np.float32(p.get("beta", 0.0))), c.to(dev))
+    out = _dispatch(dev, "sgemm", float(np.float32(p.get("alpha", 1.0))),
+                    a, b, float(np.float32(p.get("beta", 0.0))), c)
     c.copy_(out)
 
 
 def _adapt_stencil(name, p, arrs, dev):
     _single_device()
     (x,) = arrs
-    x.copy_(registry.dispatch(name, x.to(dev), iters=int(p["iters"])))
+    x.copy_(_dispatch(dev, name, x, iters=int(p["iters"])))
 
 
-def _scan(xd, exclusive):
-    return registry.dispatch("scan_exclusive" if exclusive else "scan", xd)
+def _scan(dev, x, exclusive):
+    return _dispatch(dev, "scan_exclusive" if exclusive else "scan", x)
 
 
 def _adapt_scan(p, arrs, dev):
     _single_device()
     x, out = arrs
-    out.copy_(_scan(x.to(dev), bool(p.get("exclusive"))).view(out.shape))
+    out.copy_(_scan(dev, x, bool(p.get("exclusive"))).view(out.shape))
 
 
 def _adapt_histogram(p, arrs, dev):
     _single_device()
     x, counts = arrs
-    counts.copy_(registry.dispatch("histogram", x.to(dev),
-                                   nbins=int(p["nbins"])))
+    counts.copy_(_dispatch(dev, "histogram", x, nbins=int(p["nbins"])))
 
 
 def _adapt_scan_histogram(p, arrs, dev):
-    """One upload of x feeds both halves. The inclusive pass dispatches
-    the registry's combined key, so ``TPKT_SCANHIST_FUSE`` applies on
-    the C path too; the exclusive one takes the two keys."""
+    """One upload of x feeds both halves in process (the daemon takes
+    the host buffer itself). The inclusive pass dispatches the
+    registry's combined key, so ``TPKT_SCANHIST_FUSE`` applies on the C
+    path too; the exclusive one takes the two keys."""
     _single_device()
     x, scan_out, counts = arrs
-    xd = x.to(dev)
+    if not os.environ.get("TPKT_SERVE_SOCKET"):
+        x = x.to(dev)
     nbins = int(p["nbins"])
     if p.get("exclusive"):
-        s = _scan(xd, True)
-        h = registry.dispatch("histogram", xd, nbins=nbins)
+        s = _scan(dev, x, True)
+        h = _dispatch(dev, "histogram", x, nbins=nbins)
     else:
-        s, h = registry.dispatch("scan_histogram", xd, nbins=nbins)
+        s, h = _dispatch(dev, "scan_histogram", x, nbins=nbins)
     scan_out.copy_(s.view(scan_out.shape))
     counts.copy_(h)
 
 
 def _adapt_nbody(p, arrs, dev):
     _single_device()
-    out = registry.dispatch(
-        "nbody", *(a.to(dev) for a in arrs),
+    out = _dispatch(
+        dev, "nbody", *arrs,
         dt=float(p.get("dt", 1e-3)),
         eps=float(p.get("eps", 1e-2)),
         steps=int(p.get("steps", 1)),

@@ -8,7 +8,9 @@ A row is ``ported`` (naming the CUDA entry and its source under
 fails on a Pallas kernel without a row, or a row without a kernel.
 
 ``LAUNCHES`` counts, per CUDA kernel, the launches its wrapper made in
-this process: each wrapper adds one where it launches and nowhere else.
+this process: each wrapper adds one (:func:`count_launch`, under a lock:
+the serving daemon's workers launch from two threads) where it launches
+and nowhere else.
 ``HELPER_KERNELS`` are the hand-written kernels that replace no TPU
 kernel (work the reference leaves to XLA): they have a counter and a
 source, but no row in ``TPU_KERNELS``.
@@ -18,6 +20,7 @@ reads them after, to show the path went through the kernels.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -110,6 +113,16 @@ LAUNCHES = {
 }
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of ``name`` to ``LAUNCHES``."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0

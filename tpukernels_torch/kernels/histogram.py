@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from tpukernels_torch import _build
-from tpukernels_torch.kernels import LAUNCHES
+from tpukernels_torch.kernels import count_launch
 from tpukernels_torch.kernels.scan import (check_length, drop_scratch,
                                            scratch)
 from tpukernels_torch.tuning import (SearchSpace, Tunable, plan_memo,
@@ -121,7 +121,7 @@ def _histogram_cuda(x, nbins, per_sm):
     rc = _build.launch_at(fn, *where, x.data_ptr(), out.data_ptr(),
                           None if buf is None else buf.data_ptr(), n, nbins,
                           per_sm)
-    LAUNCHES["histogram"] += 1
+    count_launch("histogram")
     if rc != 0:
         drop_scratch(key)
     _build.check(rc, "tpkt_histogram")

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from tpukernels_torch import _build
-from tpukernels_torch.kernels import LAUNCHES
+from tpukernels_torch.kernels import count_launch
 from tpukernels_torch.tuning import SearchSpace, Tunable, resolve
 
 TUNABLES = SearchSpace(
@@ -166,7 +166,7 @@ def _forces_cuda(px, py, pz, m, eps2, plan):
                        m.data_ptr(), ax.data_ptr(), ay.data_ptr(),
                        az.data_ptr(), n, eps2, plan.bi, plan.r, plan.s,
                        plan.tile, plan.per)
-    LAUNCHES["nbody_forces"] += 1
+    count_launch("nbody_forces")
     _build.check(rc, "tpkt_nbody_forces")
     return ax, ay, az
 

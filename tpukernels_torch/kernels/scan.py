@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from tpukernels_torch import _build
-from tpukernels_torch.kernels import LAUNCHES
+from tpukernels_torch.kernels import count_launch
 from tpukernels_torch.tuning import (SearchSpace, Tunable, plan_memo,
                                      resolve)
 from tpukernels_torch.utils import cdiv
@@ -169,7 +169,7 @@ def _scan_cuda(x, tile):
     rc = _build.launch_at(fn, *where, x.data_ptr(), out.data_ptr(),
                           state.data_ptr(), n, tile // TILES[0],
                           int(x.dtype == torch.float32))
-    LAUNCHES["scan"] += 1
+    count_launch("scan")
     if rc != 0:
         drop_scratch(key)
     _build.check(rc, "tpkt_scan")

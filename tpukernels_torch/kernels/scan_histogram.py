@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from tpukernels_torch import _build
-from tpukernels_torch.kernels import LAUNCHES
+from tpukernels_torch.kernels import count_launch
 from tpukernels_torch.kernels import histogram as _hist
 from tpukernels_torch.kernels import scan as _scan
 from tpukernels_torch.tuning import (SearchSpace, Tunable, plan_memo,
@@ -99,7 +99,7 @@ def _fused_cuda(x, nbins, tile):
     rc = _build.launch_at(fn, *where, x.data_ptr(), out.data_ptr(),
                           hist.data_ptr(), state.data_ptr(), n, nbins,
                           tile // _scan.TILES[0])
-    LAUNCHES["scan_histogram"] += 1
+    count_launch("scan_histogram")
     if rc != 0:
         _scan.drop_scratch(key)
     _build.check(rc, "tpkt_scan_histogram")

@@ -62,7 +62,7 @@ import os
 import torch
 
 from tpukernels_torch import _build
-from tpukernels_torch.kernels import LAUNCHES
+from tpukernels_torch.kernels import count_launch
 from tpukernels_torch.tuning import (SMEM_BUDGET_BYTES, SearchSpace, Tunable,
                                      plan_memo, resolve)
 from tpukernels_torch.utils import cdiv
@@ -368,7 +368,7 @@ def _prepare(a, b, precision):
         rc = _build.launch(fn, a, _MODE[precision][0], a.data_ptr(),
                            a.stride(0), a.stride(1), b.data_ptr(),
                            b.stride(0), b.stride(1), *ptrs, m, k, n, kp, kp)
-        LAUNCHES["sgemm_prep"] += 1
+        count_launch("sgemm_prep")
         _build.check(rc, f"tpkt_sgemm_prep[{precision}]")
     return buf, ptrs, kp
 
@@ -407,7 +407,7 @@ def _launch(alpha, ptrs, kp, beta, c, out, precision, p):
     rc = _build.launch(fn, out, mode, *ptrs, c.data_ptr(), out.data_ptr(), m,
                        n, kp, kp, kp, alpha, beta, p["bm"], p["bn"],
                        p["bk"], *ring, int(p["order"] == "ji"))
-    LAUNCHES[f"{lib}_{suffix}"] += 1
+    count_launch(f"{lib}_{suffix}")
     _build.check(rc, f"{entry}[{precision}]")
     return out
 

@@ -38,7 +38,7 @@ from typing import NamedTuple
 import torch
 
 from tpukernels_torch import _build
-from tpukernels_torch.kernels import LAUNCHES
+from tpukernels_torch.kernels import count_launch
 from tpukernels_torch.tuning import SearchSpace, Tunable, plan_memo, resolve
 
 HALO_MAX = 8  # most sweeps one 2-D launch fuses (the kernel's halo)
@@ -181,7 +181,7 @@ def _passes_cuda(name, argtypes, x, iters, k, extra=()):
         dst = bufs[i % 2]
         rc = _build.launch(fn, x, src.data_ptr(), dst.data_ptr(), *x.shape,
                            sweeps, *extra)
-        LAUNCHES[name] += 1
+        count_launch(name)
         _build.check(rc, entry)
         src = dst
     return src

@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from tpukernels_torch import _build
-from tpukernels_torch.kernels import LAUNCHES
+from tpukernels_torch.kernels import count_launch
 from tpukernels_torch.tuning import (SearchSpace, Tunable, plan_memo,
                                      resolve)
 from tpukernels_torch.utils import cdiv
@@ -104,7 +104,7 @@ def _saxpy_cuda(alpha, x, y, dev):
     fn = _build.function("saxpy", "tpkt_saxpy", _ARGTYPES)
     rc = _build.launch(fn, x, x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
                        alpha, blocks, threads)
-    LAUNCHES["saxpy"] += 1
+    count_launch("saxpy")
     _build.check(rc, "tpkt_saxpy")
     return out
 

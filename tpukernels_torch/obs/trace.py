@@ -1,11 +1,17 @@
 """Nested span tracing into the port's journal.
 
-The port's own copy of ``tpukernels/obs/trace.py`` without the serving
-path's request context. ``with span("dispatch/sgemm"):`` times one phase
-and, on exit, emits one ``span`` journal event (``resilience/journal.py``)
-with its slash-joined path, wall seconds, depth, ``ok`` and any keyword
-fields. ``registry.dispatch`` opens ``dispatch/<key>`` and the integrity
-guard ``integrity/canary/<key>`` inside it.
+The port's own copy of ``tpukernels/obs/trace.py``. ``with
+span("dispatch/sgemm"):`` times one phase and, on exit, emits one
+``span`` journal event (``resilience/journal.py``) with its slash-joined
+path, wall seconds, depth, ``ok`` and any keyword fields.
+``registry.dispatch`` opens ``dispatch/<key>`` and the integrity guard
+``integrity/canary/<key>`` inside it.
+
+``with request_ctx(rid):`` binds a request id to the calling thread:
+every span the thread emits inside it carries ``request_id``, so the
+serving daemon's worker tags its wait, pad and dispatch spans, and the
+nested ones that know nothing of requests, with the client's id. The
+binding is always on; only span emission waits on ``TPKT_TRACE``.
 
 ``TPKT_TRACE`` is read once, at import (a process that sets it later
 calls :func:`reload`): unset or ``0``/``off``/``none`` makes
@@ -30,7 +36,7 @@ def _read_enabled() -> bool:
 
 
 _ENABLED = _read_enabled()
-_TLS = threading.local()  # .stack: the open span names of this thread
+_TLS = threading.local()  # .stack: open span names; .request: its id
 
 
 def _stack() -> list:
@@ -58,6 +64,37 @@ def current_path() -> str | None:
     return "/".join(s) if s else None
 
 
+def current_request() -> str | None:
+    """The calling thread's request id, or None."""
+    return getattr(_TLS, "request", None)
+
+
+class _RequestCtx:
+    """Binds a request id to the calling thread, and restores the one
+    bound before on exit."""
+
+    __slots__ = ("rid", "prev")
+
+    def __init__(self, rid):
+        self.rid = rid
+
+    def __enter__(self):
+        self.prev = getattr(_TLS, "request", None)
+        _TLS.request = self.rid
+        return self
+
+    def __exit__(self, *exc):
+        _TLS.request = self.prev
+        return False
+
+
+def request_ctx(request_id):
+    """Context manager binding ``request_id`` to the calling thread: the
+    spans emitted inside it carry it. None is a valid binding (a client
+    that sends no id): the spans then carry none."""
+    return _RequestCtx(request_id)
+
+
 class _NoopSpan:
     """The shared do-nothing span of the disabled path."""
 
@@ -75,12 +112,16 @@ _NOOP = _NoopSpan()
 # keys the emitter owns: a caller field of the same name is prefixed
 # with ``param_`` instead of clobbering them
 _RESERVED = ("kind", "ts", "t", "pid", "git_head", "name", "wall_s",
-             "depth", "ok")
+             "depth", "ok", "request_id")
 
 
 def _payload(fields: dict) -> dict:
-    return {("param_" + k if k in _RESERVED else k): v
-            for k, v in fields.items()}
+    out = {("param_" + k if k in _RESERVED else k): v
+           for k, v in fields.items()}
+    rid = getattr(_TLS, "request", None)
+    if rid is not None:
+        out["request_id"] = rid
+    return out
 
 
 class _Span:
@@ -120,7 +161,8 @@ def span(name: str, /, **fields):
 
 def emit_span(name: str, wall_s: float, /, **fields):
     """Emit one span measured elsewhere (from timestamps), joined onto
-    this thread's open span path, as :func:`span` would."""
+    this thread's open span path and tagged with its request, as
+    :func:`span` would."""
     if not _ENABLED:
         return
     s = _stack()

@@ -1,8 +1,8 @@
 """Deterministic fault injection for the port's guarded paths.
 
 The port's own copy of the parts of ``tpukernels/resilience/faults.py``
-that ``registry.dispatch``, the integrity guard and ``atomic.py``
-reach. ``TPKT_FAULT_PLAN`` holds inline JSON or the path of a JSON
+that ``registry.dispatch``, the integrity guard, ``atomic.py``, the C
+entry and the serving daemon reach. ``TPKT_FAULT_PLAN`` holds inline JSON or the path of a JSON
 file. It is read once, at import; a process that sets it later calls
 :func:`reload_plan`. Unset (the production case), every injection point
 is one ``_PLAN is None`` check.
@@ -29,6 +29,11 @@ narrows a key to processes whose environment holds those values:
   it), ``nan`` writes a NaN into the first float leaf (tier 1's prey;
   on an int-only result it degrades to ``corrupt``). ``site`` omitted
   matches any guarded path (``registry``, ``capi`` or ``manual``).
+- ``"delay_response": {"kernel": "scan", "delay_s": 0.5, "times": 1}``
+  — the serving daemon holds a finished response of a matching kernel
+  for ``delay_s`` (default 0.1) before it sends it, every ``every``-th
+  time (default 1), at most ``times`` times (0, the default: always): a
+  slow worker whose kernel already ran.
 - ``"fail_capi": "sgemm"`` / ``"wedge_capi": "sgemm"`` — the C entry's
   ``capi.run_from_c`` for that kernel raises, or hangs as
   ``wedge_dispatch`` does, before its adapter runs.
@@ -72,6 +77,7 @@ _PLAN = _load_plan()
 _DISPATCH_CALLS: dict = {}  # kernel -> dispatches seen (slow_dispatch)
 _WEDGE_CALLS: dict = {}     # kernel -> dispatches seen (wedge_dispatch)
 _KILL_CALLS: dict = {}      # kernel -> dispatches seen (kill_worker)
+_RESPONSE_CALLS: dict = {}  # kernel -> responses seen (delay_response)
 _TORN_CALLS = 0             # matching atomic writes seen (torn_write)
 
 
@@ -83,6 +89,7 @@ def reload_plan():
     _DISPATCH_CALLS.clear()
     _WEDGE_CALLS.clear()
     _KILL_CALLS.clear()
+    _RESPONSE_CALLS.clear()
     _TORN_CALLS = 0
     return _PLAN
 
@@ -166,6 +173,29 @@ def dispatch_fault(kernel: str):
     delay = float(spec.get("delay_s", 0.1))
     journal.emit("fault_injected", site="dispatch", kernel=kernel,
                  fault="slow_dispatch", delay_s=delay, call=n)
+    time.sleep(delay)
+
+
+def response_fault(kernel: str):
+    """Injection point of the serving daemon's response path, after the
+    dispatch and before the send: ``delay_response``."""
+    if _PLAN is None:
+        return
+    spec = _spec("delay_response", kernel)
+    if spec is None:
+        return
+    n = _RESPONSE_CALLS[kernel] = _RESPONSE_CALLS.get(kernel, 0) + 1
+    every = int(spec.get("every", 1))
+    if every > 1 and n % every:
+        return
+    times = int(spec.get("times", 0))
+    if times > 0 and n > times * every:
+        return
+    delay = float(spec.get("delay_s", 0.1))
+    journal.emit("fault_injected", site="response", kernel=kernel,
+                 fault="delay_response", delay_s=delay, call=n)
+    print(f"# fault: delaying {kernel} response {delay}s (call {n})",
+          file=sys.stderr, flush=True)
     time.sleep(delay)
 
 

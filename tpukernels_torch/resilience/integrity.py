@@ -68,6 +68,7 @@ import json
 import math
 import os
 import sys
+import threading
 import time
 import zlib
 
@@ -103,7 +104,11 @@ _DISABLED = ("0", "off", "none")
 # TUNABLES) that selects another kernel at the same shapes
 _ENV_ONLY_KNOBS = ("TPKT_SGEMM_PRECISION",)
 
-# per-process state (reset() drops it)
+# per-process state (reset() drops it). Two threads may guard at once
+# (the serving daemon's workers): the call count is taken under a lock,
+# so the sampling cadence loses no call; a first-trust canary that two
+# threads start together runs twice, which costs time and no answer
+_CALLS_LOCK = threading.Lock()
 _CALLS: dict = {}        # (site, kernel) -> guarded calls
 _DEEP_DONE: set = set()  # (site, kernel) whose first-trust canary ran
 _SUSPECT: set = set()    # kernels whose last check failed
@@ -745,7 +750,8 @@ def guard(site: str, kernel, outputs, statics=None, device=None):
     if not enabled():
         return outputs
     obs_metrics.inc("integrity.checks")
-    n = _CALLS[(site, kernel)] = _CALLS.get((site, kernel), 0) + 1
+    with _CALLS_LOCK:
+        n = _CALLS[(site, kernel)] = _CALLS.get((site, kernel), 0) + 1
     failure = tier = None
     try:
         mode = faults.output_fault(site, kernel)

@@ -213,10 +213,11 @@ def forget(kernel: str) -> int:
     read its knobs among others' included; returns how many were
     dropped. The integrity guard calls it when a result of ``kernel``
     fails a check, so that the next call builds its plan afresh."""
-    drop = [k for k in _PLANS
+    # list() copies the keys in one step: another thread may add a plan
+    drop = [k for k in list(_PLANS)
             if k[0] == kernel or (isinstance(k[0], tuple) and kernel in k[0])]
     for k in drop:
-        del _PLANS[k]
+        _PLANS.pop(k, None)
     return len(drop)
 
 
