@@ -134,6 +134,32 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    ``TPKT_MESH=1`` on NCCL, each printing CHECK PASS. It prints one
    ``{"dist": ...}`` JSON line.
 
+9. runs the serving fleet: ``python -m tpukernels_torch.serve.ctl
+   start-fleet 2`` on the card, its state and journal in a temporary
+   directory, hedging off and the health windows compressed. (1) Both
+   workers hold the card (a ``/dev/nvidia*`` descriptor; nvidia-smi's
+   compute apps list them, where it sees this pid namespace) and the
+   router does not; each worker's memory. (2) The nine avatars of phase 7
+   through the front socket on both lanes, bitwise phase 7's daemon's
+   answers, each routed to ``ring_order(bucket, 2)[0]``; the workers'
+   ``launches`` (the router's ``stats``) cover the daemon's default path.
+   (3) Phase 7's burst through the front: client p50/p99 beside phase
+   7's, the split over the workers. (4) Worker 0 drained while two
+   clients stream (no request lost, none routed to it), then undrained
+   with a ``wedge_dispatch`` plan for one of its keys in its environment
+   only. (5) That key wedges twice and the router spills it to worker 1
+   (reason ``wedged``). (6) After the cooldown worker 0 holds it again
+   and is SIGKILLed while a client streams worker 1's keys: one
+   ``worker_dead``, one replay on worker 1, a respawn on the card with
+   its down-time, its first dispatch against warm ones. (7) The guardian
+   with a ``kill_router`` plan for the routers it spawns: the router is
+   SIGKILLed, its successor kills itself at its third request after the
+   WAL holds it, two clients ride through on their reconnect budget,
+   one ``serve_request`` a request_id. (8) ``stop-fleet``: no member, socket,
+   pidfile, fleet.json or ``tpkserve-*`` segment left; no library built.
+   It prints one ``{"fleet": ...}`` JSON line; each kernel entry gains
+   ``fleet_launches``.
+
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
 check raises: the script then exits non-zero and prints no result. It
@@ -3115,7 +3141,7 @@ def serve_burst(torch, sock, operands, wants, seed):
     return sorted(results), time.perf_counter() - t0
 
 
-def phase_serve(torch, times, rates, args):
+def phase_serve(torch, times, rates, args, kept):
     """Phase 7: the serving daemon on the card."""
     log("== phase 7: the serving daemon (python -m tpukernels_torch.serve)")
     from tpukernels_torch import _build
@@ -3132,7 +3158,7 @@ def phase_serve(torch, times, rates, args):
         with knobs(TPKT_TUNING_CACHE_DIR=os.path.join(root, "tuning"),
                    TPKT_SERVE_SHM=None, TPKT_SERVE_SHM_MIN_BYTES=None):
             out = serve_drive(torch, times, rates, args, main_d, chaos_d,
-                              (shim, cbin))
+                              (shim, cbin), kept)
         # 8. clean stop
         for d in (main_d, chaos_d):
             stop = d.stop()
@@ -3179,8 +3205,10 @@ def serve_first_vs_warm(main_d, burst):
     return warm
 
 
-def serve_drive(torch, times, rates, args, main_d, chaos_d, c_built):
-    """Steps 1-7 of phase 7 (item 7 of the module docstring)."""
+def serve_drive(torch, times, rates, args, main_d, chaos_d, c_built, kept):
+    """Steps 1-7 of phase 7 (item 7 of the module docstring); each
+    avatar's operands, statics and the daemon's answer go into
+    ``kept`` (phase 9 holds the fleet's answers to them)."""
     import numpy as np
 
     from tpukernels_torch import aot
@@ -3231,6 +3259,7 @@ def serve_drive(torch, times, rates, args, main_d, chaos_d, c_built):
         row["up_bytes"] = int(sum(np.asarray(a).nbytes for a in ops))
         row["down_bytes"] = int(sum(w.nbytes for w in want))
         avatar[key] = row
+        kept[key] = (ops, statics, got)
         log(f"serve {key} avatar: client wall inline {row['inline_ms']:.3f} "
             f"ms (the daemon's first request of the bucket), shm "
             f"{row['shm_ms']:.3f} ms; {row['up_bytes'] / 2**20:.2f} MiB up, "
@@ -3880,6 +3909,671 @@ def dist_c(state, shim, cbin):
 
 
 
+# ---------------------------------------------------------------- phase 9
+
+# the fleet's health windows, compressed: a probe every half second, a
+# respawn 0.2 s after a death, a wedged worker cooled for 2 s; hedging
+# off, or a request held by the wedged worker of steps 5 and 6 would be
+# answered by its hedge on the sibling (past the burst's p95) instead of
+# spilling or being replayed
+FLEET_ENV = {"TPKT_FLEET_PROBE_S": "0.5", "TPKT_FLEET_RESTART_BACKOFF_S": "0.2",
+             "TPKT_ROUTER_RESTART_BACKOFF_S": "0.2",
+             "TPKT_ROUTE_COOLDOWN_S": "2", "TPKT_ROUTE_HEDGE_PCTL": "0",
+             "TPKT_TRACE": "1"}
+FLEET_DRAIN_MIN = 4   # answered requests before, during and after a drain
+FLEET_KR_THREADS, FLEET_KR_N = 2, 6  # the router kill's clients, requests
+
+
+class Fleet:
+    """``python -m tpukernels_torch.serve.ctl start-fleet`` on the card,
+    its state, sockets and journal under ``root``."""
+
+    def __init__(self, root):
+        self.root = root
+        self.dir = os.path.join(root, "fleet")
+        self.front = os.path.join(self.dir, "front.sock")
+        self.journal = os.path.join(root, "journal.jsonl")
+        env = {k: v for k, v in os.environ.items() if not k.startswith("TPKT_")}
+        env.update(PYTHONPATH=REPO, TPKT_SERVE_DIR=root,
+                   TPKT_HEALTH_JOURNAL=self.journal,
+                   TPKT_INTEGRITY_DIR=os.path.join(root, "integrity"),
+                   TPKT_TUNING_CACHE_DIR=os.path.join(root, "tuning"),
+                   **FLEET_ENV)
+        self.env = env
+
+    def ctl(self, *args, timeout=300, **extra):
+        """One ``ctl`` verb; fails unless it exits 0."""
+        p = subprocess.run(
+            [sys.executable, "-m", "tpukernels_torch.serve.ctl", *args],
+            cwd=REPO, env=dict(self.env, **extra), capture_output=True,
+            text=True, timeout=timeout)
+        if p.returncode != 0:
+            raise AssertionError(f"ctl {' '.join(args)}: rc {p.returncode}\n"
+                                 f"{p.stdout[-2000:]}\n{p.stderr[-2000:]}\n"
+                                 f"{self.logs()[-4000:]}")
+        return p.stdout
+
+    def logs(self):
+        """Every member's stderr log."""
+        out = []
+        for dirpath, _dirs, files in os.walk(self.dir):
+            for f in sorted(files):
+                if f.endswith(".log"):
+                    with open(os.path.join(dirpath, f)) as fh:
+                        out.append(f"--- {f}\n{fh.read()}")
+        return "\n".join(out)
+
+    def events(self, kind=None):
+        from tpukernels_torch.resilience import journal
+
+        recs, _ = journal.load_events([self.journal])
+        return [e for e in recs if kind is None or e.get("kind") == kind]
+
+    def wait(self, pred, timeout, what):
+        """The journal's events matching ``pred`` once there is one."""
+        deadline = time.monotonic() + timeout
+        while True:
+            hits = [e for e in self.events() if pred(e)]
+            if hits:
+                return hits
+            if time.monotonic() > deadline:
+                raise AssertionError(f"fleet: no {what} within {timeout} s")
+            time.sleep(0.05)
+
+    def pid(self, name):
+        """The pid flocking ``name``'s pidfile (``router``, ``guardian``
+        or a worker index), or None."""
+        from tpukernels_torch.serve import proc
+
+        path = (os.path.join(self.dir, f"worker{name}", "serve.pid")
+                if isinstance(name, int)
+                else os.path.join(self.dir, f"{name}.pid"))
+        held, pid = proc.pidfile_state(path)
+        return pid if held else None
+
+    def worker_sock(self, i):
+        return os.path.join(self.dir, f"worker{i}", "serve.sock")
+
+    def stats(self):
+        from tpukernels_torch.serve import client as serve_client
+
+        with serve_client.ServeClient(self.front, timeout_s=60) as c:
+            return c.stats()
+
+
+def on_card(pid):
+    """Whether process ``pid`` holds the card open (a ``/dev/nvidia*``
+    descriptor: its CUDA context)."""
+    d = f"/proc/{pid}/fd"
+    for fd in os.listdir(d):
+        try:
+            if os.readlink(os.path.join(d, fd)).startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def running(pid):
+    """Whether ``pid`` is a live process (a zombie is not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def card_memory_used():
+    """The card's ``memory.used`` in MiB (nvidia-smi), or None."""
+    out = run(["nvidia-smi", "--query-gpu=memory.used",
+               "--format=csv,noheader,nounits"]) or ""
+    first = out.splitlines()[0].strip() if out else ""
+    return int(first) if first.isdigit() else None
+
+
+def compute_apps():
+    """``nvidia-smi --query-compute-apps``: {pid: used MiB}."""
+    out = run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+               "--format=csv,noheader,nounits"]) or ""
+    apps = {}
+    for line in out.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps[int(parts[0])] = parts[1]
+    return apps
+
+
+def fleet_send(front, key, ops, statics, rid, shm=None):
+    """One request through the fleet's front socket (the port's client);
+    the answer as a tuple and the client wall in ms."""
+    from tpukernels_torch.serve import client as serve_client
+
+    with knobs(TPKT_SERVE_SHM=shm), \
+            serve_client.ServeClient(front, timeout_s=300) as c:
+        c.next_request_id = rid
+        s0 = time.perf_counter()
+        got = as_tuple(c.dispatch(key, *ops, **statics))
+        return got, (time.perf_counter() - s0) * 1e3
+
+
+def phase_fleet(torch, serve, avatars, args):
+    """Phase 9: the serving fleet on the card (item 9 of the module
+    docstring)."""
+    log("== phase 9: the serving fleet (python -m tpukernels_torch.serve.ctl "
+        "start-fleet 2)")
+    from tpukernels_torch import _build
+
+    t_phase = time.perf_counter()
+    libs = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
+    root = tempfile.mkdtemp(prefix="tpkt_fleet_")
+    fl = Fleet(root)
+    started = False
+    try:
+        started = True
+        out = fleet_drive(torch, fl, serve, avatars, args)
+        # 8. stop
+        said = fl.ctl("stop-fleet", "--wait", "60")
+        started = False
+        fleet_stopped(fl, out["pids"], said)
+        after = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
+        logs = fl.logs()
+        if after != libs or "nvcc" in logs:
+            raise AssertionError(f"a fleet member built a library: {libs} -> "
+                                 f"{after}")
+        log(f"PASS fleet built nothing ({len(libs)} libraries before and "
+            "after; no nvcc in any member's log, the respawned worker's "
+            "included)")
+        out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+        log(f"phase 9 wall {out['phase_s']:.1f} s")
+        print(json.dumps({"fleet": out}), flush=True)
+        return out
+    finally:
+        if started:
+            subprocess.run(
+                [sys.executable, "-m", "tpukernels_torch.serve.ctl",
+                 "stop-fleet", "--wait", "30"], cwd=REPO, env=fl.env,
+                capture_output=True, timeout=300)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def fleet_stopped(fl, pids, said):
+    """Step 8: after ``stop-fleet`` no member runs, no socket, pidfile or
+    config is left, and no ``tpkserve-*`` segment."""
+    from tpukernels_torch.serve import protocol
+
+    left = [os.path.relpath(os.path.join(d, f), fl.dir)
+            for d, _dirs, files in os.walk(fl.dir) for f in files
+            if f.endswith((".sock", ".pid")) or f == "fleet.json"]
+    # a member releases its pidfile's flock, then exits: give the exits
+    # a bounded while
+    deadline = time.monotonic() + 60
+    while any(running(pid) for pid in pids) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    alive = [pid for pid in pids if running(pid)]
+    segs = sorted(n for n in os.listdir(protocol.SHM_DIR)
+                  if n.startswith("tpkserve-"))
+    if left or alive or segs:
+        raise AssertionError(f"fleet stop: left {left}, alive {alive}, "
+                             f"segments {segs}\n{said}")
+    log(f"PASS fleet clean stop: guardian, router and workers stopped "
+        f"({len(pids)} processes over the phase, none alive), no socket, "
+        "pidfile or fleet.json left, no tpkserve-* segment; the members' "
+        "stdout is /dev/null (fleet.py), ctl said: "
+        + "; ".join(said.strip().splitlines()))
+
+
+def fleet_drive(torch, fl, serve, avatars, args):
+    """Steps 1-7 of phase 9."""
+    import numpy as np
+
+    from tpukernels_torch import aot
+    from tpukernels_torch.serve import router
+
+    pids = set()
+
+    # 1. start, on the card
+    used0 = card_memory_used()
+    t0 = time.perf_counter()
+    fl.ctl("start-fleet", "2", "--wait", "240")
+    start_s = time.perf_counter() - t0
+    workers = [fl.pid(i) for i in range(2)]
+    rpid = fl.pid("router")
+    pids.update(workers + [rpid])
+    apps = compute_apps()
+    cards = {pid: on_card(pid) for pid in workers + [rpid]}
+    if not all(cards[w] for w in workers) or cards[rpid]:
+        raise AssertionError(f"fleet start: /dev/nvidia* held {cards} "
+                             f"(workers {workers}, router {rpid})")
+    listed = set(apps) & (set(workers) | {rpid})
+    if listed and (not set(workers) <= set(apps) or rpid in apps):
+        raise AssertionError(f"fleet start: nvidia-smi compute apps {apps}, "
+                             f"workers {workers}, router {rpid}")
+    used1 = card_memory_used()
+    memory = {str(i): apps.get(w) for i, w in enumerate(workers)}
+    log(f"PASS fleet start: {start_s:.2f} s; workers {workers} hold the card "
+        f"(/dev/nvidia*), router {rpid} does not; nvidia-smi compute apps "
+        + (f"{apps}: worker memory MiB {memory}" if listed else
+           f"{apps} (lists none of the fleet's pids: not in this pid "
+           "namespace)")
+        + f"; the card's memory.used {used0} -> {used1} MiB")
+
+    # 2. the nine avatars through the front socket, both lanes, bitwise
+    # phase 7's daemon; each bucket served by its ring home
+    avatar = {}
+    for key in aot.BENCH_CONFIGS:
+        ops, statics, want = avatars[key]
+        row = {}
+        for lane, shm in (("inline", "0"), ("shm", None)):
+            got, row[f"{lane}_ms"] = fleet_send(
+                fl.front, key, ops, statics, f"fleet-{key}-{lane}", shm)
+            serve_same(torch, f"fleet {key} avatar {lane} vs phase 7's daemon",
+                       got, want)
+        avatar[key] = row
+    routes = {e["request_id"]: e for e in fl.events("serve_route")
+              if str(e.get("request_id")).startswith("fleet-")}
+    homes = {}
+    for key in aot.BENCH_CONFIGS:
+        for lane in ("inline", "shm"):
+            e = routes[f"fleet-{key}-{lane}"]
+            home = router.ring_order(e["bucket"], 2)[0]
+            if not e["ok"] or e["worker"] != home or e["spilled_from"] is not None:
+                raise AssertionError(f"fleet {key} {lane}: routed {e}, ring "
+                                     f"home {home}")
+        homes[key] = home
+        avatar[key]["worker"] = home
+        avatar[key]["bucket"] = e["bucket"]
+    log("PASS fleet avatars: nine keys on both lanes bitwise phase 7's "
+        "daemon, each on its ring home: " + ", ".join(
+            f"{k} -> worker {w} (inline {avatar[k]['inline_ms']:.1f} ms, shm "
+            f"{avatar[k]['shm_ms']:.1f})" for k, w in homes.items()))
+    # the roles of steps 4-6, from the ring: the wedge and the kill use
+    # the avatar of the fewest bytes among those worker 0 serves; the
+    # stream beside the kill, the two of the fewest among worker 1's
+    def size(k):
+        return sum(np.asarray(a).nbytes for a in avatars[k][0])
+
+    on = {w: sorted((k for k, h in homes.items() if h == w), key=size)
+          for w in (0, 1)}
+    if not on[0] or not on[1]:
+        raise AssertionError(f"fleet: the ring leaves a worker idle: {on}")
+    roles = {"fault": on[0][0], "side": on[1][:2]}
+    log(f"fleet roles: wedge and kill on {roles['fault']} (worker 0), the "
+        f"stream beside the kill on {roles['side']} (worker 1)")
+
+    # 3. phase 7's burst through the front
+    results, burst_s = serve_burst(torch, fl.front, {k: avatars[k][0] for k in
+                                                     SERVE_BURST},
+                                   {k: avatars[k][2] for k in SERVE_BURST},
+                                   args.seed)
+    stats = fl.stats()
+    per_worker = [dict((row or {}).get("launches") or {})
+                  for row in stats["worker_stats"]]
+    launches = {}
+    for row in per_worker:
+        for k, v in row.items():
+            launches[k] = launches.get(k, 0) + v
+    idle = [k for k in SERVE_PATH if launches.get(k, 0) <= 0]
+    if idle:
+        raise AssertionError(f"kernels no fleet worker launched: {idle}")
+    allocator = [(row or {}).get("device_memory")
+                 for row in stats["worker_stats"]]
+    log("fleet workers' caching allocator on the card, MiB (allocated / "
+        "reserved): " + ", ".join(
+            f"worker {i} {m['allocated'] / 2**20:.1f} / "
+            f"{m['reserved'] / 2**20:.1f}" if m else f"worker {i} none"
+            for i, m in enumerate(allocator)))
+    log("fleet kernels, per worker: " + json.dumps(
+        [{k: v for k, v in row.items() if v} for row in per_worker]))
+    log(f"PASS fleet path: the workers' launches cover every kernel of the "
+        f"daemon's default path ({', '.join(SERVE_PATH)})")
+    routes = {e["request_id"]: e for e in fl.events("serve_route")}
+    burst = {}
+    for key in SERVE_BURST:
+        mine = [r for r in results if r[1] == key and not r[4]]
+        walls = [r[3] * 1e3 for r in mine]
+        split = {}
+        for r in mine:
+            w = str(routes[r[2]]["worker"])
+            split[w] = split.get(w, 0) + 1
+        p7 = serve["burst"][key]
+        burst[key] = {"n": len(mine), "rejected": sum(r[4] for r in results
+                                                      if r[1] == key),
+                      "wall_ms_p50": pct(walls, 50),
+                      "wall_ms_p99": pct(walls, 99), "per_worker": split,
+                      "daemon_wall_ms_p50": p7["wall_ms_p50"],
+                      "daemon_wall_ms_p99": p7["wall_ms_p99"]}
+        log(f"fleet burst {key}: {len(mine)} requests, client wall p50 "
+            f"{burst[key]['wall_ms_p50']:.3f} / p99 "
+            f"{burst[key]['wall_ms_p99']:.3f} ms (phase 7's one daemon "
+            f"{p7['wall_ms_p50']:.3f} / {p7['wall_ms_p99']:.3f}); per worker "
+            f"{split}")
+    if any(r[4] for r in results):
+        raise AssertionError("fleet burst: rejections at the default queue")
+    log(f"PASS fleet burst: {len(results)} requests in {burst_s:.2f} s, 0 "
+        "errors, 0 rejections, every answer bitwise phase 7's")
+
+    # 4. drain worker 0 in the middle of a stream, then undrain it with
+    # the wedge armed for steps 5 and 6 (its env only)
+    drain = fleet_drain(torch, fl, avatars, roles["fault"])
+    pids.add(fl.pid(0))
+    # 5. the wedge: worker 0 answers `wedged`, the router spills
+    wedge = fleet_wedge(torch, fl, avatars, roles["fault"])
+    # 6. kill -9 worker 0 while it holds a request
+    kill = fleet_kill_worker(torch, fl, avatars, pids, roles)
+    # 7. kill the router: the guardian respawns it, the WAL replays
+    kr = fleet_kill_router(fl, pids)
+    return {"start_s": round(start_s, 3), "worker_memory_mib": memory,
+            "card_memory_used_mib": [used0, used1],
+            "worker_allocator": allocator,
+            "nvidia_smi_lists_fleet": bool(listed), "avatar": avatar,
+            "launches": launches, "launches_per_worker": per_worker,
+            "burst": burst, "burst_s": burst_s, "drain": drain,
+            "roles": roles, "wedge": wedge, "kill_worker": kill,
+            "kill_router": kr,
+            "pids": sorted(p for p in pids if p)}
+
+
+def fleet_stream(front, keys, avatars, stop, done, errors, prefix):
+    """Requests of ``keys`` in turn through the front socket until
+    ``stop``; each answer checked bit for bit against phase 7's."""
+    import numpy as np
+
+    from tpukernels_torch.serve import client as serve_client
+
+    try:
+        with serve_client.ServeClient(front, timeout_s=300) as c:
+            k = 0
+            while not stop.is_set():
+                key = keys[k % len(keys)]
+                ops, statics, want = avatars[key]
+                c.next_request_id = f"{prefix}-{k}"
+                got = as_tuple(c.dispatch(key, *ops, **statics))
+                if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+                    errors.append(f"{prefix}-{k} ({key}): differs")
+                done.append(k)
+                k += 1
+    except Exception as e:  # noqa: BLE001 - collected, raised below
+        errors.append(repr(e))
+
+
+def wait_done(done, errors, n, what, timeout=120):
+    mark = len(done)
+    deadline = time.monotonic() + timeout
+    while len(done) < mark + n:
+        if errors:
+            raise AssertionError(f"fleet {what}: {errors[:3]}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fleet {what}: stalled")
+        time.sleep(0.02)
+
+
+def fleet_drain(torch, fl, avatars, fault_key):
+    """Step 4: drain worker 0 while two clients stream phase 7's burst
+    kernels (all on worker 0's buckets), then undrain it."""
+    stop = threading.Event()
+    done, errors = [], []
+    threads = [threading.Thread(target=fleet_stream, args=(
+        fl.front, SERVE_BURST, avatars, stop, done, errors, f"drain{t}"))
+        for t in range(2)]
+    for t in threads:
+        t.start()
+    try:
+        wait_done(done, errors, FLEET_DRAIN_MIN, "before the drain")
+        t0 = time.perf_counter()
+        fl.ctl("drain", "0", "--wait", "60")
+        drain_s = time.perf_counter() - t0
+        t_drained = time.time()
+        wait_done(done, errors, FLEET_DRAIN_MIN, "while drained")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(300)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"fleet drain: {errors[:3]}")
+    plan = json.dumps({"wedge_dispatch": {
+        "kernel": fault_key, "times": 0,
+        "env": {"TPKT_SERVE_WORKER_ID": "0"}}})
+    t0 = time.perf_counter()
+    fl.ctl("undrain", "0", "--wait", "240", TPKT_FAULT_PLAN=plan,
+           TPKT_SERVE_REQUEST_TIMEOUT_S="1")
+    undrain_s = time.perf_counter() - t0
+    events = fl.events()
+    drains = [e for e in events if e["kind"] == "serve_drain"]
+    if [(e["phase"], e["worker"]) for e in drains] != [("begin", 0),
+                                                       ("undrain", 0)]:
+        raise AssertionError(f"fleet drain events: {drains}")
+    routes = [e for e in events if e["kind"] == "serve_route"
+              and str(e.get("request_id")).startswith("drain")]
+    # routed after the drain verb returned (worker 0 stopped) and before
+    # the undrain
+    window = [e for e in routes if t_drained < e["t"] < drains[1]["t"]]
+    if (len(routes) != len(done) or not all(e["ok"] for e in routes)
+            or not window or any(e["worker"] == 0 for e in window)):
+        raise AssertionError(f"fleet drain: {len(routes)} routes for "
+                             f"{len(done)} answers, window {window[:3]}")
+    log(f"PASS fleet drain: worker 0 drained in {drain_s:.2f} s while two "
+        f"clients streamed; {len(done)} answers bitwise, 0 dropped, "
+        f"{len(window)} routed to worker 1 while drained; undrain restarted "
+        f"worker 0 in {undrain_s:.2f} s (its {fault_key} dispatches armed "
+        "to wedge)")
+    return {"answers": len(done), "drained_routes": len(window),
+            "drain_s": drain_s, "undrain_s": undrain_s}
+
+
+def fleet_wedge(torch, fl, avatars, key):
+    """Step 5: the armed worker 0 wedges on ``key`` twice, its watchdog
+    answers ``wedged``, the router spills to worker 1."""
+    ops, statics, want = avatars[key]
+    t0 = time.perf_counter()
+    got, _ms = fleet_send(fl.front, key, ops, statics, "wedge-1")
+    wedge_s = time.perf_counter() - t0
+    serve_same(torch, f"fleet {key} past the wedge vs phase 7's daemon", got,
+               want)
+    events = fl.events()
+    spills = [(e["reason"], e["from_worker"], e["to_worker"]) for e in events
+              if e["kind"] == "serve_spill"]
+    (route,) = [e for e in events if e["kind"] == "serve_route"
+                and e.get("request_id") == "wedge-1"]
+    if spills != [("wedged", 0, 1)] or route["worker"] != 1:
+        raise AssertionError(f"fleet wedge: spills {spills}, route {route}")
+    log(f"PASS fleet wedge: {key} wedged on worker 0, spilled to worker 1 "
+        f"with reason wedged, answered in {wedge_s:.2f} s")
+    return {"answered_s": wedge_s}
+
+
+def fleet_kill_worker(torch, fl, avatars, pids, roles):
+    """Step 6: after the cooldown worker 0 takes the fault key again and
+    wedges holding it; ``kill -9`` then, while a client streams two of
+    worker 1's buckets. The request is replayed once on worker 1, worker 0 is
+    respawned (clean) and smoke-checked on the card."""
+    import signal
+
+    import numpy as np
+
+    from tpukernels_torch.serve import client as serve_client
+
+    key = roles["fault"]
+    ops, statics, want = avatars[key]
+    cool = float(FLEET_ENV["TPKT_ROUTE_COOLDOWN_S"])
+    wedged = len([e for e in fl.events("fault_injected")
+                  if e.get("fault") == "wedge_dispatch"])
+    time.sleep(cool)  # the cooldown of step 5 runs out
+    stop = threading.Event()
+    done, errors = [], []
+    stream = threading.Thread(target=fleet_stream, args=(
+        fl.front, roles["side"], avatars, stop, done, errors, "side"))
+    res = {}
+
+    def held():
+        try:
+            res["got"] = fleet_send(fl.front, key, ops, statics,
+                                    "killed-1")[0]
+        except Exception as e:  # noqa: BLE001 - raised below
+            res["err"] = repr(e)
+
+    one = threading.Thread(target=held)
+    stream.start()
+    one.start()
+    try:
+        deadline = time.monotonic() + 60
+        while len([e for e in fl.events("fault_injected")
+                   if e.get("fault") == "wedge_dispatch"]) <= wedged:
+            if time.monotonic() > deadline:
+                raise AssertionError("fleet kill: worker 0 never held the "
+                                     "request")
+            time.sleep(0.02)
+        victim = fl.pid(0)
+        t_kill = time.time()
+        os.kill(victim, signal.SIGKILL)
+        one.join(300)
+        resp = fl.wait(lambda e: e["kind"] == "worker_respawned", 120,
+                       "worker_respawned")
+        wait_done(done, errors, 2, "beside the kill")
+    finally:
+        stop.set()
+        stream.join(300)
+        one.join(1)
+    if "err" in res or errors:
+        raise AssertionError(f"fleet kill: {res.get('err')} {errors[:3]}")
+    serve_same(torch, f"fleet {key} replayed after kill -9 vs phase 7's "
+               "daemon", res["got"], want)
+    new = fl.pid(0)
+    pids.add(new)
+    events = fl.events()
+    dead = [e for e in events if e["kind"] == "worker_dead"]
+    replays = [e for e in events if e["kind"] == "serve_request_replayed"
+               and e.get("via") is None]
+    served = [e for e in events if e["kind"] == "serve_request"
+              and e.get("request_id") == "killed-1"]
+    if ([(e["worker"], e["worker_pid"]) for e in dead] != [(0, victim)]
+            or [(e["request_id"], e["from_worker"], e["to_worker"])
+                for e in replays] != [("killed-1", 0, 1)]
+            or [(e["worker_id"], e["replayed"]) for e in served] != [("1", 1)]
+            or resp[0]["worker"] != 0 or not new or new == victim
+            or not on_card(new)):
+        raise AssertionError(f"fleet kill: dead {dead}, replays {replays}, "
+                             f"served {served}, respawned {resp}, pid {new}")
+    # the respawned worker's first dispatch (its rejoin smoke) against
+    # warm ones of the same bucket, straight at its socket
+    x = (np.arange(64) % 7).astype(np.int32)
+    with serve_client.ServeClient(fl.worker_sock(0), timeout_s=120) as c:
+        for i in range(5):
+            c.next_request_id = f"warm-{i}"
+            c.dispatch("scan", x)
+    spans = [e for e in fl.events("span")
+             if e.get("name") == "serve/scan/dispatch/scan"]
+    smoke = [e for e in spans
+             if str(e.get("request_id")).startswith("fleet-smoke-0-")]
+    warm = [e["wall_s"] * 1e3 for e in spans
+            if str(e.get("request_id")).startswith("warm-")]
+    if len(smoke) != 1 or smoke[0]["pid"] != new or len(warm) != 5:
+        raise AssertionError(f"fleet kill: smoke spans {smoke}, warm {warm}")
+    first_ms, warm_ms = smoke[0]["wall_s"] * 1e3, pct(warm, 50)
+    out = {"down_s": resp[0]["down_s"], "via": dead[0]["via"],
+           "respawn_to_rejoin_s": round(resp[0]["t"] - t_kill, 3),
+           "first_dispatch_ms": first_ms, "warm_dispatch_ms_p50": warm_ms,
+           "side_answers": len(done)}
+    log(f"PASS fleet kill -9 worker 0 (pid {victim}) holding {key}: "
+        f"worker_dead via {dead[0]['via']}, one replay on "
+        f"worker 1 (answer bitwise phase 7's), {len(done)} side requests on "
+        f"worker 1 all bitwise, 0 dropped; respawned as pid {new} on the "
+        f"card, down {resp[0]['down_s']} s; its first dispatch (the rejoin "
+        f"smoke, scan of 64) {first_ms:.3f} ms against a warm p50 "
+        f"{warm_ms:.3f} ms")
+    return out
+
+
+def fleet_kill_router(fl, pids):
+    """Step 7: the guardian, carrying a ``kill_router`` plan for the routers
+    it spawns; ``kill -9`` the router, then the respawned router kills
+    itself at its third accepted request (durable in the WAL, not yet
+    forwarded). Two clients ride through; one delivery a request_id."""
+    import random
+    import signal
+
+    import numpy as np
+
+    from tpukernels_torch.serve import client as serve_client
+
+    once = os.path.join(fl.root, "kill_router.once")
+    plan = json.dumps({"kill_router": {"on_call": 3, "once_file": once}})
+    fl.ctl("guardian", "--wait", "60", TPKT_FAULT_PLAN=plan)
+    gpid, first = fl.pid("guardian"), fl.pid("router")
+    pids.add(gpid)
+    os.kill(first, signal.SIGKILL)
+    fl.wait(lambda e: e["kind"] == "router_respawned", 60, "router_respawned")
+    pids.add(fl.pid("router"))
+    x = (np.arange(256) % 11).astype(np.int32)
+    want = np.cumsum(x, dtype=np.int64).astype(np.int32)
+    ok, fail = [], []
+
+    def burst(tid):
+        jit = random.Random(1000 + tid)
+        with serve_client.ServeClient(fl.front, timeout_s=300,
+                                      tenant=f"t{tid}") as cli:
+            for k in range(FLEET_KR_N):
+                try:
+                    cli.next_request_id = f"rk-{tid}-{k}"
+                    got = serve_client.dispatch_with_backpressure(
+                        cli, "scan", (x,), {}, jitter=jit)
+                    if not np.array_equal(got, want):
+                        raise AssertionError("wrong answer")
+                    ok.append((tid, k))
+                except Exception as e:  # noqa: BLE001 - raised below
+                    fail.append((tid, k, repr(e)))
+                time.sleep(0.05)
+
+    t0 = time.perf_counter()
+    with knobs(TPKT_CLIENT_RECONNECT_S="60", TPKT_SERVE_SHM="0"):
+        threads = [threading.Thread(target=burst, args=(t,))
+                   for t in range(FLEET_KR_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+    burst_s = time.perf_counter() - t0
+    deadline = time.monotonic() + 60
+    while len(fl.events("router_respawned")) < 2:
+        if time.monotonic() > deadline:
+            raise AssertionError("fleet kill router: no second "
+                                 "router_respawned within 60 s")
+        time.sleep(0.05)
+    pids.add(fl.pid("router"))
+    events = fl.events()
+    dead = [e for e in events if e["kind"] == "router_dead"]
+    respawned = [e for e in events if e["kind"] == "router_respawned"]
+    fired = [e for e in events if e["kind"] == "fault_injected"
+             and e.get("fault") == "kill_router"]
+    replays = [e for e in events if e["kind"] == "serve_request_replayed"
+               and e.get("via") == "wal"]
+    deduped = [e for e in events if e["kind"] == "serve_request_deduped"]
+    per = {}
+    for e in events:
+        if (e["kind"] == "serve_request"
+                and str(e.get("request_id")).startswith("rk-")):
+            per[e["request_id"]] = per.get(e["request_id"], 0) + 1
+    want_ids = {f"rk-{t}-{k}": 1 for t in range(FLEET_KR_THREADS)
+                for k in range(FLEET_KR_N)}
+    if (fail or len(ok) != len(want_ids) or not os.path.exists(once)
+            or len(dead) != 2 or len(respawned) != 2 or len(fired) != 1
+            or not replays or per != want_ids
+            or any(e.get("ok") is False for e in replays)):
+        raise AssertionError(
+            f"fleet kill router: fail {fail[:3]}, ok {len(ok)}, dead {dead}, "
+            f"respawned {respawned}, fired {fired}, replays {replays}, "
+            f"deliveries {per}\n{fl.logs()[-4000:]}")
+    log(f"PASS fleet kill router: kill -9 router {first}, then kill_router "
+        f"at the respawned router's third request: 2 router_dead, 2 "
+        f"router_respawned (down {[e['down_s'] for e in respawned]} s), "
+        f"{len(replays)} WAL replay(s) ({len(deduped)} answered from the "
+        f"worker's replay memo), {len(ok)} requests from "
+        f"{FLEET_KR_THREADS} clients in {burst_s:.2f} s, 0 failed, exactly "
+        "one serve_request per request_id")
+    return {"down_s": [e["down_s"] for e in respawned],
+            "wal_replays": len(replays), "deduped": len(deduped),
+            "requests": len(ok), "burst_s": burst_s}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3926,8 +4620,11 @@ def run_all(torch, args):
     times = phase_times(torch, gen, peaks, nbody)
     guard_costs(guarded, times)
     c_entry = phase_c_entry(torch, times)
-    serve = phase_serve(torch, times, c_entry["rates"], args)
+    avatars = {}
+    serve = phase_serve(torch, times, c_entry["rates"], args, avatars)
     dist = phase_dist(torch, times, peaks, args)
+    fleet = phase_fleet(torch, serve, avatars, args)
+    del avatars
 
     # B3/B4, B5/B6 and B9/B10 share an entry: the dict keeps B4, B6 and
     # B10, and B3, B5 and B10 stand in also_replaces
@@ -3943,6 +4640,7 @@ def run_all(torch, args):
         return {"name": name, "route": "cuda", "source": row.port_source,
                 "replaces": row.where, "launches": launches[name],
                 "serve_launches": serve["launches"].get(name, 0),
+                "fleet_launches": fleet["launches"].get(name, 0),
                 "dist_launches": dist["nccl"]["launches"].get(name, 0),
                 "max_abs_err": err, **{k: t[k] for k in keys}, **extra}
 
@@ -4038,6 +4736,7 @@ def run_all(torch, args):
         "replaces": HELPER_KERNELS["sgemm_prep"].replaces,
         "launches": launches["sgemm_prep"],
         "serve_launches": serve["launches"].get("sgemm_prep", 0),
+        "fleet_launches": fleet["launches"].get("sgemm_prep", 0),
         "max_abs_err": errs["sgemm_prep"], "shape": t["shape"],
         "precision": "high", "library_ms": None,
         **{key: t[key] for key in prep_keys},
@@ -4079,6 +4778,7 @@ def run_all(torch, args):
         "replaces": nb.where,
         "launches": dist["nccl"]["launches"]["nbody_forces_ij"],
         "serve_launches": serve["launches"].get("nbody_forces_ij", 0),
+        "fleet_launches": fleet["launches"].get("nbody_forces_ij", 0),
         "max_abs_err": errs["nbody_forces_ij"], "ms": fij[0]["ms"],
         "plain_ms": fij[0]["plain_ms"], "bound_ms": fij[0]["bound_ms"],
         "bound_by": fij[0]["bound_by"], "library_ms": None,

@@ -10,6 +10,8 @@
 - The port's knobs use the ``TPKT_`` prefix, never ``TPK_``.
 - The C entry (``capi.py`` and the shim) names no module of the JAX
   package and no JAX, and every knob it reads starts with ``TPKT_``.
+- The serving fleet's router, WAL, health manager, guardian, layout and
+  ctl import no torch, and every knob they read starts with ``TPKT_``.
 """
 
 import ast
@@ -334,3 +336,49 @@ def test_build_lock_holds_across_processes(tmp_path):
     assert len(log.read_text().split()) == 1
     (lib,) = out.glob("saxpy-*.so")
     assert lib.read_text() == "built\n"
+
+
+# the serving fleet's processes that never touch the card, and the
+# daemon's shared helpers they use
+FLEET = ("router", "wal", "health", "guardian", "fleet", "ctl", "proc")
+
+
+def test_fleet_is_under_the_rules():
+    # every fleet module is among the modules the no-JAX rule imports
+    # and the files the knob rule reads; every knob it reads (through
+    # os.environ or the fail-loud parsers) starts with TPKT_, and it
+    # names no module of the JAX package
+    mods = {f"tpukernels_torch.serve.{m}" for m in FLEET}
+    assert mods <= set(_port_modules())
+    read = []
+    for m in FLEET:
+        src = (PORT / "serve" / f"{m}.py").read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|tpukernels\b(?!_))",
+                             src, re.M), m
+        read += re.findall(r"environ(?:\.get)?\(\s*\"(\w+)\"", src)
+        read += re.findall(r"_knob\(\s*\"(\w+)\"", src)
+        read += re.findall(r"\"(\w+)\" in os\.environ", src)
+        read += re.findall(r"\.get\(\s*\"(TPK\w*)\"", src)
+    assert read and all(k.startswith("TPKT_") for k in read), read
+    assert {"TPKT_ROUTE_TENANT_RATE", "TPKT_ROUTE_HEDGE_PCTL",
+            "TPKT_FLEET_PROBE_S", "TPKT_FLEET_RESTART_MAX",
+            "TPKT_ROUTER_RESTART_MAX", "TPKT_SERVE_FLEET_DIR"} <= set(read)
+
+
+def test_fleet_processes_import_no_torch():
+    """The router, the WAL, the health manager, the guardian, the layout
+    and ctl load no torch (they never open a CUDA context), checked in a
+    fresh interpreter."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {FLEET!r}:\n"
+        "    importlib.import_module('tpukernels_torch.serve.' + m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'tpukernels'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT, env=env, timeout=120)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == ""

@@ -256,8 +256,10 @@ def test_stats_report_the_device_and_torch(daemon):
     assert full["ok"] and full["role"] == "daemon"
     assert "counters" in full["metrics"]
     assert isinstance(full["pad_pool"], dict)
-    # on the CPU the wrappers run their plain versions: no launch
+    # on the CPU the wrappers run their plain versions: no launch, and
+    # no card memory
     assert full["launches"] and not any(full["launches"].values())
+    assert full["device_memory"] is None and full["deduped"] == 0
 
 
 def test_bad_requests_are_answered_and_the_connection_lives(daemon):

@@ -1,8 +1,8 @@
 """Where the port keeps its state, and how it reads and writes it.
 
 The port's own copy of ``tuning_cache_path``, ``read_json_memoized``,
-``locked_json_update``, the integrity guard's paths and the serving
-daemon's paths in ``tpukernels/_cachedir.py``. The state lives in the repository's
+``note_torn_artifact``, ``locked_json_update``, the integrity guard's
+paths and the serving daemon's paths in ``tpukernels/_cachedir.py``. The state lives in the repository's
 ``.tpkt_cache/`` (gitignored) unless an env var redirects it; the env is
 read on every call, so a test's redirect takes effect at once.
 """
@@ -74,7 +74,7 @@ def read_json_memoized(path: str, memo: dict) -> dict:
     """The parsed JSON object in ``path``, memoized on its (mtime, size)
     in the caller's ``memo``; {} when the file is absent, unreadable or
     not an object. A file that exists but does not parse is reported
-    once per process on stderr, never raised."""
+    once per process (:func:`note_torn_artifact`), never raised."""
     try:
         st = os.stat(path)
     except OSError:
@@ -89,14 +89,26 @@ def read_json_memoized(path: str, memo: dict) -> dict:
     except OSError:
         return {}
     except ValueError as e:
-        if path not in _TORN_NOTED:
-            _TORN_NOTED.add(path)
-            print(f"# torn artifact rejected: {path} ({e})", file=sys.stderr)
+        note_torn_artifact(path, str(e))
         data = {}
     if not isinstance(data, dict):
         data = {}
     memo[path] = (stat_key, data)
     return data
+
+
+def note_torn_artifact(path: str, reason: str) -> None:
+    """A persisted file that exists but does not parse: one stderr note
+    and one ``artifact_rejected`` journal event, once per path per
+    process; never raises (observability must not fail the read it
+    observes)."""
+    if path in _TORN_NOTED:
+        return
+    _TORN_NOTED.add(path)
+    print(f"# torn artifact rejected: {path} ({reason})", file=sys.stderr)
+    from tpukernels_torch.resilience import journal
+
+    journal.emit("artifact_rejected", path=path, reason=reason)
 
 
 def locked_json_update(path: str, mutate, load=None) -> dict:

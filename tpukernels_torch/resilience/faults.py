@@ -2,8 +2,9 @@
 
 The port's own copy of the parts of ``tpukernels/resilience/faults.py``
 that ``registry.dispatch``, the integrity guard, ``atomic.py``, the C
-entry and the serving daemon reach. ``TPKT_FAULT_PLAN`` holds inline JSON or the path of a JSON
-file. It is read once, at import; a process that sets it later calls
+entry, the serving daemon and the fleet router reach.
+``TPKT_FAULT_PLAN`` holds inline JSON or the path of a JSON file. It is
+read once, at import; a process that sets it later calls
 :func:`reload_plan`. Unset (the production case), every injection point
 is one ``_PLAN is None`` check.
 
@@ -34,6 +35,12 @@ narrows a key to processes whose environment holds those values:
   for ``delay_s`` (default 0.1) before it sends it, every ``every``-th
   time (default 1), at most ``times`` times (0, the default: always): a
   slow worker whose kernel already ran.
+- ``"kill_router": {"on_call": 2}`` — the fleet router SIGKILLs itself
+  on its ``on_call``-th accepted dispatch (default 1), after the
+  request's ``router.wal`` entry is durable and before it is forwarded:
+  the guardian must respawn it and the new router replay the entry.
+  ``once_file`` makes it one-shot across respawns; an ``env`` clause
+  narrows it. Only the router has this injection point.
 - ``"fail_capi": "sgemm"`` / ``"wedge_capi": "sgemm"`` — the C entry's
   ``capi.run_from_c`` for that kernel raises, or hangs as
   ``wedge_dispatch`` does, before its adapter runs.
@@ -78,19 +85,20 @@ _DISPATCH_CALLS: dict = {}  # kernel -> dispatches seen (slow_dispatch)
 _WEDGE_CALLS: dict = {}     # kernel -> dispatches seen (wedge_dispatch)
 _KILL_CALLS: dict = {}      # kernel -> dispatches seen (kill_worker)
 _RESPONSE_CALLS: dict = {}  # kernel -> responses seen (delay_response)
+_ROUTE_CALLS = 0            # router admissions seen (kill_router)
 _TORN_CALLS = 0             # matching atomic writes seen (torn_write)
 
 
 def reload_plan():
     """Re-read ``TPKT_FAULT_PLAN`` and reset the per-process fault
     counters; returns the plan (None when unset)."""
-    global _PLAN, _TORN_CALLS
+    global _PLAN, _ROUTE_CALLS, _TORN_CALLS
     _PLAN = _load_plan()
     _DISPATCH_CALLS.clear()
     _WEDGE_CALLS.clear()
     _KILL_CALLS.clear()
     _RESPONSE_CALLS.clear()
-    _TORN_CALLS = 0
+    _ROUTE_CALLS = _TORN_CALLS = 0
     return _PLAN
 
 
@@ -197,6 +205,31 @@ def response_fault(kernel: str):
     print(f"# fault: delaying {kernel} response {delay}s (call {n})",
           file=sys.stderr, flush=True)
     time.sleep(delay)
+
+
+def router_fault():
+    """Injection point of the fleet router's accept path
+    (``router._route``, after the request's ``router.wal`` entry is
+    durable, before the forward): ``kill_router``."""
+    global _ROUTE_CALLS
+    if _PLAN is None:
+        return
+    spec = _PLAN.get("kill_router")
+    if not spec:
+        return
+    if not isinstance(spec, dict):
+        spec = {}
+    if not _env_match(spec):
+        return
+    _ROUTE_CALLS += 1
+    n = _ROUTE_CALLS
+    if n != int(spec.get("on_call", 1)) or not _mark_once(spec):
+        return
+    journal.emit("fault_injected", site="route", fault="kill_router",
+                 call=n)
+    print(f"# fault: SIGKILL self mid-route (call {n})",
+          file=sys.stderr, flush=True)
+    os.kill(os.getpid(), signal.SIGKILL)
 
 
 def torn_write_fault(path: str):

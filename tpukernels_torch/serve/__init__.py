@@ -1,15 +1,31 @@
-"""tpukernels_torch.serve — the serving daemon of the port.
+"""tpukernels_torch.serve — the serving daemon and fleet of the port.
 
-The port's counterpart of ``tpukernels/serve/``: a Unix-domain-socket
-daemon (``server.py``, ``python -m tpukernels_torch.serve``) that runs
-every request through the port's ``registry.dispatch`` on the card, the
-reference's wire protocol unchanged (``protocol.py``), shape bucketing
-onto the avatars of record (``bucketing.py``, ``aot.BENCH_CONFIGS``)
-and the client (``client.py``) that ``capi`` and ``chip_smoke.py`` use.
-The reference's fleet (router, health manager, guardian, WAL) and its
-adaptive buckets wait (ROADMAP.md).
+The port's counterpart of ``tpukernels/serve/``:
 
-Standard library and numpy at import; torch loads with ``server.py``.
+- ``server.py`` (``python -m tpukernels_torch.serve``): a Unix-domain-socket
+  daemon that runs every request through the port's ``registry.dispatch``
+  on the card, with the reference's wire unchanged (``protocol.py``),
+  shape bucketing onto the avatars of record (``bucketing.py``,
+  ``aot.BENCH_CONFIGS``) and the client (``client.py``) that ``capi`` and
+  ``chip_smoke.py`` use;
+- the fleet: ``router.py`` (``python -m tpukernels_torch.serve.router``,
+  one front socket over N daemons: md5 ring routing, spill, failover,
+  drain, tenant quotas, deadlines, hedging), ``wal.py`` (its write-ahead
+  log), ``health.py`` (crash detection, respawn, quarantine),
+  ``guardian.py`` (``python -m tpukernels_torch.serve.guardian``, the
+  router's supervisor), ``fleet.py`` (the layout on disk and the
+  spawners) and ``ctl.py`` (``python -m tpukernels_torch.serve.ctl``,
+  the operator's verbs); ``proc.py`` holds the knob parsers and the
+  flocked pidfile they share with the daemon.
+
+What of the reference's serving still waits (ROADMAP.md Queue A item 7):
+adaptive buckets (``serve/adapt.py``), the mesh tier
+(``bucketing.mesh_tier_for`` with ``registry.dispatch_mesh``) and the
+seeded chaos campaigns of ``tools/chaos.py``.
+
+Standard library and numpy at import; torch loads with ``server.py``, in
+the daemons only: the router, health manager, guardian and ctl never
+import it.
 """
 
 from tpukernels_torch.serve.client import (  # noqa: F401

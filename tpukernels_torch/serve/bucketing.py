@@ -380,7 +380,9 @@ def bucket_id(kernel: str, spec, statics: dict, arrays=None) -> str:
 
 def mesh_tier_for(kernel: str, arrays, statics: dict):
     """The mesh shape an over-avatar request could run on, or None. The
-    port has no distributed layer yet (ROADMAP.md Queue A item 3), so it
-    is always None: the reference's answer on a host with one device,
-    and an over-avatar request dispatches at its own shape."""
+    port has the distributed layer (``tpukernels_torch/parallel/``, a
+    process group with one rank a process) but no
+    ``registry.dispatch_mesh`` for a daemon to call, so it is always
+    None: the reference's answer on a host with one device, and an
+    over-avatar request dispatches at its own shape."""
     return None

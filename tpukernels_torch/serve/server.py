@@ -40,6 +40,12 @@ Everything above the dispatch is the reference's logic:
   its grace doubled once, a wedged worker is abandoned and replaced, and
   its request is requeued once (``serve_request_requeued``) before it
   fails loudly.
+- **Replay memo** (the port's own): a successful answer of a request that
+  carries a request_id is kept (``REPLAY_MEMO_*``: small answers, for a
+  while), and a replay of that request_id (``replay`` > 0, from a fleet
+  router's write-ahead log after the router died) is answered from it
+  instead of run again (``serve_request_deduped``), so a request that
+  the dead router had already forwarded is delivered once.
 
 What touches the device is the port's own. The daemon serves on the
 card (``TPKT_SERVE_DEVICE`` unset; with no card it refuses to start) or,
@@ -61,10 +67,10 @@ Observability: a ``serve/<kernel>`` span a request (and
 ``serve/wait/queue``, ``serve/wait/lock``, ``serve/pad``), the
 ``serve.*`` counters and histograms, and the ``serve_start``,
 ``serve_request``, ``serve_rejected``, ``serve_request_requeued``,
-``serve_request_expired``, ``serve_cancelled`` and ``serve_stop``
-journal kinds. The worker binds the client's ``request_id`` as its
-trace context (``trace.request_ctx``), so every span of a request
-carries it. The daemon prints nothing to stdout; notes go to stderr.
+``serve_request_expired``, ``serve_cancelled``,
+``serve_request_deduped`` and ``serve_stop`` journal kinds. The worker
+binds the client's ``request_id`` as its trace context
+(``trace.request_ctx``), so every span of a request carries it. The daemon prints nothing to stdout; notes go to stderr.
 
 Run it: ``python -m tpukernels_torch.serve [--socket PATH] [--queue-max
 N] [--workers N] [--batch-window-ms MS] [--request-timeout-s S]``. The
@@ -96,13 +102,19 @@ from tpukernels_torch.obs import metrics as obs_metrics
 from tpukernels_torch.obs import trace
 from tpukernels_torch.resilience import faults, journal, watchdog
 from tpukernels_torch.serve import bucketing, protocol
+from tpukernels_torch.serve.proc import (
+    DEFAULT_REQUEST_TIMEOUT_S,
+    float_knob,
+    hold_pidfile,
+    int_knob,
+    on_knob,
+)
 from tpukernels_torch.tuning import cache as tcache
 from tpukernels_torch.utils import pick_device
 
 DEFAULT_QUEUE_MAX = 64
 DEFAULT_WORKERS = 2
 DEFAULT_BATCH_WINDOW_MS = 2.0
-DEFAULT_REQUEST_TIMEOUT_S = 60.0
 
 # adaptive batching aims to gather about this many same-bucket
 # requests per window under burst: the window widens to ~7 projected
@@ -117,52 +129,23 @@ BATCH_TARGET = 8
 # client that died between our send and its map
 SHM_RESPONSE_GRACE_S = 120.0
 
+# the replay memo (``Server._memo_put``): answers kept by request_id so
+# that a replay of a request this daemon already ran is answered, not
+# run again. A fleet router that dies between its forward and the
+# answer's relay replays the request from its write-ahead log; only
+# requests up to the log's inline cap are replayed, so only answers
+# this small are kept, for as long as the router's own stash keeps a
+# replayed result unclaimed
+REPLAY_MEMO_MAX_B = 1 << 20       # one answer's payload bytes
+REPLAY_MEMO_TOTAL_B = 64 << 20    # all answers kept
+REPLAY_MEMO_TTL_S = 8 * DEFAULT_REQUEST_TIMEOUT_S + 30
+
 # kernel-level SO_SNDTIMEO on accepted sockets: a client that stops
 # READING (SIGSTOP'd, hung) would otherwise block a worker forever in
 # sendall once the response outgrows the socket buffer — invisibly to
 # the watchdog, which tracks dispatch, not delivery. Send-only, so an
 # idle client's connection (blocked in recv on our side) lives forever.
 SEND_TIMEOUT_S = 30.0
-
-
-def _int_knob(name: str, default: int, floor: int = 1) -> int:
-    raw = os.environ.get(name)
-    if raw is None or not raw.strip():
-        return default
-    try:
-        val = int(raw)
-    except ValueError:
-        val = floor - 1
-    if val < floor:
-        raise ValueError(
-            f"{name}={raw!r}: expected an int >= {floor}"
-        )
-    return val
-
-
-def _float_knob(name: str, default: float, floor: float = 0.0) -> float:
-    raw = os.environ.get(name)
-    if raw is None or not raw.strip():
-        return default
-    try:
-        val = float(raw)
-    except ValueError:
-        val = floor - 1.0
-    if val < floor:
-        raise ValueError(
-            f"{name}={raw!r}: expected a number >= {floor}"
-        )
-    return val
-
-
-def _on_knob(name: str, default: bool = True) -> bool:
-    """An on-by-default switch knob (the TPKT_AOT_CACHE convention):
-    ``0``/``off``/``none``/``false`` disable, anything else keeps the
-    default."""
-    raw = os.environ.get(name)
-    if raw is None or not raw.strip():
-        return default
-    return raw.strip().lower() not in ("0", "off", "none", "false")
 
 
 class _Request:
@@ -327,19 +310,19 @@ class Server:
             self._probe_buf = torch.zeros(1, device=self.device)
         self.socket_path = socket_path or _cachedir.serve_socket_path()
         self.queue_max = (queue_max if queue_max is not None
-                          else _int_knob("TPKT_SERVE_QUEUE_MAX",
+                          else int_knob("TPKT_SERVE_QUEUE_MAX",
                                          DEFAULT_QUEUE_MAX))
         self.workers = (workers if workers is not None
-                        else _int_knob("TPKT_SERVE_WORKERS",
+                        else int_knob("TPKT_SERVE_WORKERS",
                                        DEFAULT_WORKERS))
         self.batch_window_s = (
             batch_window_ms if batch_window_ms is not None
-            else _float_knob("TPKT_SERVE_BATCH_WINDOW_MS",
+            else float_knob("TPKT_SERVE_BATCH_WINDOW_MS",
                              DEFAULT_BATCH_WINDOW_MS)
         ) / 1000.0
         self.request_timeout_s = (
             request_timeout_s if request_timeout_s is not None
-            else _float_knob("TPKT_SERVE_REQUEST_TIMEOUT_S",
+            else float_knob("TPKT_SERVE_REQUEST_TIMEOUT_S",
                              DEFAULT_REQUEST_TIMEOUT_S, floor=0.1)
         )
         self._q = _BoundedQueue(self.queue_max)
@@ -361,7 +344,7 @@ class Server:
         # continuous batching: the admission path tracks an
         # inter-arrival EWMA (fast attack — one short gap IS a burst —
         # slow release) the coalescing window is derived from
-        self.batch_adapt = _on_knob("TPKT_SERVE_BATCH_ADAPT")
+        self.batch_adapt = on_knob("TPKT_SERVE_BATCH_ADAPT")
         self._arrival_ewma = None
         self._last_arrival = None
         self._last_window_ms = 0.0
@@ -373,6 +356,10 @@ class Server:
         self._bytes_copied = 0
         self._shm_ledger: list = []         # (name, t) response segs
         self._pad_pool: dict = {}           # bucket -> {arg_i: buf}
+        # request_id -> (t, kernel, bucket, specs, payloads, nbytes)
+        self._memo: collections.OrderedDict = collections.OrderedDict()
+        self._memo_bytes = 0
+        self._deduped = 0
         # fail-fast: a misconfigured TPKT_SERVE_BUCKETS (typo'd path,
         # malformed JSON) must refuse to start the daemon, not surface
         # as a per-request "bad request" to every client — which capi
@@ -541,7 +528,8 @@ class Server:
             "op": "pong", "pid": os.getpid(),
             "served": self._served, "rejected": self._rejected,
             "requeued": self._requeued, "expired": self._expired,
-            "cancelled": self._cancelled, "depth": self._q.depth(),
+            "cancelled": self._cancelled, "deduped": self._deduped,
+            "depth": self._q.depth(),
             "inflight": inflight, "buckets": buckets,
             "worker_id": os.environ.get("TPKT_SERVE_WORKER_ID"),
             "queue_max": self.queue_max, "workers": self.workers,
@@ -599,6 +587,13 @@ class Server:
             # (kernels.LAUNCHES), how a caller shows its requests ran
             # through the hand-written kernels
             launches=dict(LAUNCHES),
+            # the port's own: the caching allocator's bytes on the card
+            # (None on the CPU), a worker's share of a card that several
+            # fleet workers hold
+            device_memory=(
+                {"allocated": torch.cuda.memory_allocated(self.device),
+                 "reserved": torch.cuda.memory_reserved(self.device)}
+                if self.device.type == "cuda" else None),
         )
         return base
 
@@ -662,6 +657,11 @@ class Server:
             serial = self._next_rid
         req_id = header.get("request_id")
         replay = header.get("replay")
+        if (req_id is not None and isinstance(replay, int)
+                and not isinstance(replay, bool) and replay > 0
+                and self._answer_from_memo(conn, rid, str(req_id),
+                                           kernel, bucket)):
+            return
         req = _Request(serial, rid if rid is not None else serial,
                        kernel, statics, arrays, spec, pad_frac,
                        bucket, conn, tenant=header.get("tenant"),
@@ -729,6 +729,53 @@ class Server:
             })
         except (OSError, protocol.ProtocolError):
             pass
+
+    def _memo_put(self, req: _Request, specs, payloads):
+        """Keep a delivered-or-not answer by its request_id (module
+        constants ``REPLAY_MEMO_*``); the oldest answers go first."""
+        nbytes = sum(len(p) for p in payloads)
+        if nbytes > REPLAY_MEMO_MAX_B:
+            return
+        now = time.perf_counter()
+        with self._lock:
+            old = self._memo.pop(req.request_id, None)
+            if old is not None:
+                self._memo_bytes -= old[5]
+            self._memo[req.request_id] = (now, req.kernel, req.bucket,
+                                          specs, payloads, nbytes)
+            self._memo_bytes += nbytes
+            while self._memo and (
+                    self._memo_bytes > REPLAY_MEMO_TOTAL_B
+                    or now - next(iter(self._memo.values()))[0]
+                    > REPLAY_MEMO_TTL_S):
+                self._memo_bytes -= self._memo.popitem(last=False)[1][5]
+
+    def _answer_from_memo(self, conn, rid, req_id: str, kernel: str,
+                          bucket: str) -> bool:
+        """Answer a replayed request (``replay`` > 0) that this daemon
+        already ran from its kept answer, without running it again:
+        kernels are pure, so the answer is the same, and the request_id
+        is delivered once. False when no answer of the same kernel and
+        bucket is kept (the request then runs)."""
+        with self._lock:
+            hit = self._memo.get(req_id)
+            if hit is None or hit[1] != kernel or hit[2] != bucket:
+                return False
+            self._deduped += 1
+        _t, _k, _b, specs, payloads, _n = hit
+        obs_metrics.inc("serve.replays_deduped")
+        journal.emit(
+            "serve_request_deduped", kernel=kernel, request=rid,
+            request_id=req_id, bucket=bucket,
+            worker_id=os.environ.get("TPKT_SERVE_WORKER_ID"),
+        )
+        try:
+            sent = conn.send({"v": protocol.VERSION, "id": rid, "ok": True,
+                              "outputs": specs, "deduped": True}, payloads)
+        except (OSError, protocol.ProtocolError):
+            return True
+        self._count_copied(kernel, sent)
+        return True
 
     def _cancel(self, header: dict) -> dict:
         """The best-effort ``cancel`` op (docs/SERVING.md §deadlines):
@@ -1101,6 +1148,7 @@ class Server:
             obs_metrics.observe(f"serve.wall_s.{req.kernel}", wall)
             header = {"v": protocol.VERSION, "id": req.rid, "ok": True,
                       "outputs": specs}
+            payloads_kept = payloads
             if req.shm_ok and self._shm:
                 # response lane: big outputs land in segments the
                 # client maps-and-unlinks; only names ride the wire.
@@ -1123,6 +1171,8 @@ class Server:
             payloads = ()
         if req.request_id is not None:
             obs_metrics.inc("serve.requests_traced")
+            if error is None:
+                self._memo_put(req, specs, payloads_kept)
         journal.emit(
             "serve_request", kernel=req.kernel, request=req.rid,
             request_id=req.request_id,
@@ -1321,43 +1371,6 @@ class Server:
 # CLI entry (python -m tpukernels_torch.serve)                       #
 # ------------------------------------------------------------------ #
 
-def _hold_pidfile(path: str):
-    """Write-and-flock the daemon pidfile for the process lifetime —
-    the revalidate_lib.sh watcher-lock convention: liveness is the
-    flock, the recorded pid is the diagnosis. Returns the held fd
-    (kept open) or raises RuntimeError when another daemon holds it."""
-    import fcntl
-
-    d = os.path.dirname(path)
-    if d:
-        os.makedirs(d, exist_ok=True)
-    # a+ so a losing contender can never truncate the holder's pid
-    f = open(path, "a+")
-    # a few NB retries: serve_ctl's liveness probe takes the flock for
-    # a flash — a status check racing our startup must not read as
-    # "another daemon" and abort us
-    for attempt in range(5):
-        try:
-            fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
-            break
-        except OSError:
-            if attempt < 4:
-                time.sleep(0.1)
-                continue
-            f.seek(0)
-            pid = f.readline().strip()
-            f.close()
-            raise RuntimeError(
-                f"another serve daemon holds {path}"
-                + (f" (pid {pid})" if pid else "")
-            ) from None
-    f.seek(0)
-    f.truncate()
-    f.write(f"{os.getpid()}\n")
-    f.flush()
-    return f
-
-
 def main(argv=None):
     import signal
 
@@ -1411,7 +1424,7 @@ def main(argv=None):
               "versions on the CPU)", file=sys.stderr)
         return 2
     try:
-        pidfile = _hold_pidfile(_cachedir.serve_pidfile_path())
+        pidfile = hold_pidfile(_cachedir.serve_pidfile_path())
     except RuntimeError as e:
         print(f"serve: {e}", file=sys.stderr)
         return 3
