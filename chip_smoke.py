@@ -28,7 +28,8 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    sizes, in every (r, s) instantiation, and twice bit for bit, its
    single-set entry bitwise the ij entry (``tpkt_nbody_forces_ij``) with
    the i-set the j-set (with ``--parent DIR``, also bitwise the same
-   entry built from DIR), and the ij entry at the distributed forms'
+   entry built from DIR), N-body at 0 and -1 steps giving new tensors
+   with the inputs' values, and the ij entry at the distributed forms'
    shapes and ragged ones against its plain version;
 4. drives the main path end to end — ``registry.dispatch`` of
    ``vector_add``, ``sgemm``, ``stencil2d``, ``stencil3d``, ``nbody``,
@@ -53,8 +54,9 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    at the second, ``nan_output`` on stencil3d at tier 1,
    ``corrupt_output`` on histogram at tier 2) read back from the
    journal, then a clean deep check; the cost of the guard (the wrapper
-   alone, and dispatch with the guard off, as a tripwire and full, host
-   clock, in turns), each key's first-trust canary split into its
+   alone, dispatch with the guard and the compile discipline off, with
+   the guard off, as a tripwire and full, host clock, in turns), each
+   key's first-trust canary split into its
    kernel run and its CPU oracle, and the device's idle share over
    guarded dispatches (``torch.profiler``, "not measured" when it shows
    no device time);
@@ -110,13 +112,16 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    classified at site ``serve``, answered right); ``vector_add --check``
    through the port's shim with ``TPKT_SERVE_SOCKET`` (served by the
    daemon, under its pid); SIGTERM (rc 0, socket and pidfile gone,
-   ``serve_stop``); and that neither daemon built a library. It prints
-   one ``{"serve": ...}`` JSON line.
+   ``serve_stop``); and that neither daemon built a library. The
+   daemon's ``device_inventory`` stamp is read back from its journal. It
+   prints one ``{"serve": ...}`` JSON line.
 
 8. runs the distributed layer (``tpukernels_torch.parallel``): (a) one
    rank on NCCL (a group of one: NCCL takes one rank a card), the
    bandwidth sweeps 1 KiB-64 MiB (allreduce and ppermute; the n = 1
-   copy rate), ``allreduce_sum`` at 2^20 floats, then each distributed
+   copy rate), the sweep's CLI, whose probed ``device_inventory`` stamp
+   must read the card (platform ``cuda``, its device kind, not fake),
+   ``allreduce_sum`` at 2^20 floats, then each distributed
    entry at its configuration of record (2-D 4096^2 x 1000 and 3-D
    384^3 x 8 at k = 4, scan and histogram at 2^22 with 256 bins, N-body
    psum and ring at 65 536 bodies, 1 step) with the launch counters
@@ -157,8 +162,23 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    WAL holds it, two clients ride through on their reconnect budget,
    one ``serve_request`` a request_id. (8) ``stop-fleet``: no member, socket,
    pidfile, fleet.json or ``tpkserve-*`` segment left; no library built.
-   It prints one ``{"fleet": ...}`` JSON line; each kernel entry gains
-   ``fleet_launches``.
+   The router's and the workers' ``device_inventory`` stamps are read
+   back from the fleet's journal. It prints one ``{"fleet": ...}`` JSON
+   line; each kernel entry gains ``fleet_launches``.
+
+10. runs the compile discipline (``tpukernels_torch.aot``): ``python -m
+   tpukernels_torch.prewarm --check`` in processes of their own over the
+   libraries phase 2 built, with a fresh manifest: every key a miss,
+   then every key a hit, then under ``TPKT_SGEMM_DEPTH=3
+   TPKT_SCANHIST_FUSE=on`` new keys that load B2's and B11's libraries,
+   and ``TPKT_AOT_CACHE=0`` exiting 1; each key's cold and warm wall and
+   each library's build seconds (phase 2), registers, shared memory and
+   spills. In a process with a fresh memo (``aot_child``) every key is
+   precompiled and then dispatched at its avatar, loading no library the
+   precompile had not; a ``corrupt_output`` on histogram drops its
+   manifest rows and no other, and the next dispatch is an ``aot_miss``
+   and exact. It prints what the memo adds to a dispatch (phase 4b's
+   turns) and one ``{"aot": ...}`` JSON line.
 
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -468,6 +488,10 @@ def phase_toolchain(torch):
     return card
 
 
+# each library's nvcc seconds in phase 2 (phase 10 prints them)
+BUILD_SECONDS: dict = {}
+
+
 def phase_build():
     log("== phase 2: build")
     from tpukernels_torch import _build
@@ -475,26 +499,23 @@ def phase_build():
     t0 = time.perf_counter()
     secs = _build.build()
     wall = time.perf_counter() - t0
+    BUILD_SECONDS.update(secs)
     for name, s in secs.items():
         log(f"built {name}.cu in {s:.1f} s")
     log(f"build wall: {wall:.1f} s ({len(secs)} compiled, "
         f"{len(_build.SOURCES) - len(secs)} already built)")
     for name in _build.SOURCES:
-        logf = _build.library_path(name).with_suffix(".log")
-        if not logf.exists():
+        rep = _build.ptxas_report(name)
+        if rep is None:
             continue
-        text = logf.read_text()
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-        stores = sum(map(int, re.findall(r"(\d+) bytes spill stores", text)))
-        loads = sum(map(int, re.findall(r"(\d+) bytes spill loads", text)))
-        log(f"ptxas {name}: {len(regs)} kernels, registers "
-            f"{min(regs, default=0)}..{max(regs, default=0)} a thread, "
+        stores, loads = rep["spill_stores"], rep["spill_loads"]
+        log(f"ptxas {name}: {rep['kernels']} kernels, registers "
+            f"{rep['registers_min']}..{rep['registers']} a thread, "
             f"spill stores {stores} B, spill loads {loads} B, "
-            f"{len(re.findall('serializ', text))} wgmma serialisation "
-            "warnings")
+            f"{rep['wgmma_serialisation']} wgmma serialisation warnings")
         # the Jacobi wavefronts keep every level in registers, N-body its
         # i-bodies and sums
-        if name in ("jacobi2d", "jacobi3d", "nbody") and (stores or loads):
+        if name in _build.SPILL_FREE and (stores or loads):
             raise AssertionError(f"ptxas spills in {name}: the registers "
                                  "the design keeps its state in overflowed")
     # what the SGEMM kernels were compiled to: HGMMA is wgmma, UTMALDG a
@@ -746,6 +767,16 @@ def nbody_checks(torch, gen):
                                  "give NaN everywhere")
     log("PASS nbody eps=0: every output NaN in kernel and plain version "
         "(self-pairs 0*inf), as the reference")
+    # no step (steps <= 0, the reference's empty fori_loop): the inputs'
+    # values in new tensors, never the caller's own
+    for steps in (0, -1):
+        out = NB.nbody_step(*b, steps=steps)
+        shared = {t.data_ptr() for t in b} & {t.data_ptr() for t in out}
+        check_exact(f"nbody steps={steps} vs its inputs", stacked(out),
+                    stacked(tuple(b[:6])))
+        if shared:
+            raise AssertionError(f"nbody steps={steps} returned an input")
+    log("PASS nbody steps 0 and -1: new tensors, the inputs' values")
     return err
 
 
@@ -1380,11 +1411,13 @@ def guard_clean(metrics, where):
 
 # the guard-cost turns: the wrapper alone, the wrapper with a
 # synchronise after each call (what a synchronise a call costs by
-# itself), then registry.dispatch with the guard off (TPKT_INTEGRITY=0),
-# as a tripwire and full
-GUARD_TURNS = ("wrapper", "synced", "off", "tripwire", "full", "full",
-               "tripwire", "off", "synced", "wrapper")
-GUARD_KNOB = {"off": "0", "tripwire": "tripwire", "full": None}
+# itself), registry.dispatch with the guard and the compile discipline
+# off (bare: TPKT_INTEGRITY=0 TPKT_AOT_CACHE=0), then with the guard off
+# (TPKT_INTEGRITY=0; off - bare is the compile discipline's memo), as a
+# tripwire and full
+GUARD_TURNS = ("wrapper", "synced", "bare", "off", "tripwire", "full",
+               "full", "tripwire", "off", "bare", "synced", "wrapper")
+GUARD_KNOB = {"bare": "0", "off": "0", "tripwire": "tripwire", "full": None}
 GUARD_CALLS = 64  # calls a turn: one sampled canary a full turn
 
 
@@ -1539,7 +1572,8 @@ def phase_guarded(torch, of_record, peaks):
                 else:
                     call = lambda: registry.dispatch(  # noqa: E731
                         name, *args, **st)
-                with knobs(TPKT_INTEGRITY=GUARD_KNOB.get(mode)):
+                with knobs(TPKT_INTEGRITY=GUARD_KNOB.get(mode),
+                           TPKT_AOT_CACHE="0" if mode == "bare" else None):
                     call()
                     call()
                     torch.cuda.synchronize()
@@ -1556,7 +1590,9 @@ def phase_guarded(torch, of_record, peaks):
             "tripwire_floor_ms": trip_bytes / bw * 1e3}
         c = costs[f"{name} {label}"]
         log(f"guard cost {name} {label}: wrapper {c['wrapper']:.4f} ms, "
-            f"synchronised {c['synced']:.4f}, "
+            f"synchronised {c['synced']:.4f}, dispatch bare "
+            f"{c['bare']:.4f} (compile discipline's memo "
+            f"{(c['off'] - c['bare']) * 1e3:.2f} us a call), "
             f"dispatch off {c['off']:.4f}, tripwire {c['tripwire']:.4f}, "
             f"full {c['full']:.4f} (host clock, {GUARD_CALLS} calls a turn, "
             f"turns {json.dumps({m: [round(x, 4) for x in v] for m, v in ms.items()})}); "
@@ -2958,6 +2994,23 @@ def serve_same(torch, label, got, want):
                     host_tensor(torch, w))
 
 
+def inventory_stamp(where, events, site, pid):
+    """The one ``device_inventory`` event process ``pid`` stamped at
+    ``site`` among ``events``, with the reference's keys; fails
+    otherwise."""
+    from tpukernels_torch.obs import scaling
+
+    got = [e for e in events if e.get("kind") == "device_inventory"
+           and e.get("site") == site and e.get("pid") == pid]
+    if len(got) != 1 or not set(scaling.inventory()) <= set(got[0]):
+        raise AssertionError(f"{where}: {len(got)} device_inventory stamps "
+                             f"at {site} by pid {pid}: {got}")
+    inv = {k: got[0][k] for k in scaling.inventory()}
+    log(f"PASS {where} device_inventory at {site} (pid {pid}): "
+        + json.dumps(inv))
+    return inv
+
+
 class ServeDaemon:
     """One ``python -m tpukernels_torch.serve`` child on the card, its
     socket, pidfile, journal, integrity state and tuning cache in
@@ -2974,6 +3027,7 @@ class ServeDaemon:
                    TPKT_HEALTH_JOURNAL=self.journal,
                    TPKT_INTEGRITY_DIR=os.path.join(self.dir, "integrity"),
                    TPKT_TUNING_CACHE_DIR=os.path.join(root, "tuning"),
+                   TPKT_AOT_DIR=os.path.join(root, "aot"),
                    TPKT_TRACE="1", **env_extra)
         self.out = open(os.path.join(self.dir, "stdout.txt"), "w")
         self.err = open(os.path.join(self.dir, "stderr.txt"), "w")
@@ -3227,6 +3281,7 @@ def serve_drive(torch, times, rates, args, main_d, chaos_d, c_built, kept):
     before = main_d.stats()["launches"]
     if any(before.values()):
         raise AssertionError(f"a fresh daemon counts launches: {before}")
+    inventory_stamp("serve", main_d.events(), "serve", pong["pid"])
 
     # 2. every key at its avatar, inline then shm, bitwise against the
     # in-process dispatch and against the oracle
@@ -3625,6 +3680,7 @@ def dist_nccl(torch, times, peaks, state, seed):
     from tpukernels_torch.kernels import LAUNCHES, reset_launches
     from tpukernels_torch.obs import metrics
     from tpukernels_torch.parallel import busbw, collectives as C, make_mesh
+    from tpukernels_torch.resilience import journal
 
     with knobs(TPKT_COORDINATOR_ADDRESS=f"file://{state}/nccl_rendezvous",
                TPKT_NUM_PROCESSES="1", TPKT_PROCESS_ID="0"):
@@ -3639,6 +3695,18 @@ def dist_nccl(torch, times, peaks, state, seed):
         sweeps = {op: [{"bytes": s, "seconds": t, "gb_s": g}
                        for s, t, g in busbw.sweep(mesh=mesh, op=op)]
                   for op in ("allreduce", "ppermute")}
+        # the sweep's CLI on the same group: its probed inventory stamp
+        since = len(journal.load_events([journal.path()])[0])
+        if busbw.main(["--min=1KB", "--max=1KB", "--reps=1"]) != 0:
+            raise AssertionError("8a: busbw's CLI failed")
+        inv = inventory_stamp("8a busbw", journal.load_events(
+            [journal.path()])[0][since:], "busbw", os.getpid())
+        kind = torch.cuda.get_device_name(0).lower().replace(" ", "_")
+        if (inv["source"], inv["platform"], inv["device_kind"],
+                inv["fake"]) != ("torch", "cuda", kind, False):
+            raise AssertionError(f"8a busbw's stamp is not the card's: {inv}")
+        log(f"PASS 8a busbw's stamp reads the card: {inv['device_kind']}, "
+            "fake false")
         x = torch.randn(1, 1 << 20, device="cuda")
         check_exact("8a allreduce_sum 2^20 floats, world 1 (nccl)",
                     C.allreduce_sum(x, mesh), x)
@@ -3938,6 +4006,7 @@ class Fleet:
                    TPKT_HEALTH_JOURNAL=self.journal,
                    TPKT_INTEGRITY_DIR=os.path.join(root, "integrity"),
                    TPKT_TUNING_CACHE_DIR=os.path.join(root, "tuning"),
+                   TPKT_AOT_DIR=os.path.join(root, "aot"),
                    **FLEET_ENV)
         self.env = env
 
@@ -4156,6 +4225,9 @@ def fleet_drive(torch, fl, serve, avatars, args):
            f"{apps} (lists none of the fleet's pids: not in this pid "
            "namespace)")
         + f"; the card's memory.used {used0} -> {used1} MiB")
+    inventory_stamp("fleet", fl.events(), "serve_router", rpid)
+    for w in workers:
+        inventory_stamp("fleet", fl.events(), "serve", w)
 
     # 2. the nine avatars through the front socket, both lanes, bitwise
     # phase 7's daemon; each bucket served by its ring home
@@ -4574,6 +4646,235 @@ def fleet_kill_router(fl, pids):
             "requests": len(ok), "burst_s": burst_s}
 
 
+# ---------------------------------------------------------------- phase 10
+
+# the knobs of phase 10's third prewarm: SGEMM at depth 3 (B2's library)
+# and the fused scan + histogram (B11's)
+AOT_KNOBS = {"TPKT_SGEMM_DEPTH": "3", "TPKT_SCANHIST_FUSE": "on"}
+
+
+def aot_env(root, journal_name, **extra):
+    """A child's env: no knob of this process, the manifest, integrity
+    state and tuning cache in ``root``, a journal of its own."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPKT_")}
+    env.update(PYTHONPATH=REPO, TPKT_AOT_DIR=os.path.join(root, "aot"),
+               TPKT_INTEGRITY_DIR=os.path.join(root, "integrity"),
+               TPKT_TUNING_CACHE_DIR=os.path.join(root, "tuning"),
+               TPKT_HEALTH_JOURNAL=os.path.join(root, journal_name), **extra)
+    return env
+
+
+def prewarm_child(root, tag, **extra):
+    """``python -m tpukernels_torch.prewarm --check`` in a process of its
+    own: its rc, wall seconds (the process's start included), its
+    ``prewarm_kernel`` events by kernel and its output."""
+    from tpukernels_torch.resilience import journal
+
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "tpukernels_torch.prewarm",
+                        "--check"], cwd=REPO,
+                       env=aot_env(root, f"{tag}.jsonl", **extra),
+                       capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    events = journal.load_events([os.path.join(root, f"{tag}.jsonl")])[0]
+    rows = {e["kernel"]: e for e in events
+            if e.get("kind") == "prewarm_kernel"}
+    return p.returncode, wall, rows, p.stdout + p.stderr
+
+
+def phase_compile(torch, guarded):
+    """Phase 10: the compile discipline on the card (item 10 of the
+    module docstring)."""
+    log("== phase 10: the compile discipline (python -m "
+        "tpukernels_torch.prewarm)")
+    from tpukernels_torch import _build, aot
+
+    t_phase = time.perf_counter()
+    libs = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
+    root = tempfile.mkdtemp(prefix="tpkt_aot_")
+    keys = sorted(aot.BENCH_CONFIGS)
+    try:
+        # 1. prewarm cold, warm, under knobs, and with the layer off
+        runs = {}
+        for tag, want, extra in (("cold", "miss", {}), ("warm", "hit", {}),
+                                 ("knobs", "miss", AOT_KNOBS)):
+            rc, wall, rows, out = prewarm_child(root, tag, **extra)
+            bad = [k for k in keys if k not in rows
+                   or rows[k]["status"] != "ok"
+                   or rows[k]["expected"] != want]
+            if rc != 0 or bad or len(rows) != len(keys):
+                raise AssertionError(f"10 prewarm {tag}: rc {rc}, keys not "
+                                     f"{want}: {bad}\n{out[-3000:]}")
+            runs[tag] = {"wall_s": round(wall, 3), "rows": rows}
+            log(f"PASS 10 prewarm --check {tag}"
+                + (f" ({' '.join(f'{k}={v}' for k, v in extra.items())})"
+                   if extra else "")
+                + f": rc 0, every key a {want}, {wall:.1f} s with the "
+                "process's start")
+        knob_libs = {lib for r in runs["knobs"]["rows"].values()
+                     for lib in r["libraries"]}
+        fresh = {r["key"] for r in runs["knobs"]["rows"].values()}
+        if ({"sgemm_pipelined", "scan_histogram"} - knob_libs
+                or fresh & {r["key"] for r in runs["cold"]["rows"].values()}):
+            raise AssertionError(f"10 prewarm under {AOT_KNOBS}: libraries "
+                                 f"{sorted(knob_libs)}, keys {sorted(fresh)}")
+        log("PASS 10 the knobs' prewarm: new keys, B2's and B11's libraries "
+            "(sgemm_pipelined, scan_histogram) loaded")
+        rc, wall, rows, out = prewarm_child(root, "off", TPKT_AOT_CACHE="0")
+        if rc != 1 or rows or "TPKT_AOT_CACHE=0" not in out:
+            raise AssertionError(f"10 prewarm with the layer off: rc {rc}\n"
+                                 f"{out[-2000:]}")
+        log("PASS 10 prewarm with TPKT_AOT_CACHE=0: rc 1, nothing prewarmed")
+        for k in keys:
+            c, w, n = (runs[t]["rows"][k] for t in ("cold", "warm", "knobs"))
+            log(f"10 {k}: cold {c['wall_s'] * 1e3:.3f} ms (load "
+                f"{c['load_s'] * 1e3:.3f}, plan {c['plan_s'] * 1e3:.3f}, "
+                f"build {c['build_s'] * 1e3:.3f}), warm "
+                f"{w['wall_s'] * 1e3:.3f} ms, under the knobs "
+                f"{n['wall_s'] * 1e3:.3f} ms ({','.join(n['libraries'])})")
+        per_lib = {}
+        for tag in ("cold", "knobs"):
+            for r in runs[tag]["rows"].values():
+                per_lib.update(r["libraries"])
+        for lib, rep in sorted(per_lib.items()):
+            spilled = rep["spill_stores"] + rep["spill_loads"]
+            log(f"10 library {lib}: built in {BUILD_SECONDS.get(lib, 0.0):.1f}"
+                f" s (phase 2), {rep['registers']} registers, "
+                f"{rep['smem_bytes']} B smem, spills {spilled} B, "
+                f"{rep['wgmma_serialisation']} wgmma serialisation warnings")
+        # 2. a dispatch after precompile loads nothing; an integrity
+        # failure drops only its kernel's rows, and the next dispatch is
+        # a miss and right (a process of its own: a fresh memo)
+        child = os.path.join(root, "child.json")
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+                "sys.exit(chip_smoke.aot_child(sys.argv[2]))")
+        p = subprocess.run([sys.executable, "-c", code, REPO, child],
+                           cwd=REPO, env=aot_env(root, "child.jsonl"),
+                           capture_output=True, text=True, timeout=600)
+        for line in p.stdout.splitlines():
+            log(line)
+        if p.returncode != 0:
+            raise AssertionError(f"10 the precompile child: rc "
+                                 f"{p.returncode}\n{p.stderr[-4000:]}")
+        with open(child) as f:
+            checked = json.load(f)
+        # 3. what the memo adds to a dispatch: phase 4b's turns
+        memo = {lbl: round((c["off"] - c["bare"]) * 1e3, 3)
+                for lbl, c in guarded["costs"].items()}
+        over = {lbl: round((c["off"] - c["wrapper"]) * 1e3, 3)
+                for lbl, c in guarded["costs"].items()}
+        log("10 dispatch memo (phase 4b, guard off minus guard and compile "
+            f"discipline off), us a call: {json.dumps(memo)}")
+        log("10 dispatch with the guard off over the wrapper alone, us a "
+            f"call: {json.dumps(over)}")
+        after = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
+        if after != libs:
+            raise AssertionError(f"10: a child built a library: {libs} -> "
+                                 f"{after}")
+        log(f"PASS 10 children built nothing ({len(libs)} libraries)")
+        out = {"prewarm": {t: {"wall_s": r["wall_s"], "keys": {
+                   k: {f: v[f] for f in ("expected", "wall_s", "build_s",
+                                         "load_s", "plan_s")}
+                   for k, v in r["rows"].items()}} for t, r in runs.items()},
+               "libraries": per_lib, "build_s": dict(BUILD_SECONDS),
+               "memo_us": memo, "off_over_wrapper_us": over, **checked,
+               "phase_s": round(time.perf_counter() - t_phase, 3)}
+        log(f"phase 10 wall {out['phase_s']:.1f} s")
+        print(json.dumps({"aot": out}), flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def aot_child(out_path):
+    """Phase 10's process with a fresh memo: every key precompiled on the
+    card, then dispatched at its avatar (seeded operands) loading no
+    library the precompile had not loaded and ensuring nothing more, also
+    under :data:`AOT_KNOBS` for SGEMM and scan_histogram; then a
+    ``corrupt_output`` on histogram's result: the guard's failure drops
+    histogram's manifest rows and only those, and the next dispatch is an
+    ``aot_miss`` and exact. Writes its findings to ``out_path``."""
+    import numpy as np
+    import torch
+
+    from tpukernels_torch import _build, aot, interop, registry
+    from tpukernels_torch.obs import metrics
+    from tpukernels_torch.resilience import faults, integrity, journal
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(10)
+    checked = {"no_new_library": []}
+    for env, names in (({}, sorted(aot.BENCH_CONFIGS)),
+                       (AOT_KNOBS, ("sgemm", "scan_histogram"))):
+        with knobs(**env):
+            for key in names:
+                row = registry.precompile(key)
+                spec = aot.BENCH_CONFIGS[key]
+                statics = dict(spec["statics"])
+                args = interop.to_port(key, serve_operands(
+                    rng, key, [s for _, s in spec["args"]], statics))
+                held, ensured = set(_build._LIBS), metrics.counter(
+                    "aot.ensures")
+                registry.dispatch(key, *args, **statics)
+                torch.cuda.synchronize()
+                new = set(_build._LIBS) - held
+                if new or metrics.counter("aot.ensures") != ensured:
+                    raise AssertionError(
+                        f"{key} {env}: the dispatch after precompile loaded "
+                        f"{sorted(new)}, ensured "
+                        f"{metrics.counter('aot.ensures') - ensured} more")
+                checked["no_new_library"].append(
+                    {"key": row["key"], "libraries": row["libraries"]})
+                log(f"PASS 10 {key}{' ' + json.dumps(env) if env else ''}: "
+                    f"the dispatch after precompile loaded no library and "
+                    f"ensured nothing ({','.join(row['libraries'])} held)")
+                del args
+    # the integrity failure
+    path = aot.manifest_path()
+
+    def rows():
+        with open(path) as f:
+            return set(json.load(f)["entries"])
+
+    x = interop.to_port("histogram", serve_operands(
+        rng, "histogram", [(1 << 22,)], {"nbins": 256}))[0]
+    before = rows()
+    hist = {k for k in before if k.split("|")[0].split("@")[0] == "histogram"}
+    since = len(journal.load_events([journal.path()])[0])
+    with knobs(TPKT_FAULT_PLAN=json.dumps({"corrupt_output": {
+            "kernel": "histogram", "site": "registry"}}),
+               TPKT_INTEGRITY_SAMPLE="1"):
+        faults.reload_plan()
+        registry.dispatch("histogram", x, nbins=256)
+        torch.cuda.synchronize()
+    faults.reload_plan()
+    events = journal.load_events([journal.path()])[0][since:]
+    failed = [e for e in events if e["kind"] == "output_integrity_failed"]
+    left = rows()
+    if (len(failed) != 1 or set(failed[0]["aot_manifest_dropped"]) != hist
+            or left != before - hist or not hist):
+        raise AssertionError(f"10 integrity failure: events {failed}, "
+                             f"rows {sorted(before)} -> {sorted(left)}")
+    log(f"PASS 10 an integrity failure on histogram dropped its {len(hist)} "
+        f"manifest rows and no other ({len(left)} left), memo "
+        f"{failed[0]['aot_memo_dropped']}, plans "
+        f"{failed[0]['plan_memo_dropped']}")
+    since = len(journal.load_events([journal.path()])[0])
+    got = registry.dispatch("histogram", x, nbins=256)
+    want = integrity.oracle("histogram")(x.cpu(), 256)
+    check_exact("10 histogram after the invalidation vs oracle", got.cpu(),
+                want)
+    misses = [e for e in journal.load_events([journal.path()])[0][since:]
+              if e["kind"] == "aot_miss"]
+    if [e["key"].split("|")[0] for e in misses] != ["histogram@nbins=256"]:
+        raise AssertionError(f"10: after the invalidation {misses}")
+    log("PASS 10 the next histogram dispatch: one aot_miss, exact")
+    checked["invalidated"] = sorted(hist)
+    with open(out_path, "w") as f:
+        json.dump(checked, f)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4590,13 +4891,16 @@ def main(argv=None):
         return 2
     import tpukernels_torch  # noqa: F401  (fails outside the repository)
 
-    # the integrity guard's state and the journal live in a temporary
-    # directory; the guard runs as shipped (no plan, full, sample 64)
+    # the integrity guard's state, the compile discipline's manifest and
+    # the journal live in a temporary directory; the guard runs as
+    # shipped (no plan, full, sample 64), the compile discipline on
     state = tempfile.mkdtemp(prefix="tpkt_smoke_")
     for var in ("TPKT_FAULT_PLAN", "TPKT_INTEGRITY", "TPKT_INTEGRITY_SAMPLE",
-                "TPKT_INTEGRITY_QUARANTINE_AFTER", "TPKT_TRACE"):
+                "TPKT_INTEGRITY_QUARANTINE_AFTER", "TPKT_TRACE",
+                "TPKT_AOT_CACHE"):
         os.environ.pop(var, None)
     os.environ["TPKT_INTEGRITY_DIR"] = os.path.join(state, "integrity")
+    os.environ["TPKT_AOT_DIR"] = os.path.join(state, "aot")
     os.environ["TPKT_HEALTH_JOURNAL"] = os.path.join(state, "health.jsonl")
     try:
         return run_all(torch, args)
@@ -4625,6 +4929,7 @@ def run_all(torch, args):
     dist = phase_dist(torch, times, peaks, args)
     fleet = phase_fleet(torch, serve, avatars, args)
     del avatars
+    phase_compile(torch, guarded)
 
     # B3/B4, B5/B6 and B9/B10 share an entry: the dict keeps B4, B6 and
     # B10, and B3, B5 and B10 stand in also_replaces

@@ -64,6 +64,7 @@ class _Rig:
         monkeypatch.setenv("TPK_INTEGRITY_DIR", str(self.ref_dir))
         monkeypatch.setenv("TPK_HEALTH_JOURNAL", str(self.ref_journal))
         monkeypatch.setenv("TPK_AOT_CACHE", "0")
+        monkeypatch.setenv("TPKT_AOT_CACHE", "0")
         for var in ("TPKT_INTEGRITY", "TPKT_INTEGRITY_SAMPLE",
                     "TPKT_INTEGRITY_QUARANTINE_AFTER", "TPKT_FAULT_PLAN",
                     "TPKT_TRACE", "TPK_INTEGRITY", "TPK_FAULT_PLAN"):

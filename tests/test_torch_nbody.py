@@ -90,6 +90,31 @@ def test_nbody_leaves_inputs_unchanged_and_zero_steps_copies():
         assert torch.equal(t, b)
 
 
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("steps", [0, -1])
+def test_nbody_no_step_returns_new_tensors(device, steps):
+    # the reference's fori_loop(0, steps, ...) gives its inputs back for
+    # any steps <= 0; the port gives copies, so writing into a result
+    # never reaches the caller's state
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the card's path runs on the card")
+    arrs = _bodies(96, seed=5)
+    ts = [torch.from_numpy(a).to(device) for a in arrs]
+    before = [t.clone() for t in ts]
+    out = N.nbody_step(*ts, steps=steps)
+    assert len(out) == 6
+    ptrs = {t.data_ptr() for t in ts}
+    assert not ptrs & {o.data_ptr() for o in out}
+    want = _jax(JN.nbody_step, arrs, steps=steps)
+    for o, w in zip(out, want):
+        np.testing.assert_array_equal(o.cpu().numpy(), w)
+    for o in out:
+        o.add_(1.0)
+    for t, b in zip(ts, before):
+        assert torch.equal(t, b)
+
+
 def test_nbody_rejects_bad_operands():
     ts = [torch.zeros(8) for _ in range(7)]
     with pytest.raises(ValueError, match="differ"):

@@ -12,6 +12,8 @@
   package and no JAX, and every knob it reads starts with ``TPKT_``.
 - The serving fleet's router, WAL, health manager, guardian, layout and
   ctl import no torch, and every knob they read starts with ``TPKT_``.
+- The compile discipline (``aot``, ``prewarm``) and the device inventory
+  (``obs/scaling``) import no torch when they are imported.
 """
 
 import ast
@@ -296,6 +298,10 @@ def test_launch_enters_the_device_only_when_it_is_not_current(monkeypatch,
 
 
 FAKE_NVCC = """#!/bin/sh
+if [ "$1" = "--version" ]; then
+  echo "Cuda compilation tools, release 0.0, V0.0.0"
+  exit 0
+fi
 echo $$ >> "{log}"
 sleep 1
 while [ $# -gt 0 ]; do
@@ -373,6 +379,40 @@ def test_fleet_processes_import_no_torch():
         "import importlib, sys\n"
         f"for m in {FLEET!r}:\n"
         "    importlib.import_module('tpukernels_torch.serve.' + m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'tpukernels'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT, env=env, timeout=120)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == ""
+
+
+# the compile discipline and the device inventory: the fleet's router
+# imports both, so they load no torch until a call needs it
+NO_TORCH_AT_IMPORT = ("tpukernels_torch.aot", "tpukernels_torch.obs.scaling",
+                      "tpukernels_torch.prewarm")
+
+
+def test_compile_discipline_is_under_the_rules():
+    mods = set(_port_modules())
+    assert set(NO_TORCH_AT_IMPORT) <= mods
+    for m in NO_TORCH_AT_IMPORT:
+        src = (ROOT / (m.replace(".", "/") + ".py")).read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|tpukernels\b(?!_))",
+                             src, re.M), m
+        read = re.findall(r"environ(?:\.get)?\(\s*\"(\w+)\"", src)
+        read += re.findall(r"env_raw\(\s*\"(\w+)\"", src)
+        assert all(k.startswith(("TPKT_", "CUDA_")) for k in read), read
+
+
+def test_compile_discipline_imports_no_torch():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {NO_TORCH_AT_IMPORT!r}:\n"
+        "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'jaxlib', 'tpukernels'))\n"
         "print(','.join(bad))\n"

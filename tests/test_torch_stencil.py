@@ -77,6 +77,18 @@ def test_jacobi2d_zero_iters_returns_copy():
     assert torch.equal(out, x) and out.data_ptr() != x.data_ptr()
 
 
+def test_jacobi2d_negative_iters_raises():
+    # a divergence by design: the port refuses negative iters in 2-D as
+    # in 3-D. The reference is inconsistent: its small path returns the
+    # input unchanged (held here), its blocked path runs iters mod k
+    # sweeps through divmod(iters, k) (tpukernels/kernels/stencil.py:236)
+    x = _grid((16, 16))
+    with pytest.raises(ValueError, match="negative"):
+        S.jacobi2d(torch.from_numpy(x), -1)
+    np.testing.assert_array_equal(np.asarray(JS.jacobi2d(jnp.asarray(x), -1)),
+                                  x)
+
+
 def _pass_by_plan(x, sweeps):
     """One pass as ``csrc/jacobi2d.cu`` computes it, from ``plan2d``: each
     warp's loaded window swept on its own (cells outside the grid 0, the

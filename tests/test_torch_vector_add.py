@@ -33,6 +33,15 @@ def test_saxpy_returns_new_tensor_and_leaves_y():
     assert torch.equal(y, y0)
 
 
+def test_saxpy_of_no_elements_is_empty():
+    # a divergence by design: the port returns an empty result, where
+    # the reference's tile arithmetic divides by zero
+    out = V.saxpy(0.7, torch.zeros(0), torch.zeros(0))
+    assert out.shape == (0,) and out.dtype == torch.float32
+    with pytest.raises(ZeroDivisionError):
+        jax_saxpy(0.7, jnp.zeros(0, jnp.float32), jnp.zeros(0, jnp.float32))
+
+
 def test_saxpy_rejects_bad_operands():
     x = torch.zeros(8)
     with pytest.raises(TypeError):

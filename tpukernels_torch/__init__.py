@@ -18,7 +18,10 @@ names follow the reference so each counterpart is easy to find:
 - ``tpukernels_torch.capi``      — the C entry the port's shim imports
 - ``tpukernels_torch.serve``     — the serving daemon
   (``python -m tpukernels_torch.serve``) and its client, on the
-  reference's wire; ``tpukernels_torch.aot`` holds its avatar table
+  reference's wire
+- ``tpukernels_torch.aot``       — the compile discipline (keys, the
+  manifest, the dispatch memo, precompile) and the avatar table;
+  ``python -m tpukernels_torch.prewarm`` drives it
 
 Importing the package is lazy: it imports no submodule and builds no
 kernel. A kernel is compiled the first time its wrapper is called on a

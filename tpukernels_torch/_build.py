@@ -3,9 +3,15 @@
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, built by ``nvcc`` for Hopper (``sm_90a``) into
 ``tpukernels_torch/_build/<name>-<hash>.so``. The hash covers the
-source, every header of ``csrc/`` and the flags, so an edited kernel
-or header is rebuilt and an unchanged one is loaded as it is. Several
-missing libraries are compiled in parallel, one ``nvcc`` each.
+source, every header of ``csrc/``, the flags and the toolkit
+(:func:`toolkit`: ``nvcc``'s release and ``torch.version.cuda``), so an
+edited kernel or header, or another toolkit, is rebuilt and an unchanged
+one is loaded as it is. Several missing libraries are compiled in
+parallel, one ``nvcc`` each. :func:`build` is the port's one compile
+choke point (the reference's ``aot.compile_jitted``): each library it
+compiles is an ``aot/build/<name>`` span (``obs/trace.py``) and a sample
+of the ``aot.build_s`` histogram (``obs/metrics.py``), and its ptxas
+report stays beside it (:func:`ptxas_report` reads it).
 
 Every C entry takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch;
@@ -34,6 +40,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -45,6 +52,9 @@ from pathlib import Path
 
 import torch
 
+from tpukernels_torch.obs import metrics as obs_metrics
+from tpukernels_torch.obs import trace
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -55,7 +65,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# the libraries whose design keeps its state in registers: a ptxas spill
+# in one of them is a failure (chip_smoke.py phase 2, the prewarm)
+SPILL_FREE = ("jacobi2d", "jacobi3d", "nbody")
+
 _LIBS: dict = {}  # name -> loaded ctypes.CDLL, once per process
+_TOOLKIT: dict = {}  # "nvcc" -> nvcc's release line, asked once per process
 _FUNCS: dict = {}  # C symbol -> its ctypes function, argtypes set
 # held while a library is built and loaded, or a function looked up:
 # two threads (the serving daemon's workers) must not both run nvcc for
@@ -79,8 +94,42 @@ def nvcc() -> str:
     )
 
 
+def nvcc_release() -> str:
+    """The release line of ``nvcc --version`` (``Cuda compilation tools,
+    release 12.9, V12.9.86``), or ``none`` where there is no ``nvcc``;
+    asked once per process, under :data:`_LOAD_LOCK`."""
+    rel = _TOOLKIT.get("nvcc")
+    if rel is None:
+        with _LOAD_LOCK:
+            rel = _TOOLKIT.get("nvcc")
+            if rel is None:
+                rel = _TOOLKIT["nvcc"] = _ask_nvcc()
+    return rel
+
+
+def _ask_nvcc() -> str:
+    try:
+        exe = nvcc()
+    except RuntimeError:
+        return "none"
+    try:
+        out = subprocess.run([exe, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return "none"
+    found = re.search(r"^.*\brelease\b.*$", out, re.M)
+    return found[0].strip() if found else "none"
+
+
+def toolkit() -> str:
+    """What a library's key holds of the toolkit: ``nvcc``'s release and
+    the CUDA that PyTorch was built for."""
+    return f"nvcc={nvcc_release()};torch.cuda={torch.version.cuda}"
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(toolkit().encode())
     for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -126,6 +175,9 @@ def _build_locked(names) -> dict:
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
+        trace.emit_span(f"aot/build/{name}", seconds[name],
+                        library=out.name, rc=proc.returncode)
+        obs_metrics.observe("aot.build_s", seconds[name])
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             failed.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
@@ -134,6 +186,31 @@ def _build_locked(names) -> dict:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return seconds
+
+
+def ptxas_report(name: str):
+    """What ptxas said when ``csrc/<name>.cu`` was built (the ``.log``
+    beside its library), or None when it is not built: its kernels'
+    count, registers a thread (least and most), shared memory a block
+    (most), spill stores and loads (bytes, summed) and the ``wgmma``
+    serialisation warnings."""
+    logf = library_path(name).with_suffix(".log")
+    if not logf.exists():
+        return None
+    text = logf.read_text()
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+    smem = [int(b) for b in re.findall(r"(\d+) bytes smem", text)]
+    return {
+        "kernels": len(regs),
+        "registers_min": min(regs, default=0),
+        "registers": max(regs, default=0),
+        "smem_bytes": max(smem, default=0),
+        "spill_stores": sum(map(int, re.findall(r"(\d+) bytes spill stores",
+                                                 text))),
+        "spill_loads": sum(map(int, re.findall(r"(\d+) bytes spill loads",
+                                                text))),
+        "wgmma_serialisation": len(re.findall("serializ", text)),
+    }
 
 
 def library(name: str) -> ctypes.CDLL:

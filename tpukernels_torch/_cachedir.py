@@ -1,8 +1,9 @@
 """Where the port keeps its state, and how it reads and writes it.
 
 The port's own copy of ``tuning_cache_path``, ``read_json_memoized``,
-``note_torn_artifact``, ``locked_json_update``, the integrity guard's
-paths and the serving daemon's paths in ``tpukernels/_cachedir.py``. The state lives in the repository's
+``note_torn_artifact``, ``locked_json_update``, the AOT manifest's path,
+the integrity guard's paths and the serving daemon's paths in
+``tpukernels/_cachedir.py``. The state lives in the repository's
 ``.tpkt_cache/`` (gitignored) unless an env var redirects it; the env is
 read on every call, so a test's redirect takes effect at once.
 """
@@ -26,6 +27,12 @@ def tuning_cache_path(env: dict | None = None) -> str:
     ``<repo>/.tpkt_cache/tuning.json``."""
     return os.path.join(_state_dir("TPKT_TUNING_CACHE_DIR", env),
                         "tuning.json")
+
+
+def aot_manifest_path(env: dict | None = None) -> str:
+    """The compile discipline's manifest (``aot.py``):
+    ``$TPKT_AOT_DIR/aot.json``, else ``<repo>/.tpkt_cache/aot.json``."""
+    return os.path.join(_state_dir("TPKT_AOT_DIR", env), "aot.json")
 
 
 def integrity_dir(env: dict | None = None) -> str:

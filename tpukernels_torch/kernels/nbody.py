@@ -232,7 +232,9 @@ def _eps2(eps) -> float:
 
 def _advance(forces, arrs, dt, eps, steps):
     """``steps`` steps of the reference's integration, with ``forces``
-    giving the accelerations."""
+    giving the accelerations. At ``steps <= 0`` no step runs, as the
+    reference's ``fori_loop(0, steps, ...)``, and the result is a copy of
+    the inputs, never the caller's own tensors."""
     px, py, pz, vx, vy, vz, m = arrs
     eps2 = _eps2(eps)
     for _ in range(int(steps)):
@@ -243,7 +245,7 @@ def _advance(forces, arrs, dt, eps, steps):
         px = px + vx * dt
         py = py + vy * dt
         pz = pz + vz * dt
-    if int(steps) == 0:
+    if int(steps) <= 0:
         return tuple(a.clone() for a in (px, py, pz, vx, vy, vz))
     return px, py, pz, vx, vy, vz
 

@@ -303,8 +303,7 @@ def sgemm(alpha, a, b, beta, c, precision: str | None = None):
     """alpha*A@B + beta*C as a new (m, n) float32 tensor."""
     m, n, k = _check(a, b, c)
     precision = _resolve_precision(precision)
-    p = plan_memo(TUNABLES, (m, n, k, precision, a.device.index), plan, m,
-                  n, k, precision, a.device)
+    p = launch_plan(m, n, k, precision, a.device)
     if a.device.type == "cpu":
         return sgemm_plain(alpha, a, b, beta, c, precision)
     if a.device.type != "cuda":
@@ -316,6 +315,13 @@ def sgemm(alpha, a, b, beta, c, precision: str | None = None):
     buf, ptrs, kp = _prepare(a, b, precision)
     return _launch(float(alpha), ptrs, kp, float(beta), c.contiguous(), out,
                    precision, p)
+
+
+def launch_plan(m: int, n: int, k: int, precision: str, device) -> dict:
+    """:func:`plan` of an (m, k) @ (k, n) call on ``device``, memoised
+    (:func:`tuning.plan_memo`)."""
+    return plan_memo(TUNABLES, (m, n, k, precision, device.index), plan, m,
+                     n, k, precision, device)
 
 
 def operands(a, b, precision):

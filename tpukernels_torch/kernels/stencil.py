@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -157,9 +158,21 @@ def jacobi2d(x, iters: int, k: int | None = None):
         return jacobi2d_plain(x, iters)
     if x.device.type != "cuda":
         raise ValueError(f"jacobi2d: unsupported device {x.device}")
-    for sweeps in set(passes(iters, k)) if x.numel() else ():
-        _plan_agrees(*x.shape, sweeps)
+    check_plans(tuple(x.shape), iters, k)
     return _passes_cuda("jacobi2d", _ARGTYPES, x.contiguous(), int(iters), k)
+
+
+def check_plans(shape, iters: int, k: int, sms: int | None = None) -> None:
+    """Hold the kernel's own geometry against :func:`plan2d`'s (2-D) or
+    :func:`plan3d`'s at ``sms`` SMs (3-D) for each pass of ``iters``
+    sweeps at ``k`` a launch, once per shape and sweep count."""
+    if not math.prod(shape):
+        return
+    for sweeps in set(passes(iters, k)):
+        if len(shape) == 2:
+            _plan_agrees(*shape, sweeps)
+        else:
+            _plan3d_agrees(*shape, sweeps, sms)
 
 
 def _passes_cuda(name, argtypes, x, iters, k, extra=()):
@@ -304,6 +317,17 @@ def _knobs3d(shape, device) -> dict:
                      resolve, TUNABLES[1], shape, "float32", device)
 
 
+def launch_knobs3d(shape, k, depth, device) -> tuple:
+    """``(k, depth)`` of a 3-D call on ``shape``: each as given, else
+    its knob (:func:`_knobs3d`), clamped (:func:`resolve_k`,
+    :func:`resolve_depth`)."""
+    if k is None or depth is None:
+        knobs = _knobs3d(shape, device)
+        k = knobs["k"] if k is None else k
+        depth = knobs["depth"] if depth is None else depth
+    return resolve_k(k, 3), resolve_depth(depth)
+
+
 def resolve_depth(depth=None, shape=None, device=None) -> int:
     """Plane slots of the 3-D kernel's ring: ``depth`` if given, else
     the knob ``depth`` (``TPKT_STENCIL_DEPTH`` > the tuning cache's entry
@@ -334,18 +358,13 @@ def jacobi3d(x, iters: int, k: int | None = None, depth: int | None = None):
     if int(iters) < 0:
         raise ValueError(f"jacobi3d: iters={iters} is negative")
     shape = tuple(x.shape)
-    if k is None or depth is None:
-        knobs = _knobs3d(shape, x.device)
-        k = knobs["k"] if k is None else k
-        depth = knobs["depth"] if depth is None else depth
-    k, depth = resolve_k(k, 3), resolve_depth(depth)
+    k, depth = launch_knobs3d(shape, k, depth, x.device)
     if x.device.type == "cpu":
         return jacobi3d_plain(x, iters)
     if x.device.type != "cuda":
         raise ValueError(f"jacobi3d: unsupported device {x.device}")
     sms = sm_count(x.device.index)
-    for sweeps in set(passes(iters, k)) if x.numel() else ():
-        _plan3d_agrees(*shape, sweeps, sms)
+    check_plans(shape, iters, k, sms)
     return _passes_cuda("jacobi3d", _ARGTYPES3D, x.contiguous(), int(iters),
                         k, (depth, sms))
 

@@ -1,3 +1,4 @@
 """Observability of the port: ``metrics`` (process-local counters,
-gauges and log-bucket histograms) and ``trace`` (nested spans into the
-journal of ``resilience/journal.py``, off unless ``TPKT_TRACE``)."""
+gauges and log-bucket histograms), ``trace`` (nested spans into the
+journal of ``resilience/journal.py``, off unless ``TPKT_TRACE``) and
+``scaling`` (the ``device_inventory`` stamp)."""

@@ -14,9 +14,10 @@ warm-up, each call synchronised: CUDA events on the card, the host clock
 on the CPU.
 
 Every point adds one to the ``scaling.busbw_points`` counter and emits a
-``busbw_point`` journal event. Stdout is the reference's line format
-byte for byte (the C driver greps it); a 2-D sweep appends
-`` mesh=RxC``.
+``busbw_point`` journal event; the CLI stamps a probed
+``device_inventory`` first (``obs/scaling.py``). Stdout is the
+reference's line format byte for byte (the C driver greps it); a 2-D
+sweep appends `` mesh=RxC``.
 
 CLI (on the card unless ``--device=cpu``):
 
@@ -36,6 +37,7 @@ import time
 import torch
 
 from tpukernels_torch.obs import metrics as obs_metrics
+from tpukernels_torch.obs import scaling
 from tpukernels_torch.parallel.collectives import allreduce_sum, ring_shift
 from tpukernels_torch.parallel.mesh import make_mesh
 from tpukernels_torch.resilience import journal
@@ -160,7 +162,10 @@ def main(argv=None) -> int:
         else:
             print(f"busbw: unknown argument {a!r}", file=sys.stderr)
             return 2
-    sweep(mesh=make_mesh(mesh_arg, device=device), **kw)
+    mesh = make_mesh(mesh_arg, device=device)
+    # the mesh first: the probe reads the process group it joined
+    scaling.emit_inventory("busbw", probe=True)
+    sweep(mesh=mesh, **kw)
     return 0
 
 

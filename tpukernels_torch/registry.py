@@ -16,6 +16,7 @@ from __future__ import annotations
 import time as _time
 from typing import Callable, Dict
 
+from tpukernels_torch import aot as _aot
 from tpukernels_torch.obs import metrics as _metrics
 from tpukernels_torch.obs import trace as _trace
 from tpukernels_torch.resilience import faults as _faults
@@ -140,7 +141,11 @@ def dispatch(name: str, *args, **statics):
     ``dispatch/<key>`` span opens (``obs/trace.py``, a no-op unless
     ``TPKT_TRACE``); the fault point runs (``resilience/faults.py``,
     one check unless ``TPKT_FAULT_PLAN``); the wrapper runs (the CUDA
-    kernel on a CUDA tensor); the output-integrity guard checks the
+    kernel on a CUDA tensor) through the compile discipline's memo
+    (``aot.run_cached``: the first call of a key in a process loads its
+    libraries, makes its plan and records it, later calls are one memo
+    lookup; ``TPKT_AOT_CACHE=0`` calls the wrapper directly, with bitwise
+    the same result); the output-integrity guard checks the
     result (``resilience/integrity.py``: a NaN/Inf tripwire, canaries
     on first trust and every ``TPKT_INTEGRITY_SAMPLE``-th call; it never
     raises, and ``TPKT_INTEGRITY=0`` makes it one check); the span
@@ -152,11 +157,28 @@ def dispatch(name: str, *args, **statics):
     with _trace.span(f"dispatch/{name}"):
         _faults.dispatch_fault(name)
         fn = lookup(name)
-        out = fn(*args, **statics)
+        if _aot.enabled():
+            out = _aot.run_cached(name, fn, args, statics)
+        else:
+            out = fn(*args, **statics)
         out = _integrity.guard("registry", name, out, statics=statics)
     _metrics.inc(_CALLS_PREFIX + name)
     _metrics.observe(f"dispatch.wall_s.{name}", _time.perf_counter() - t0)
     return out
+
+
+def precompile(name: str, device=None) -> dict:
+    """Ensure ``name`` at its configuration of record (``aot.BENCH_CONFIGS``
+    avatars: nothing is allocated) on ``device``, the card by default,
+    into the memo :func:`dispatch` reads (``aot.precompile``)."""
+    lookup(name)  # a key that is not ported raises here, naming why
+    return _aot.precompile(name, device)
+
+
+def precompilable_kernels():
+    """The registered keys with a configuration of record to precompile."""
+    _populate()
+    return sorted(n for n in _REGISTRY if n in _aot.BENCH_CONFIGS)
 
 
 def calls() -> Dict[str, int]:

@@ -36,8 +36,10 @@ never judged by the card. A canary runs on the first guarded call of a key a pro
 quarantined key.
 
 A failure emits ``output_integrity_failed`` (kernel, site, tier,
-detail, config, statics, ``plan_memo_dropped``), drops the key's
-memoised launch plans (``tuning.space.forget``; the built ``.so`` stays,
+detail, config, statics, ``plan_memo_dropped``, ``aot_memo_dropped``,
+``aot_manifest_dropped``), invalidates what the compile discipline
+ensured for the key (``aot.invalidate_kernel``: its memo entries, its
+memoised launch plans and its manifest rows; the built ``.so`` stays,
 since it is keyed by a hash of its sources and a rebuild would give the
 same code), marks the key suspect in this process and counts the
 failure per (key, config) per day in ``integrity_quarantine.json``; at
@@ -63,8 +65,6 @@ narrows both. Exit 0 all good, 1 a mismatch or failed record, 2 usage
 from __future__ import annotations
 
 import datetime
-import hashlib
-import json
 import math
 import os
 import sys
@@ -100,9 +100,6 @@ CANARY_CONFIGS = {
 
 SEED = 20260804
 _DISABLED = ("0", "off", "none")
-# an env-only knob (never from the tuning cache, so not in sgemm's
-# TUNABLES) that selects another kernel at the same shapes
-_ENV_ONLY_KNOBS = ("TPKT_SGEMM_PRECISION",)
 
 # per-process state (reset() drops it). Two threads may guard at once
 # (the serving daemon's workers): the call count is taken under a lock,
@@ -118,7 +115,6 @@ _FILE_MEMO: dict = {}    # path -> (stat key, parsed)
 _ORACLE_MEMO: dict = {}  # kernel -> oracle leaves (numpy)
 _LEDGER: dict = {}       # path -> (monotonic time of the last look, parsed)
 _PATHS: dict = {}        # TPKT_INTEGRITY_DIR (raw) -> (manifest, ledger)
-_TOKEN: list = [None, None]  # [tuning-cache state, its token]
 RECHECK_S = 1.0  # how long a read of the quarantine ledger is trusted
 
 
@@ -549,32 +545,14 @@ def _deep_check(site: str, name: str, device):
 # quarantine ledger                                                  #
 # ------------------------------------------------------------------ #
 
-def _tuning_token() -> str:
-    state = tcache.state()
-    if not state:
-        return ""
-    if _TOKEN[0] is not state:
-        blob = json.dumps(state, sort_keys=True, default=repr).encode()
-        _TOKEN[:] = [state, "tuned=" + hashlib.md5(blob).hexdigest()[:10]]
-    return _TOKEN[1]
-
-
 def config_token() -> str:
-    """The config half of a quarantine key: the ``TPKT_*`` knobs set in
-    the env, sorted, and the tuning cache's content token — what picks
-    another kernel or launch at the same shapes (the port's
-    ``aot.tunable_env_fingerprint``)."""
-    from tpukernels_torch import registry
+    """The config half of a quarantine key: the compile discipline's
+    fingerprint (``aot.tunable_env_fingerprint``: the ``TPKT_*`` knobs set
+    in the env, sorted, and the tuning cache's content token), or
+    ``default`` when it is empty."""
+    from tpukernels_torch import aot
 
-    names = set(_ENV_ONLY_KNOBS)
-    for k in registry.tunable_kernels():
-        names.update(registry.tunables(k).envs)
-    parts = sorted(f"{n}={os.environ[n]}" for n in names
-                   if n in os.environ)
-    token = _tuning_token()
-    if token:
-        parts.append(token)
-    return ",".join(parts) or "default"
+    return aot.tunable_env_fingerprint() or "default"
 
 
 def _quarantine_key(kernel, config=None) -> str:
@@ -708,19 +686,20 @@ def _check_error(kernel, site, error: str):
 
 
 def _fail(site, kernel, tier, detail, statics=None):
-    from tpukernels_torch import registry
-    from tpukernels_torch.tuning import space
-
     obs_metrics.inc("integrity.failures")
     _SUSPECT.add(kernel)
     config = config_token()
-    dropped = space.forget(registry.DERIVED_KERNELS.get(kernel, kernel))
+    from tpukernels_torch import aot
+
+    dropped = aot.invalidate_kernel(kernel)
     print(f"# output-integrity FAILED: {kernel} at {site} (tier {tier}: "
           f"{detail})", file=sys.stderr)
     journal.emit("output_integrity_failed", kernel=kernel, site=site,
                  tier=tier, detail=detail, config=config,
                  statics=dict(statics) if statics else None,
-                 plan_memo_dropped=dropped)
+                 plan_memo_dropped=dropped["plan_memo_dropped"],
+                 aot_memo_dropped=dropped["memo_dropped"],
+                 aot_manifest_dropped=dropped["manifest_dropped"])
     try:
         failures, quarantined, transitioned = note_failure(kernel, config,
                                                            detail)
@@ -784,6 +763,27 @@ def guard(site: str, kernel, outputs, statics=None, device=None):
     elif tier is not None:
         _SUSPECT.discard(kernel)
     return outputs
+
+
+def aot_smoke(name: str, device=None) -> None:
+    """The first-trust canary of a precompile (``aot.precompile``): no
+    dispatch follows it, so the guard's own first-call canary would not
+    run. Once a process and key under site ``aot`` (sharing the
+    first-trust memo), on ``device`` (the card by default); a failure
+    invalidates what was just ensured. Never raises."""
+    if not enabled() or tier1_only() or name not in CANARY_CONFIGS:
+        return
+    with _CALLS_LOCK:
+        if ("aot", name) in _DEEP_DONE:
+            return
+        _DEEP_DONE.add(("aot", name))
+    try:
+        with trace.span(f"integrity/canary/{name}", site="aot"):
+            tier, failure = _deep_check("aot", name, device)
+        if failure is not None:
+            _fail("aot", name, tier, failure)
+    except Exception as e:  # noqa: BLE001 — never crash a prewarm
+        _check_error(name, "aot", repr(e))
 
 
 # ------------------------------------------------------------------ #

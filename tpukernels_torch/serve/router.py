@@ -1576,11 +1576,11 @@ def main(argv=None):
         print(f"route: {e}", file=sys.stderr)
         return 3
 
-    # the reference stamps an env-derived device inventory here
-    # (obs_scaling.emit_inventory("serve_router")); the port's
-    # inventory waits with obs/scaling.py (ROADMAP Queue A item 8),
-    # as the daemon's own stamp does
-    #
+    from tpukernels_torch.obs import scaling as obs_scaling
+
+    # an env-derived stamp only: the router imports no torch and never
+    # touches the card (the workers stamp their own)
+    obs_scaling.emit_inventory("serve_router")
     # the self-healing loop rides in this process: worker pidfiles live
     # beside their sockets, and respawns reuse the exact dir/socket the
     # ring already points at. TPKT_FLEET_PROBE_S=0 disables detection

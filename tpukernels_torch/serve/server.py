@@ -1429,6 +1429,9 @@ def main(argv=None):
         print(f"serve: {e}", file=sys.stderr)
         return 3
 
+    from tpukernels_torch.obs import scaling as obs_scaling
+
+    obs_scaling.emit_inventory("serve")
     obs_metrics.start_flusher()
     signal.signal(signal.SIGTERM, server.stop)
     signal.signal(signal.SIGINT, server.stop)

@@ -68,6 +68,17 @@ def env_raw(name: str):
     return _ENV.get(key)
 
 
+def env_reader(names):
+    """A function of no arguments returning the raw values of the
+    variables ``names`` (as :func:`env_raw` reads each) in one tuple: for
+    a memo key read on every call."""
+    if _ENV is None:
+        return lambda: tuple(map(os.environ.get, names))
+    keys = tuple(os.environ.encodekey(n) for n in names)
+    get = _ENV.get
+    return lambda: tuple(map(get, keys))
+
+
 def enabled() -> bool:
     if env_raw("TPKT_TUNING_CACHE") is None:
         return True
