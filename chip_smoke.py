@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``tpukernels_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parent DIR]
 
 Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
 ``tpukernels_torch/_build/``), then:
@@ -179,6 +179,28 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    manifest rows and no other, and the next dispatch is an ``aot_miss``
    and exact. It prints what the memo adds to a dispatch (phase 4b's
    turns) and one ``{"aot": ...}`` JSON line.
+
+11. runs the serving control loop: (a) ``python -m
+   tpukernels_torch.loadgen --mix all --shapes record --verify`` in a
+   process of its own, open loop on the card, at least 20 scheduled
+   requests a key: each key's p50/p99, the generator's lateness, the
+   verdicts against the ``nvidia_h100_80gb_hbm3|record`` row of
+   ``obs/slo.py`` (``no_target`` for a key the row does not hold); (b)
+   one daemon driven by ``loadgen --serve`` with SAXPY, scan and SGEMM
+   at 5 requests a second for 25 s (p50/p99 beside phase 7's closed-loop
+   burst, ``slo.dropped``, the trace budget); every answer bitwise the
+   first of its key, and that one bitwise this process's dispatch of the
+   same ones, held against the oracle; (c) traffic at shapes that pad
+   under the default table, ``python -m
+   tpukernels_torch.serve.optimize propose`` (a split) and ``canary`` at
+   a fixed seed, each side twice in the order incumbent, candidate,
+   candidate, incumbent, every daemon on the card; on promotion a running
+   daemon's ``undrain`` picks the new table up and a request at the
+   split shape lands there with ``pad_frac`` 0, bitwise; on rejection
+   the incumbent table file is unchanged; (d) ``python -m
+   tpukernels_torch.prewarm --check --order traffic`` over (c)'s journal
+   puts SAXPY and the scan first. It prints one ``{"loop": ...}`` JSON
+   line.
 
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -4875,6 +4897,369 @@ def aot_child(out_path):
     return 0
 
 
+# ------------------------------------------------------------------ #
+# phase 11: the serving control loop                                 #
+# ------------------------------------------------------------------ #
+
+# 11a: in process, every key at its avatar, at least this many scheduled
+# requests a key, Poisson at LOOP_RATE a second
+LOOP_LEAST, LOOP_RATE = 20, 50.0
+# 11b: one daemon, three keys at their avatars, Poisson at 5 a second for
+# about 25 s (40 % of the 12.8 a second phase 7's two closed-loop threads
+# completed in AC1)
+LOOP_SERVED = {"vector_add": 1.0, "scan": 1.0, "sgemm": 1.0}
+LOOP_SERVED_RATE, LOOP_SERVED_S = 5.0, 25.0
+# 11c: traffic that buckets with waste under the default table: SAXPY
+# pads 42.8 % into 2^20, the scan 28.5 % into 2^22
+LOOP_TRAFFIC = {"vector_add": ((), (600_000,), (600_000,)),
+                "scan": ((3_000_000,),)}
+LOOP_TRAFFIC_N, LOOP_TRAFFIC_RATE = 60, 5.0
+# the canary: 40 requests a run, each side run twice
+LOOP_CANARY = ("--seed", "11", "--requests", "40", "--rate", "5")
+
+
+def loop_env(root, journal_path, **extra):
+    """A loop child's env: no knob of this process, the compile
+    manifest, integrity state and tuning cache shared in ``root``."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPKT_")}
+    env.update(PYTHONPATH=REPO, TPKT_AOT_DIR=os.path.join(root, "aot"),
+               TPKT_INTEGRITY_DIR=os.path.join(root, "integrity"),
+               TPKT_TUNING_CACHE_DIR=os.path.join(root, "tuning"),
+               TPKT_HEALTH_JOURNAL=journal_path, **extra)
+    return env
+
+
+def loop_child(label, module, argv, env, timeout=600):
+    """``python -m <module> <argv>``: its pid, rc, wall s and output;
+    fails on a non-zero rc."""
+    t0 = time.perf_counter()
+    p = subprocess.Popen([sys.executable, "-m", module, *argv], cwd=REPO,
+                         env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        out, _ = p.communicate()
+        raise AssertionError(f"{label}: no exit in {timeout} s: "
+                             f"{out[-3000:]}") from None
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"{label}: rc {p.returncode}: {out[-3000:]}")
+    return p.pid, wall, out
+
+
+def loop_events(path, kind, pid=None):
+    from tpukernels_torch.resilience import journal
+
+    return [e for e in journal.load_events([path])[0]
+            if e.get("kind") == kind and (pid is None or e.get("pid") == pid)]
+
+
+def loop_n(mix, rate, seed, least):
+    """The fewest requests whose seeded schedule gives every key of
+    ``mix`` at least ``least``: ``(n, counts)``."""
+    from tpukernels_torch import loadgen
+
+    n = least * len(mix)
+    while True:
+        sched = loadgen.build_schedule(seed, "poisson", rate, n, None, mix)
+        counts = {k: sum(1 for _, s in sched if s == k) for k in mix}
+        if min(counts.values()) >= least:
+            return n, counts
+        n += 1
+
+
+def loop_answers(torch):
+    """Each key's answer at its avatar filled with ones (what the load
+    generator sends), dispatched in this process and held against the
+    oracle: ``{key: (crc, numpy leaves)}``."""
+    from tpukernels_torch import aot, interop, loadgen, registry
+
+    out = {}
+    for key in sorted(aot.BENCH_CONFIGS):
+        args, statics = loadgen.operands_np(key, "record")
+        targs = interop.to_port(key, args)
+        got = as_tuple(interop.from_port(registry.dispatch(key, *targs,
+                                                           **statics)))
+        serve_oracle_check(torch, f"11 {key} ones at its avatar", key, targs,
+                           got, statics)
+        out[key] = (loadgen.answer_crc(got), got)
+        del targs
+    return out
+
+
+def loop_run_checked(label, probe, answers, want_keys):
+    """A load run's ``slo_probe`` record: every key of ``want_keys`` ran,
+    none dropped, no answer differed from its first, and each first
+    answer is bitwise this process's (its CRC)."""
+    if probe["verdicts"].keys() != set(want_keys):
+        raise AssertionError(f"{label}: verdicts for "
+                             f"{sorted(probe['verdicts'])}, expected "
+                             f"{sorted(want_keys)}")
+    dropped = sum(probe["dropped"].values())
+    differ = sum(probe["mismatched"].values())
+    bad = {k: c for k, c in probe["answers"].items()
+           if c != answers[k][0]}
+    if dropped or differ or bad or set(probe["answers"]) != set(want_keys):
+        raise AssertionError(f"{label}: dropped {probe['dropped']}, "
+                             f"differing {probe['mismatched']}, answers "
+                             f"{probe['answers']} (CRC mismatch {bad})")
+
+
+def loop_rows(label, probe, card, beside=None):
+    """Print a run's per-key rows; returns them (ms)."""
+    rows = {}
+    for k, v in sorted(probe["verdicts"].items()):
+        row = {"count": v["count"], "p50_ms": v["p50_s"] * 1e3,
+               "p99_ms": v["p99_s"] * 1e3,
+               "target_ms": (v["target_p99_s"] * 1e3
+                             if v["target_p99_s"] is not None else None),
+               "verdict": v["verdict"]}
+        rows[k] = row
+        extra = ""
+        if beside and k in beside:
+            extra = (f"; phase 7's closed-loop burst p50 "
+                     f"{beside[k]['wall_ms_p50']:.3f} / p99 "
+                     f"{beside[k]['wall_ms_p99']:.3f} ms")
+        log(f"{label} {k}: n={v['count']}, p50 {row['p50_ms']:.3f} ms, p99 "
+            f"{row['p99_ms']:.3f} ms against "
+            + (f"{row['target_ms']:.1f} ms" if row["target_ms"] else "none")
+            + f": {v['verdict']}{extra} [{card}]")
+    late = probe["lateness_s"]
+    log(f"{label} generator lateness: p50 {late['p50'] * 1e3:.3f} ms, p99 "
+        f"{late['p99'] * 1e3:.3f} ms, max {late['max'] * 1e3:.3f} ms over "
+        f"{late['count']} requests; wall {probe['wall_s']:.1f} s [{card}]")
+    return rows
+
+
+def phase_loop(torch, serve, args, card):
+    """Phase 11: the serving control loop on the card (item 11 of the
+    module docstring)."""
+    log("== phase 11: the serving control loop (python -m "
+        "tpukernels_torch.loadgen, serve.optimize, prewarm --order traffic)")
+    import hashlib
+
+    import numpy as np
+
+    from tpukernels_torch import aot
+    from tpukernels_torch.obs import slo
+    from tpukernels_torch.serve import client as serve_client
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="tpkt_loop_")
+    out = {"card": card}
+    daemons = []
+    try:
+        answers = loop_answers(torch)
+        log(f"PASS 11 every key's answer at its avatar of ones vs oracle "
+            f"({len(answers)} keys)")
+
+        # (11a) in process: every key, open loop
+        seed = args.seed + 11
+        mix = {k: 1.0 for k in sorted(aot.BENCH_CONFIGS)}
+        n, counts = loop_n(mix, LOOP_RATE, seed, LOOP_LEAST)
+        ja = os.path.join(root, "11a.jsonl")
+        pid, wall, _ = loop_child(
+            "11a loadgen", "tpukernels_torch.loadgen",
+            ["--mix", "all", "--shapes", "record", "--arrivals", "poisson",
+             "--rate", str(LOOP_RATE), "--requests", str(n), "--seed",
+             str(seed), "--verify"],
+            loop_env(root, ja, TPKT_SLO_DIR=os.path.join(root, "slo")))
+        (probe,) = loop_events(ja, "slo_probe", pid)
+        loop_run_checked("11a", probe, answers, mix)
+        row = f"{probe['device_kind']}|record"
+        if any(v["verdict"] not in (("ok", "slo_breach")
+                                    if row in slo.TARGETS[k]
+                                    else (slo.NO_TARGET,))
+               for k, v in probe["verdicts"].items()):
+            raise AssertionError(f"11a: verdicts {probe['verdicts']}")
+        log(f"11a in process: {n} requests ({min(counts.values())}.."
+            f"{max(counts.values())} a key), Poisson {LOOP_RATE}/s, seed "
+            f"{seed}, process wall {wall:.1f} s [{card}]")
+        out["in_process"] = {"requests": n, "rows": loop_rows(
+            "11a", probe, card), "lateness_s": probe["lateness_s"]}
+        log("PASS 11a every key in process at its avatar: 0 dropped, every "
+            f"answer bitwise this process's, every verdict against the {row} "
+            "row")
+
+        # (11b) served: one daemon, three keys open loop
+        burst = serve.get("burst")
+        d = ServeDaemon(root, "served")
+        daemons.append(d)
+        d.wait_ready()
+        log(f"11b daemon ready in {d.ready_s:.1f} s [{card}]")
+        pid, wall, _ = loop_child(
+            "11b loadgen --serve", "tpukernels_torch.loadgen",
+            ["--serve", d.sock, "--mix",
+             ",".join(f"{k}={w:g}" for k, w in LOOP_SERVED.items()),
+             "--shapes", "record", "--arrivals", "poisson", "--rate",
+             str(LOOP_SERVED_RATE), "--duration", str(LOOP_SERVED_S),
+             "--requests", "0", "--seed", str(seed), "--verify"],
+            loop_env(root, d.journal, TPKT_SLO_DIR=os.path.join(root, "slo")))
+        (probe,) = loop_events(d.journal, "slo_probe", pid)
+        loop_run_checked("11b", probe, answers, LOOP_SERVED)
+        (budget,) = loop_events(d.journal, "serve_trace_budget", pid)
+        rows = loop_rows("11b", probe, card, burst)
+        log(f"11b trace budget: {budget['assembled']} timelines, "
+            f"{budget['traced']} traced, {budget['clean']} clean, coverage "
+            f"mean {budget.get('coverage_mean')} low "
+            f"{budget.get('coverage_low')}, phase sum / wall at most "
+            f"{budget.get('sum_ratio_max')} (tolerance 1 + "
+            f"{budget['sum_tol']}) [{card}]")
+        if budget.get("sum_ratio_max", 0) > 1 + budget["sum_tol"]:
+            raise AssertionError(f"11b trace budget inconsistent: {budget}")
+        log(f"PASS 11b served open loop: {probe['requests']} requests at "
+            f"{LOOP_SERVED_RATE}/s, slo.dropped 0, every answer bitwise "
+            "the in-process one")
+        out["served"] = {"rows": rows, "requests": probe["requests"],
+                         "lateness_s": probe["lateness_s"],
+                         "trace_budget": {
+                             k: v for k, v in budget.items()
+                             if k not in ("ts", "t", "pid", "git_head",
+                                          "kind", "socket")},
+                         "closed_loop_phase7": {
+                             k: {"p50_ms": burst[k]["wall_ms_p50"],
+                                 "p99_ms": burst[k]["wall_ms_p99"]}
+                             for k in LOOP_SERVED} if burst else None}
+        d.stop()
+
+        # (11c) adaptation: traffic with waste, propose, canary
+        adapt_dir = os.path.join(root, "adapt")
+        os.makedirs(adapt_dir)
+        table = os.path.join(adapt_dir, "buckets.json")
+        with open(table, "w") as f:
+            json.dump({k: {"args": [[kind, list(shape)]
+                                    for kind, shape in v["args"]],
+                           "statics": v["statics"]}
+                       for k, v in aot.BENCH_CONFIGS.items()}, f)
+        with open(table, "rb") as f:
+            incumbent_sha = hashlib.sha256(f.read()).hexdigest()
+        d = ServeDaemon(root, "traffic", TPKT_SERVE_BUCKETS=table)
+        daemons.append(d)
+        d.wait_ready()
+        traffic = os.path.join(root, "traffic.json")
+        with open(traffic, "w") as f:
+            json.dump({"entries": [
+                {"kernel": k, "args": [["i32" if k == "scan" else "f32",
+                                        list(s)] for s in shapes],
+                 "statics": {}, "weight": 1}
+                for k, shapes in LOOP_TRAFFIC.items()]}, f)
+        pid, wall, _ = loop_child(
+            "11c traffic", "tpukernels_torch.loadgen",
+            ["--serve", d.sock, "--shapes", traffic, "--arrivals",
+             "poisson", "--rate", str(LOOP_TRAFFIC_RATE), "--requests",
+             str(LOOP_TRAFFIC_N), "--seed", str(seed), "--verify"],
+            loop_env(root, d.journal, TPKT_SLO_DIR=os.path.join(root, "slo")))
+        (probe,) = loop_events(d.journal, "slo_probe", pid)
+        if sum(probe["dropped"].values()) or \
+                sum(probe["mismatched"].values()):
+            raise AssertionError(f"11c traffic: {probe}")
+        pads = {}
+        for e in loop_events(d.journal, "serve_request"):
+            if e.get("ok"):
+                pads.setdefault(e["kernel"], set()).add(e["pad_frac"])
+        log(f"11c traffic: {probe['requests']} requests at "
+            f"{LOOP_TRAFFIC_RATE}/s under the default table, pad_frac "
+            + ", ".join(f"{k} {sorted(v)}" for k, v in sorted(pads.items()))
+            + f" [{card}]")
+        opt_env = loop_env(root, os.path.join(root, "ops.jsonl"),
+                           TPKT_ADAPT_DIR=adapt_dir, TPKT_SERVE_BUCKETS=table,
+                           TPKT_SLO_DIR=os.path.join(root, "slo"),
+                           TPKT_TRACE="1")
+        _, wall, text = loop_child(
+            "11c optimize propose", "tpukernels_torch.serve.optimize",
+            ["propose", "--journal", d.journal], opt_env)
+        with open(os.path.join(adapt_dir, "adapt.json")) as f:
+            cand = json.load(f)
+        splits = [p for p in cand["proposals"] if p["action"] == "split"]
+        if cand["status"] != "proposed" or not splits:
+            raise AssertionError(f"11c propose: no split: {text}")
+        log(f"11c propose ({wall:.1f} s): " + text.strip().splitlines()[0])
+        split_shapes = {p["kernel"]: p["spec"]["args"] for p in splits}
+        _, wall, text = loop_child(
+            "11c optimize canary", "tpukernels_torch.serve.optimize",
+            ["canary", *LOOP_CANARY], opt_env, timeout=900)
+        (ev,) = loop_events(os.path.join(root, "ops.jsonl"), "adapt_canary")
+        for o in ev["orders"]:
+            for s in ("incumbent", "candidate"):
+                m = o[s]
+                if m["dropped"] or m["requests"] == 0:
+                    raise AssertionError(f"11c canary {s}: {m}")
+                log(f"11c canary, {o['first']} first, {s}: pad_frac "
+                    f"{m['pad_frac']:.4f}, p99 {m['p99_s'] * 1e3:.3f} ms "
+                    f"over {m['requests']} requests ({m['bucketed']} "
+                    "bucketed), 0 dropped; "
+                    + ", ".join(f"{k} n={v['count']} p50 "
+                                f"{v['p50_s'] * 1e3:.3f} / p99 "
+                                f"{v['p99_s'] * 1e3:.3f} ms"
+                                for k, v in m["series"].items())
+                    + f" [{card}]")
+            log(f"11c canary, {o['first']} first: "
+                f"{'promote' if o['promote'] else 'reject'} - {o['reason']}")
+        log(f"11c canary ({wall:.1f} s, four daemons in turn on the card): "
+            f"{'PROMOTE' if ev['promote'] else 'REJECT'} - {ev['reason']}")
+        with open(table, "rb") as f:
+            after_sha = hashlib.sha256(f.read()).hexdigest()
+        picked = None
+        if ev["promote"]:
+            with serve_client.ServeClient(d.sock, timeout_s=120) as c:
+                reply = c.undrain()
+                if not reply.get("ok"):
+                    raise AssertionError(f"11c undrain: {reply}")
+                key = next(iter(split_shapes))
+                shapes = [tuple(s) for _, s in split_shapes[key]]
+                ops = serve_operands(np.random.default_rng(seed), key,
+                                     shapes, {})
+                c.next_request_id = "loop-split-1"
+                got = as_tuple(c.dispatch(key, *ops))
+            want, _ = serve_in_process(torch, key, ops, {})
+            serve_same(torch, f"11c {key} at the split shape vs in-process "
+                       "dispatch", got, want)
+            (rec,) = [e for e in loop_events(d.journal, "serve_request")
+                      if e.get("request_id") == "loop-split-1"]
+            if rec["pad_frac"] != 0.0 or not rec["bucketed"]:
+                raise AssertionError(f"11c after undrain: {rec}")
+            picked = {"kernel": key, "bucket": rec["bucket"],
+                      "pad_frac": rec["pad_frac"]}
+            log(f"PASS 11c promoted: after undrain a {key} request at "
+                f"{shapes[1:] or shapes} landed in {rec['bucket']} with "
+                "pad_frac 0.0, bitwise the in-process dispatch")
+        else:
+            if after_sha != incumbent_sha:
+                raise AssertionError("11c rejected, but the incumbent table "
+                                     "file changed")
+            log("PASS 11c rejected: the incumbent table file's bytes are "
+                f"unchanged (sha256 {incumbent_sha[:16]}...)")
+        out["adapt"] = {"traffic_pad_frac": {k: sorted(v)
+                                             for k, v in pads.items()},
+                        "splits": split_shapes, "canary": ev,
+                        "picked_up": picked}
+        d.stop()
+
+        # (11d) prewarm in traffic order over 11c's journal
+        _, wall, text = loop_child(
+            "11d prewarm --order traffic", "tpukernels_torch.prewarm",
+            ["--check", "--order", "traffic"],
+            loop_env(root, d.journal))
+        line = next(l for l in text.splitlines()
+                    if l.startswith("prewarm: traffic order "))
+        order = [p.split("=")[0] for p in
+                 line[len("prewarm: traffic order "):].split(", ")]
+        if set(order[:2]) != set(LOOP_TRAFFIC):
+            raise AssertionError(f"11d: {line}")
+        log(f"PASS 11d {line} ({wall:.1f} s, a fresh process)")
+        out["prewarm_order"] = order
+        out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+        log(f"phase 11 wall {out['phase_s']:.1f} s [{card}]")
+        print(json.dumps({"loop": out}), flush=True)
+        return out
+    finally:
+        for d in daemons:
+            d.kill()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4910,6 +5295,9 @@ def main(argv=None):
         shutil.rmtree(state, ignore_errors=True)
 
 
+T0 = time.perf_counter()  # the script's start, for the wall it prints
+
+
 def run_all(torch, args):
     from tpukernels_torch.kernels import TPU_KERNELS
 
@@ -4930,6 +5318,7 @@ def run_all(torch, args):
     fleet = phase_fleet(torch, serve, avatars, args)
     del avatars
     phase_compile(torch, guarded)
+    phase_loop(torch, serve, args, card)
 
     # B3/B4, B5/B6 and B9/B10 share an entry: the dict keeps B4, B6 and
     # B10, and B3, B5 and B10 stand in also_replaces
@@ -5126,6 +5515,7 @@ def run_all(torch, args):
                              "launches_per_call", "per_tile_device_ms")},
         stream=at(f"scan_histogram[on] {big}", *sh, "per_tile_device_ms"),
         off=[at(f"scan_histogram[off] {size}", *sh) for size in (rec, big)]))
+    log(f"chip_smoke wall {time.perf_counter() - T0:.1f} s [{card}]")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,10 @@
   ctl import no torch, and every knob they read starts with ``TPKT_``.
 - The compile discipline (``aot``, ``prewarm``) and the device inventory
   (``obs/scaling``) import no torch when they are imported.
+- The serving control loop (``loadgen``, ``obs/slo``, ``obs/reqtrace``,
+  ``serve/adapt``, ``serve/optimize``, ``resilience/canary``) reads only
+  ``TPKT_`` knobs, and ``loadgen --simulate``, ``loadgen --serve`` and
+  ``serve.optimize propose`` run without loading torch.
 """
 
 import ast
@@ -22,6 +26,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -422,3 +427,129 @@ def test_compile_discipline_imports_no_torch():
                        text=True, cwd=ROOT, env=env, timeout=120)
     assert p.returncode == 0, p.stderr
     assert p.stdout.strip() == ""
+
+
+# the serving control loop: the load generator, the SLO judge, the
+# request timelines, the bucket optimizer and the torch-free canary table
+CONTROL_LOOP = ("tpukernels_torch.loadgen", "tpukernels_torch.obs.slo",
+                "tpukernels_torch.obs.reqtrace",
+                "tpukernels_torch.serve.adapt",
+                "tpukernels_torch.serve.optimize",
+                "tpukernels_torch.resilience.canary")
+
+
+def test_control_loop_is_under_the_rules():
+    mods = set(_port_modules())
+    assert set(CONTROL_LOOP) <= mods
+    read = []
+    for m in CONTROL_LOOP:
+        src = (ROOT / (m.replace(".", "/") + ".py")).read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|tpukernels\b(?!_))",
+                             src, re.M), m
+        read += re.findall(r"environ(?:\.get)?\(\s*\"(\w+)\"", src)
+        read += re.findall(r"\"(\w+)\" in os\.environ", src)
+    assert read and all(k.startswith("TPKT_") for k in read), read
+    assert {"TPKT_LOADGEN_SEED", "TPKT_SLO_SCALE", "TPKT_SLO_MIN_REQUESTS",
+            "TPKT_TRACE_COVERAGE_MIN", "TPKT_ADAPT_PAD_TARGET",
+            "TPKT_ADAPT_MIN_REQUESTS", "TPKT_HEALTH_JOURNAL"} <= set(read)
+
+
+def _run_cli(module, argv, env, timeout=180):
+    """``python -m <module> <argv>`` in a fresh interpreter: its exit code
+    and the torch, JAX and reference modules it loaded."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{module!r}] + {list(argv)!r}\n"
+        "rc = 0\n"
+        "try:\n"
+        f"    runpy.run_module({module!r}, run_name='__main__',"
+        " alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'tpukernels'))\n"
+        "print('RESULT', rc, ','.join(bad))\n"
+    )
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT, env=env, timeout=timeout)
+    assert p.returncode == 0, p.stdout + p.stderr
+    line = p.stdout.strip().splitlines()[-1].split(" ")
+    assert line[0] == "RESULT", p.stdout
+    return int(line[1]), (line[2] if len(line) > 2 else ""), p
+
+
+def _clean_env(tmp_path, **extra):
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPKT_", "TPK_"))}
+    env.update(PYTHONPATH=str(ROOT), TPKT_SLO_DIR=str(tmp_path / "slo"),
+               TPKT_ADAPT_DIR=str(tmp_path / "adapt"),
+               TPKT_HEALTH_JOURNAL=str(tmp_path / "j.jsonl"))
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def test_load_clients_import_no_torch(tmp_path):
+    """``loadgen --simulate``, ``loadgen --serve`` against a port daemon
+    and ``serve.optimize propose`` with traffic to mine run to their end
+    without loading torch (the daemon holds the device)."""
+    import json
+
+    env = _clean_env(tmp_path)
+    rc, bad, p = _run_cli("tpukernels_torch.loadgen",
+                          ["--kernel", "scan", "--requests", "30",
+                           "--simulate", "2"], env)
+    assert (rc, bad) == (0, ""), p.stdout + p.stderr
+    # a coarse table and a journal of traffic that pads 99.6 % into it
+    table = tmp_path / "buckets.json"
+    table.write_text(json.dumps({"vector_add": {
+        "args": [["f32", []], ["f32", [1 << 20]], ["f32", [1 << 20]]],
+        "statics": {}}}))
+    mined = tmp_path / "traffic.jsonl"
+    mined.write_text("".join(json.dumps({
+        "kind": "serve_request", "kernel": "vector_add", "ok": True,
+        "shapes": [[], [4096], [4096]], "dtypes": ["float32"] * 3,
+        "pad_frac": 0.996, "bucketed": True}) + "\n" for _ in range(60)))
+    rc, bad, p = _run_cli("tpukernels_torch.serve.optimize",
+                          ["propose", "--journal", str(mined)],
+                          _clean_env(tmp_path, TPKT_SERVE_BUCKETS=table,
+                                     TPKT_SERVE_MAX_PAD_FRAC="1.0"))
+    assert (rc, bad) == (0, ""), p.stdout + p.stderr
+    cand = json.loads((tmp_path / "adapt" / "adapt.json").read_text())
+    assert cand["status"] == "proposed"
+    assert (cand["torch"], cand["cuda"]) == (torch.__version__,
+                                             torch.version.cuda)
+    # a daemon on the CPU for the served run
+    d = tmp_path / "serve"
+    d.mkdir()
+    sock = str(d / "s.sock")
+    denv = _clean_env(tmp_path, TPKT_SERVE_DEVICE="cpu", TPKT_SERVE_DIR=d,
+                      TPKT_HEALTH_JOURNAL=d / "j.jsonl")
+    with open(d / "stderr.txt", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m",
+                                 "tpukernels_torch.serve", "--socket", sock],
+                                cwd=ROOT, env=denv,
+                                stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        from tpukernels_torch.serve import client
+
+        deadline = time.monotonic() + 90
+        while True:
+            assert proc.poll() is None, (d / "stderr.txt").read_text()
+            try:
+                with client.ServeClient(sock, timeout_s=10) as c:
+                    c.ping()
+                break
+            except OSError:
+                assert time.monotonic() < deadline
+                time.sleep(0.1)
+        rc, bad, p = _run_cli("tpukernels_torch.loadgen",
+                              ["--serve", sock, "--kernel", "scan",
+                               "--requests", "10", "--rate", "100",
+                               "--verify"],
+                              _clean_env(tmp_path,
+                                         TPKT_HEALTH_JOURNAL=d / "j.jsonl"))
+        assert (rc, bad) == (0, ""), p.stdout + p.stderr
+        assert "(SERVED)" in p.stdout
+    finally:
+        proc.terminate()
+        proc.wait(30)

@@ -157,3 +157,33 @@ def test_a_failed_canary_fails_the_prewarm(isolated, monkeypatch, capsys):
         capsys.readouterr().err
     (end,) = _events(isolated / "j.jsonl", "prewarm_end")
     assert end["failed"] == ["scan"] and end["warmed"] == 1
+
+
+def test_order_traffic_ranks_by_the_journals_requests(tmp_path):
+    """``--order traffic`` warms the keys in the order of the journal's
+    ``serve_request`` counts (the reference's ``adapt.traffic_order``),
+    untouched keys after in registry order; with no such evidence it says
+    so and keeps registry order."""
+    j = tmp_path / "traffic.jsonl"
+    reqs = (["vector_add"] * 4 + ["scan"] * 2 + ["sgemm"] * 3
+            + ["not_a_key"] * 9)
+    j.write_text("".join(json.dumps({"kind": "serve_request", "kernel": k,
+                                     "ok": True}) + "\n" for k in reqs))
+    p = _prewarm(tmp_path, "--device", "cpu", "--check", "--order",
+                 "traffic", "--kernels", "scan,stencil2d,sgemm,vector_add",
+                 TPKT_HEALTH_JOURNAL=str(j))
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert p.stdout.splitlines()[0] == (
+        "prewarm: traffic order vector_add=4, sgemm=3, scan=2, stencil2d=0")
+    assert [e["kernel"] for e in _events(j, "prewarm_kernel")] == [
+        "vector_add", "sgemm", "scan", "stencil2d"]
+    quiet = tmp_path / "quiet.jsonl"
+    p = _prewarm(tmp_path, "--device", "cpu", "--check", "--order",
+                 "traffic", "--kernels", "scan,sgemm",
+                 TPKT_HEALTH_JOURNAL=str(quiet))
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert "keeping registry order" in p.stderr
+    assert [e["kernel"] for e in _events(quiet, "prewarm_kernel")] == [
+        "scan", "sgemm"]
+    p = _prewarm(tmp_path, "--device", "cpu", "--order", "hot")
+    assert p.returncode == 2

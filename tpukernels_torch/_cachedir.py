@@ -2,7 +2,8 @@
 
 The port's own copy of ``tuning_cache_path``, ``read_json_memoized``,
 ``note_torn_artifact``, ``locked_json_update``, the AOT manifest's path,
-the integrity guard's paths and the serving daemon's paths in
+the integrity guard's paths, the serving daemon's paths, the SLO
+artifact's path and the adaptive bucket optimizer's paths in
 ``tpukernels/_cachedir.py``. The state lives in the repository's
 ``.tpkt_cache/`` (gitignored) unless an env var redirects it; the env is
 read on every call, so a test's redirect takes effect at once.
@@ -50,6 +51,34 @@ def integrity_manifest_path(env: dict | None = None) -> str:
 
 def integrity_quarantine_path(env: dict | None = None) -> str:
     return os.path.join(integrity_dir(env), "integrity_quarantine.json")
+
+
+def slo_path(env: dict | None = None) -> str:
+    """The latency-SLO verdict artifact (``obs/slo.py``):
+    ``$TPKT_SLO_DIR/slo.json``, else ``<repo>/.tpkt_cache/slo.json``; a
+    test or a throwaway load run redirects it, so an injected breach
+    never lands in the repository's own verdicts."""
+    return os.path.join(_state_dir("TPKT_SLO_DIR", env), "slo.json")
+
+
+def adapt_dir(env: dict | None = None) -> str:
+    """State directory of the adaptive bucket optimizer
+    (``serve/adapt.py``): its candidate (``adapt.json``) and the promoted
+    bucket table (``buckets.json``). ``$TPKT_ADAPT_DIR``, else
+    ``<repo>/.tpkt_cache``."""
+    return _state_dir("TPKT_ADAPT_DIR", env)
+
+
+def adapt_path(env: dict | None = None) -> str:
+    """The candidate artifact, ``adapt.json``."""
+    return os.path.join(adapt_dir(env), "adapt.json")
+
+
+def adapt_buckets_path(env: dict | None = None) -> str:
+    """The promoted bucket table, ``buckets.json``: the stable file an
+    operator points ``TPKT_SERVE_BUCKETS`` at, so a promotion lands behind
+    an unchanged env value and a daemon's ``undrain`` picks it up."""
+    return os.path.join(adapt_dir(env), "buckets.json")
 
 
 def serve_dir(env: dict | None = None) -> str:

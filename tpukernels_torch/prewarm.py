@@ -2,7 +2,7 @@
 record ahead of traffic.
 
     python -m tpukernels_torch.prewarm [--kernels a,b] [--check]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--order registry|traffic]
 
 The counterpart of ``tools/prewarm.py``. For each registry key (or the
 ``--kernels`` named) it runs ``aot.precompile`` at the key's
@@ -19,7 +19,14 @@ then ``prewarm_end``; with no ``TPKT_HEALTH_JOURNAL`` the journal is a
 dated file beside the manifest. As ``chip_smoke.py`` phase 2 does, a
 spill in a library whose design keeps its state in registers
 (``_build.SPILL_FREE``) is a failure, and a ``wgmma`` serialisation
-warning is reported. ``--check`` prints only failures and the summary.
+warning is reported. ``--check`` prints only failures, the traffic order
+and the summary.
+
+``--order traffic`` warms the keys in the order traffic hits them: ranked
+by the journal's ``serve_request`` count (``serve/adapt.traffic_order``),
+the keys no request named after them in registry order, so a prewarm cut
+short still warmed what is served most. With no ``serve_request`` in the
+journal it says so on stderr and keeps registry order.
 
 Exit codes (the reference's): 0 every key asked for is built and
 trusted; 1 a key failed (a build, a plan, a spill or its canary), or the
@@ -71,6 +78,10 @@ def main(argv=None) -> int:
                     help="print only failures and the summary")
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="where to prewarm (default: the card)")
+    ap.add_argument("--order", choices=("registry", "traffic"),
+                    default="registry",
+                    help="registry order, or hottest first by the "
+                         "journal's serve_request count")
     try:
         args = ap.parse_args(argv)
     except SystemExit as e:
@@ -101,6 +112,19 @@ def main(argv=None) -> int:
         d = os.path.dirname(aot.manifest_path())
         os.makedirs(d, exist_ok=True)
         os.environ["TPKT_HEALTH_JOURNAL"] = d
+
+    if args.order == "traffic":
+        from tpukernels_torch.serve import adapt
+
+        events, _bad = journal.load_events([journal.path()])
+        kernels, counts = adapt.traffic_order(events, kernels)
+        if counts:
+            print("prewarm: traffic order "
+                  + ", ".join(f"{k}={counts.get(k, 0)}" for k in kernels))
+        else:
+            print("prewarm: --order traffic but the journal holds no "
+                  "serve_request evidence - keeping registry order",
+                  file=sys.stderr)
 
     echo = (lambda line: None) if args.check else print
     journal.emit("prewarm_start", kernels=kernels, device=str(device))

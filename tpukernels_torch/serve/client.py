@@ -365,6 +365,16 @@ class ServeClient:
         )
         return header
 
+    def undrain(self) -> dict:
+        """A standalone daemon's table pickup: it re-reads
+        ``TPKT_SERVE_BUCKETS`` (a promoted ``buckets.json`` behind an
+        unchanged env value) and answers ``reloaded`` with the table's
+        kernels, or ``ok: False`` with the old table still in effect."""
+        header, _payloads, _sent = self._roundtrip(
+            {"v": protocol.VERSION, "op": "undrain"}
+        )
+        return header
+
     def mint_request_id(self) -> str:
         """One fresh causal request id (pid-scoped, monotonic): the
         default when the caller never set ``next_request_id``."""

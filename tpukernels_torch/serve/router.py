@@ -288,7 +288,7 @@ class Router:
         # {bucket_index: n}], guarded by self._lock
         self._fwd_walls = [0, 0.0, {}]
         self._tenants: dict = {}             # tenant -> [tokens, last]
-        self._meta = {"device_kind": None, "torch": None}
+        self._meta = {"device_kind": None, "torch": None, "cuda": None}
         self._meta_next_try = 0.0            # unresolved-meta rate limit
         # lane advertisement relayed from the workers: the router
         # itself never maps a segment — it forwards descriptors — but
@@ -782,6 +782,7 @@ class Router:
                 # the fleet's device identity is its workers'
                 "device_kind": meta["device_kind"],
                 "torch": meta["torch"],
+                "cuda": meta["cuda"],
             }
 
     def _stats_fleet(self) -> dict:
@@ -843,7 +844,7 @@ class Router:
         return base
 
     def _worker_meta(self) -> dict:
-        """device_kind / torch version borrowed from the first worker
+        """device_kind / torch / CUDA versions borrowed from the first worker
         that knows them (workers resolve both lazily at their first
         dispatch). Cached once ANY field resolves — the same
         predicate the store uses — and unresolved retries are
@@ -900,6 +901,7 @@ class Router:
                     self._meta = {
                         "device_kind": header.get("device_kind"),
                         "torch": header.get("torch"),
+                        "cuda": header.get("cuda"),
                     }
                 break
         with self._lock:

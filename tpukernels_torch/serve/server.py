@@ -551,8 +551,10 @@ class Server:
             "uptime_s": round(time.time() - self._t0, 3),
             "device": str(self.device),
             "device_kind": self._device_kind,
-            # where the reference reports jax's version
+            # where the reference reports jax's version; with CUDA's, the
+            # versions a load client stamps its SLO verdicts with
             "torch": torch.__version__,
+            "cuda": torch.version.cuda,
             # flusher liveness (docs/OBSERVABILITY.md §live telemetry):
             # None when TPKT_METRICS_FLUSH_S is off; a value growing
             # past the flush interval means the flusher thread died

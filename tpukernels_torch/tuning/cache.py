@@ -181,6 +181,43 @@ def _versions():
     return torch.__version__, torch.version.cuda
 
 
+_INSTALLED: list = []  # [(torch version, CUDA version)] once read
+
+
+def installed_versions():
+    """``(torch.__version__, torch.version.cuda)`` without importing
+    torch: a loaded torch answers itself; otherwise the literals of the
+    installed package's ``version.py`` (which is what those two read),
+    parsed, not run. For the processes that judge artifacts and never
+    touch the card (``loadgen --serve``, ``serve.optimize propose``)."""
+    if "torch" in sys.modules:
+        return _versions()
+    if not _INSTALLED:
+        import ast
+        import importlib.util
+
+        spec = importlib.util.find_spec("torch")
+        if spec is None or not spec.submodule_search_locations:
+            raise ModuleNotFoundError("torch is not installed")
+        src = os.path.join(list(spec.submodule_search_locations)[0],
+                           "version.py")
+        found = {}
+        with open(src) as f:
+            for node in ast.parse(f.read()).body:
+                if isinstance(node, ast.Assign):
+                    targets, value = node.targets, node.value
+                elif isinstance(node, ast.AnnAssign):
+                    targets, value = [node.target], node.value
+                else:
+                    continue
+                for t in targets:
+                    if isinstance(t, ast.Name) and isinstance(
+                            value, ast.Constant):
+                        found[t.id] = value.value
+        _INSTALLED.append((found.get("__version__"), found.get("cuda")))
+    return _INSTALLED[0]
+
+
 def reject(key, reason) -> None:
     """Count a rejected entry or value; one stderr line per (key,
     reason) per process."""
