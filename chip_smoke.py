@@ -172,7 +172,9 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    with a ``kill_router`` plan for the routers it spawns: the router is
    SIGKILLed, its successor kills itself at its third request after the
    WAL holds it, two clients ride through on their reconnect budget,
-   one ``serve_request`` a request_id. (8) ``stop-fleet``: no member, socket,
+   one ``serve_request`` a request_id. After (3), ``python -m
+   tpukernels_torch.serve.ctl top --once`` must exit 0 with a row for
+   each worker, each with requests served. (8) ``stop-fleet``: no member, socket,
    pidfile, fleet.json or ``tpkserve-*`` segment left; no library built.
    The router's and the workers' ``device_inventory`` stamps are read
    back from the fleet's journal. It prints one ``{"fleet": ...}`` JSON
@@ -213,6 +215,26 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    tpukernels_torch.prewarm --check --order traffic`` over (c)'s journal
    puts SAXPY and the scan first. It prints one ``{"loop": ...}`` JSON
    line.
+
+12. runs the fleet's operations layer: (a) ``python -m
+   tpukernels_torch.serve.chaos --seed 1 --events 5 --workers 2`` on the
+   card, its journal and state in a temporary directory, must exit 0
+   (every invariant after every event: convergence, readable artifacts,
+   no unmarked duplicate dispatch, 100 % goodput, no drop, no leak, and
+   ``obs.report --check`` over its own journal); it prints the schedule,
+   the requests ok, within their deadline and dropped, each event's
+   seconds to convergence, the workers' scan launches (the B8 kernel on
+   the campaign's path, from the fleet's ``stats`` just before teardown),
+   the report's lines and the card's ``memory.used`` before and after;
+   (b) the readers over this run's own evidence, the journals of phases
+   7, 9 and 11 and the state of phases 8 and 11: ``python -m
+   tpukernels_torch.obs.rollup --date <today>`` (rc 0),
+   ``python -m tpukernels_torch.obs.report --check`` (rc 0, or 1 with
+   its findings printed: phase 11's SLO verdicts judge and never fail
+   the script) and ``python -m tpukernels_torch.obs.trace_report
+   --slowest 5`` over phase 11's served journal (rc 0). It prints one
+   ``{"ops": ...}`` JSON line; each kernel entry gains
+   ``chaos_launches``.
 
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -274,6 +296,34 @@ GLOBAL_NBINS = 40000
 # a histogram above 256 bins, where the reference took its VPU kernel
 WIDE_NBINS = 1024
 REPO = os.path.dirname(os.path.abspath(__file__))
+# where phases 7-11 leave their journals and state for phase 12's readers
+# (set by main, under its temporary directory)
+EVIDENCE = {}
+
+
+def keep_journal(path):
+    """Append a phase's journal to the run's combined journal of today
+    (phase 12's readers)."""
+    if not EVIDENCE or not os.path.exists(path):
+        return
+    d = os.path.join(EVIDENCE["dir"], "journal")
+    os.makedirs(d, exist_ok=True)
+    day = time.strftime("%Y-%m-%d")
+    with open(path) as src, open(os.path.join(d, f"health_{day}.jsonl"),
+                                 "a") as dst:
+        shutil.copyfileobj(src, dst)
+
+
+def keep(src, name):
+    """Copy a phase's file or state directory into the run's evidence as
+    ``name``."""
+    if not EVIDENCE or not os.path.exists(src):
+        return
+    dst = os.path.join(EVIDENCE["dir"], name)
+    if os.path.isdir(src):
+        shutil.copytree(src, dst, dirs_exist_ok=True)
+    else:
+        shutil.copy(src, dst)
 
 
 def run_all_rows():
@@ -3262,6 +3312,8 @@ def phase_serve(torch, times, rates, args, kept):
             raise AssertionError(f"a serve daemon built a library: {libs} "
                                  f"-> {after}")
         log(f"PASS serve daemons built nothing ({len(libs)} libraries)")
+        for d in (main_d, chaos_d):
+            keep_journal(d.journal)
         out["phase_s"] = round(time.perf_counter() - t_phase, 3)
         log(f"phase 7 wall {out['phase_s']:.1f} s")
         print(json.dumps({"serve": out}), flush=True)
@@ -3704,6 +3756,7 @@ def phase_dist(torch, times, peaks, args):
         if after != libs:
             raise AssertionError(f"a rank built a library: {libs} -> {after}")
         log(f"PASS phase 8 ranks built nothing ({len(libs)} libraries)")
+        keep(scaling_dir, "scaling")
         out["phase_s"] = round(time.perf_counter() - t_phase, 3)
         log(f"phase 8 wall {out['phase_s']:.1f} s")
         print(json.dumps({"dist": {k: v for k, v in out.items()
@@ -4399,6 +4452,7 @@ def phase_fleet(torch, serve, avatars, args):
         log(f"PASS fleet built nothing ({len(libs)} libraries before and "
             "after; no nvcc in any member's log, the respawned worker's "
             "included)")
+        keep_journal(fl.journal)
         out["phase_s"] = round(time.perf_counter() - t_phase, 3)
         log(f"phase 9 wall {out['phase_s']:.1f} s")
         print(json.dumps({"fleet": out}), flush=True)
@@ -4570,6 +4624,7 @@ def fleet_drive(torch, fl, serve, avatars, args):
         raise AssertionError("fleet burst: rejections at the default queue")
     log(f"PASS fleet burst: {len(results)} requests in {burst_s:.2f} s, 0 "
         "errors, 0 rejections, every answer bitwise phase 7's")
+    top = fleet_top(fl)
 
     # 4. drain worker 0 in the middle of a stream, then undrain it with
     # the wedge armed for steps 5 and 6 (its env only)
@@ -4587,9 +4642,23 @@ def fleet_drive(torch, fl, serve, avatars, args):
             "nvidia_smi_lists_fleet": bool(listed), "avatar": avatar,
             "launches": launches, "launches_per_worker": per_worker,
             "burst": burst, "burst_s": burst_s, "drain": drain,
-            "roles": roles, "wedge": wedge, "kill_worker": kill,
+            "roles": roles, "top": top, "wedge": wedge, "kill_worker": kill,
             "kill_router": kr,
             "pids": sorted(p for p in pids if p)}
+
+
+def fleet_top(fl):
+    """``ctl top --once`` against the live fleet: rc 0 and a row a worker,
+    each with requests served; returns {worker: served}."""
+    text = fl.ctl("top", "--once")
+    rows = {line.split()[0]: line.split() for line in text.splitlines()
+            if line.split() and line.split()[0] in ("worker0", "worker1")}
+    served = {k: int(v[7]) for k, v in rows.items() if v[7].isdigit()}
+    if set(served) != {"worker0", "worker1"} or min(served.values()) <= 0:
+        raise AssertionError(f"fleet top: rows {rows}\n{text}")
+    log("fleet top --once:\n  " + "\n  ".join(text.strip().splitlines()))
+    log(f"PASS fleet top: rc 0, a row for each worker, served {served}")
+    return served
 
 
 def fleet_stream(front, keys, avatars, stop, done, errors, prefix):
@@ -5325,6 +5394,7 @@ def phase_loop(torch, serve, args, card):
         (probe,) = loop_events(d.journal, "slo_probe", pid)
         loop_run_checked("11b", probe, answers, LOOP_SERVED)
         (budget,) = loop_events(d.journal, "serve_trace_budget", pid)
+        served_journal = d.journal
         rows = loop_rows("11b", probe, card, burst)
         log(f"11b trace budget: {budget['assembled']} timelines, "
             f"{budget['traced']} traced, {budget['clean']} clean, coverage "
@@ -5475,6 +5545,12 @@ def phase_loop(torch, serve, args, card):
             raise AssertionError(f"11d: {line}")
         log(f"PASS 11d {line} ({wall:.1f} s, a fresh process)")
         out["prewarm_order"] = order
+        for j in (ja, served_journal, d.journal,
+                  os.path.join(root, "ops.jsonl")):
+            keep_journal(j)
+        keep(served_journal, "served.jsonl")
+        keep(os.path.join(root, "slo"), "slo")
+        keep(adapt_dir, "adapt")
         out["phase_s"] = round(time.perf_counter() - t_phase, 3)
         log(f"phase 11 wall {out['phase_s']:.1f} s [{card}]")
         print(json.dumps({"loop": out}), flush=True)
@@ -5482,6 +5558,179 @@ def phase_loop(torch, serve, args, card):
     finally:
         for d in daemons:
             d.kill()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------------------------------ #
+# phase 12: the fleet's operations layer                             #
+# ------------------------------------------------------------------ #
+
+# the campaign of record: seed 1, five events, two workers (the
+# schedule is whatever seed 1 draws; it is printed, never re-seeded)
+OPS_CAMPAIGN = ("--seed", "1", "--events", "5", "--workers", "2")
+# the campaign's health windows, compressed as phase 9's (hedging stays
+# on: the campaign's duplicate check accepts a hedge's replay marker)
+OPS_ENV = {k: FLEET_ENV[k] for k in ("TPKT_FLEET_PROBE_S",
+                                     "TPKT_FLEET_RESTART_BACKOFF_S",
+                                     "TPKT_ROUTER_RESTART_BACKOFF_S",
+                                     "TPKT_TRACE")}
+# the pieces of the evidence phase 12b reads (phases 8 and 11)
+OPS_STATE = {"TPKT_SLO_DIR": "slo", "TPKT_SCALING_DIR": "scaling",
+             "TPKT_ADAPT_DIR": "adapt", "TPKT_ROLLUP_DIR": "rollup"}
+
+
+def ops_child(label, module, argv, env, timeout=300, ok=(0,)):
+    """``python -m <module> <argv>``: rc, wall s, stdout and stderr; fails
+    on an rc outside ``ok`` (a crash included)."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", module, *argv], cwd=REPO,
+                       env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    wall = time.perf_counter() - t0
+    if p.returncode not in ok:
+        raise AssertionError(f"{label}: rc {p.returncode}\n"
+                             f"{p.stdout[-4000:]}\n{p.stderr[-6000:]}")
+    return p.returncode, wall, p.stdout, p.stderr
+
+
+def phase_ops(card):
+    """Phase 12: the seeded chaos campaign on the card, then the readers
+    over this run's evidence (item 12 of the module docstring)."""
+    log("== phase 12: the fleet's operations layer (python -m "
+        "tpukernels_torch.serve.chaos, obs.rollup, obs.report, "
+        "obs.trace_report)")
+    from tpukernels_torch.resilience import journal
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="tpkt_ops_")
+    out = {}
+    try:
+        # (12a) the campaign, on the card
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("TPKT_")}
+        env.update(PYTHONPATH=REPO, TPKT_SERVE_DIR=root, **OPS_ENV)
+        used0 = card_memory_used()
+        _rc, wall, text, err = ops_child(
+            "12a chaos", "tpukernels_torch.serve.chaos", OPS_CAMPAIGN, env,
+            timeout=600)
+        used1 = card_memory_used()
+        line = next(ln for ln in err.splitlines()
+                    if ln.startswith("# chaos: seed "))
+        schedule = line.split("schedule: ", 1)[1].split(", ")
+        verdict = text.strip().splitlines()[-1]
+        if "SURVIVED" not in verdict or " 0 dropped" not in verdict:
+            raise AssertionError(f"12a chaos: {verdict}\n{err[-4000:]}")
+        events, _ = journal.load_events(
+            [os.path.join(root, "fleet", "chaos_journal.jsonl")])
+        marks = [e for e in events if e.get("kind") == "chaos_event"]
+        if [e["seq"] for e in marks] != list(range(1, len(schedule) + 1)):
+            raise AssertionError(f"12a chaos: markers {marks}")
+        (stats,) = [e for e in events if e.get("kind") == "chaos_fleet_stats"]
+        launches = {}
+        for w in stats["workers"]:
+            for k, v in ((w or {}).get("launches") or {}).items():
+                launches[k] = launches.get(k, 0) + v
+        if launches.get("scan", 0) <= 0:
+            raise AssertionError(f"12a chaos: the workers launched no scan: "
+                                 f"{stats}")
+        left = sorted(n for n in os.listdir("/dev/shm")
+                      if n.startswith("tpkserve-"))
+        log(f"12a chaos schedule (seed 1, 5 events): {', '.join(schedule)}"
+            + ("" if {"kill_worker", "torn_write"} <= set(schedule) else
+               f"; no {' or '.join(sorted({'kill_worker', 'torn_write'} - set(schedule)))}"
+               " in this schedule"))
+        log(f"12a {verdict} [{card}]")
+        for e in marks:
+            log(f"12a chaos event {e['seq']} {e['event']}: converged in "
+                f"{e['recover_s']:.3f} s"
+                + "".join(f", {k} {e[k]}" for k in ("killed_pid", "worker",
+                                                     "artifact")
+                          if k in e))
+        log(f"12a chaos workers: " + "; ".join(
+            f"worker {i} served {(w or {}).get('served')} launches "
+            f"{json.dumps({k: v for k, v in ((w or {}).get('launches') or {}).items() if v})}"
+            for i, w in enumerate(stats["workers"])))
+        for ln in err.splitlines():
+            if ln.startswith(("obs.report --check", "bench trend")) or \
+                    ": " in ln and ln.split(": ", 1)[1].startswith(
+                        ("slo_breach", "copy_regression", "trace_",
+                         "pad_waste", "overlap_low", "p99_creep")):
+                log(f"12a chaos report: {ln}")
+        log(f"12a chaos: the card's memory.used {used0} -> {used1} MiB; "
+            f"tpkserve-* segments left {left}; campaign wall {wall:.1f} s")
+        # the workers' contexts went with them (a CUDA context holds
+        # hundreds of MiB)
+        if used0 is not None and used1 is not None and used1 > used0 + 256:
+            raise AssertionError(f"12a chaos: the card's memory.used "
+                                 f"{used0} -> {used1} MiB after teardown")
+        log(f"PASS 12a chaos campaign on the card: rc 0, "
+            f"{len(marks)} chaos_event markers, the workers launched scan "
+            f"{launches['scan']} times")
+        ok_n, met_n, dropped = (int(x) for x in re.search(
+            r"(\d+) request\(s\) ok \((\d+) within deadline\), "
+            r"(\d+) dropped", verdict).groups())
+        out["chaos"] = {
+            "schedule": schedule, "ok": ok_n, "within_deadline": met_n,
+            "dropped": dropped, "wall_s": round(wall, 3),
+            "recover_s": [e["recover_s"] for e in marks],
+            "workers": stats["workers"], "memory_used_mib": [used0, used1]}
+        out["launches"] = launches
+
+        # (12b) the readers over this run's evidence
+        ev = EVIDENCE["dir"]
+        renv = {k: v for k, v in os.environ.items()
+                if not k.startswith("TPKT_")}
+        renv.update(PYTHONPATH=REPO,
+                    TPKT_HEALTH_JOURNAL=os.path.join(ev, "journal"),
+                    TPKT_INTEGRITY_DIR=os.environ["TPKT_INTEGRITY_DIR"],
+                    **{k: os.path.join(ev, v) for k, v in OPS_STATE.items()})
+        day = time.strftime("%Y-%m-%d")
+        _rc, wall, text, _err = ops_child(
+            "12b rollup", "tpukernels_torch.obs.rollup", ["--date", day],
+            renv)
+        with open(os.path.join(ev, "rollup", f"rollup_{day}.json")) as f:
+            art = json.load(f)
+        reqs = {k: (r["count"], r["p99"]) for k, r in
+                art["requests"].items()}
+        log(f"12b rollup --date {day} ({wall:.1f} s): {art['events']} "
+            f"events, {art['pids']} pids, requests (count, p99 s) {reqs}")
+        journal_file = os.path.join(ev, "journal", f"health_{day}.jsonl")
+        rc, wall, text, _err = ops_child(
+            "12b report --check", "tpukernels_torch.obs.report",
+            ["--check", "--journal", journal_file], renv, ok=(0, 1))
+        for ln in text.strip().splitlines():
+            log(f"12b report: {ln}")
+        log(f"12b report --check: rc {rc} ({wall:.1f} s)"
+            + (" - a finding over phase 11's evidence, printed above; "
+               "phase 11's SLO verdicts judge and never fail the script"
+               if rc else ""))
+        _rc, wall, text, _err = ops_child(
+            "12b trace_report", "tpukernels_torch.obs.trace_report",
+            [os.path.join(ev, "served.jsonl"), "--slowest", "5"], renv)
+        lines = text.strip().splitlines()
+        table = [ln for ln in lines[:40] if ln.startswith(("scan|",
+                                                           "vector_add|",
+                                                           "sgemm|"))]
+        slowest = [ln for ln in lines if ln.startswith("request ")]
+        log(f"12b trace_report ({wall:.1f} s): {lines[1]}")
+        for ln in table + slowest:
+            log(f"12b trace_report: {ln}")
+        if not table or len(slowest) != 5:
+            raise AssertionError(f"12b trace_report: {text[-3000:]}")
+        log(f"PASS 12b readers over this run's evidence: rollup rc 0, "
+            f"report --check rc {rc}, trace_report rc 0 ({len(slowest)} "
+            "waterfalls)")
+        out["readers"] = {"rollup_requests": reqs, "report_rc": rc,
+                          "trace_rows": len(table)}
+        out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+        log(f"phase 12 wall {out['phase_s']:.1f} s [{card}]")
+        print(json.dumps({"ops": out}), flush=True)
+        return out
+    finally:
+        subprocess.run([sys.executable, "-m", "tpukernels_torch.serve.ctl",
+                        "stop-fleet", "--wait", "30"], cwd=REPO,
+                       env=dict(os.environ, TPKT_SERVE_DIR=root),
+                       capture_output=True, timeout=300)
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -5512,6 +5761,7 @@ def main(argv=None):
     os.environ["TPKT_INTEGRITY_DIR"] = os.path.join(state, "integrity")
     os.environ["TPKT_AOT_DIR"] = os.path.join(state, "aot")
     os.environ["TPKT_HEALTH_JOURNAL"] = os.path.join(state, "health.jsonl")
+    EVIDENCE["dir"] = os.path.join(state, "evidence")
     try:
         return run_all(torch, args)
     finally:
@@ -5544,6 +5794,7 @@ def run_all(torch, args):
     del avatars
     phase_compile(torch, guarded)
     phase_loop(torch, serve, args, card)
+    ops = phase_ops(card)
 
     # B3/B4, B5/B6 and B9/B10 share an entry: the dict keeps B4, B6 and
     # B10, and B3, B5 and B10 stand in also_replaces
@@ -5560,6 +5811,7 @@ def run_all(torch, args):
                 "replaces": row.where, "launches": launches[name],
                 "serve_launches": serve["launches"].get(name, 0),
                 "fleet_launches": fleet["launches"].get(name, 0),
+                "chaos_launches": ops["launches"].get(name, 0),
                 "dist_launches": dist["nccl"]["launches"].get(name, 0),
                 "max_abs_err": err, **{k: t[k] for k in keys}, **extra}
 
@@ -5656,6 +5908,7 @@ def run_all(torch, args):
         "launches": launches["sgemm_prep"],
         "serve_launches": serve["launches"].get("sgemm_prep", 0),
         "fleet_launches": fleet["launches"].get("sgemm_prep", 0),
+        "chaos_launches": ops["launches"].get("sgemm_prep", 0),
         "max_abs_err": errs["sgemm_prep"], "shape": t["shape"],
         "precision": "high", "library_ms": None,
         **{key: t[key] for key in prep_keys},
@@ -5698,6 +5951,7 @@ def run_all(torch, args):
         "launches": dist["nccl"]["launches"]["nbody_forces_ij"],
         "serve_launches": serve["launches"].get("nbody_forces_ij", 0),
         "fleet_launches": fleet["launches"].get("nbody_forces_ij", 0),
+        "chaos_launches": ops["launches"].get("nbody_forces_ij", 0),
         "max_abs_err": errs["nbody_forces_ij"], "ms": fij[0]["ms"],
         "plain_ms": fij[0]["plain_ms"], "bound_ms": fij[0]["bound_ms"],
         "bound_by": fij[0]["bound_by"], "library_ms": None,

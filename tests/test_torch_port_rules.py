@@ -23,6 +23,11 @@
   ``serve/adapt``, ``serve/optimize``, ``resilience/canary``) reads only
   ``TPKT_`` knobs, and ``loadgen --simulate``, ``loadgen --serve`` and
   ``serve.optimize propose`` run without loading torch.
+- The fleet's operations layer (``obs/rollup``, ``obs/trend``,
+  ``obs/report``, ``obs/trace_report``, ``serve/top``, ``serve/chaos``)
+  names no JAX, nothing of the JAX package and no torch, reads only
+  ``TPKT_`` knobs (``TPKT_ROLLUP_DIR`` and ``TPKT_ADAPT_WINDOW_DAYS``
+  among them), and its CLIs run without loading torch.
 """
 
 import ast
@@ -173,6 +178,7 @@ def test_scaling_layer_is_under_the_rules():
         read += re.findall(r"environ(?:\.get)?\(\s*\"(\w+)\"", src)
         read += re.findall(r"environ\[\"(\w+)\"\]", src)
         read += re.findall(r"target\.get\(\"(\w+)\"", src)
+        read += re.findall(r"_state_dir\(\"(\w+)\"", src)
         read += re.findall(r"_fraction_knob\(\"(\w+)\"", src)
     # the inventory's env fallback reads CUDA_VISIBLE_DEVICES
     assert read and all(k.startswith(("TPKT_", "CUDA_")) for k in read), read
@@ -606,3 +612,78 @@ def test_load_clients_import_no_torch(tmp_path):
     finally:
         proc.terminate()
         proc.wait(30)
+
+
+# the fleet's operations layer: the daily rollups, the journal
+# analyzers, the gate, the timeline report, the dashboard and the chaos
+# campaign, all readers or clients of the fleet
+OPERATIONS = ("tpukernels_torch.obs.rollup", "tpukernels_torch.obs.trend",
+              "tpukernels_torch.obs.report",
+              "tpukernels_torch.obs.trace_report",
+              "tpukernels_torch.serve.top", "tpukernels_torch.serve.chaos")
+
+
+def test_operations_layer_is_under_the_rules():
+    mods = set(_port_modules())
+    assert set(OPERATIONS) <= mods
+    read = []
+    for m in OPERATIONS + ("tpukernels_torch._cachedir",
+                           "tpukernels_torch.serve.adapt"):
+        src = (ROOT / (m.replace(".", "/") + ".py")).read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|tpukernels\b(?!_))",
+                             src, re.M), m
+        assert not re.search(r"^\s*(import|from)\s+torch", src, re.M), m
+        read += re.findall(r"environ(?:\.get|\.setdefault)?\(\s*\"(\w+)\"",
+                           src)
+        read += re.findall(r"\.get\(\s*\"(TPK\w*)\"", src)
+        read += re.findall(r"\"(TPK_?\w+_DIR)\"", src)
+    assert read and all(k.startswith("TPKT_") for k in read), read
+    # the knobs this layer adds, in the TPKT_ catalog
+    assert {"TPKT_ROLLUP_DIR", "TPKT_ADAPT_WINDOW_DAYS",
+            "TPKT_HEALTH_JOURNAL", "TPKT_SERVE_REQUEST_TIMEOUT_S",
+            "TPKT_CLIENT_RECONNECT_S"} <= set(read)
+
+
+def test_operations_layer_imports_no_torch():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {OPERATIONS!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'tpukernels'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT, env=env, timeout=120)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == ""
+
+
+def test_operations_clis_run_without_torch(tmp_path):
+    """The gate, the timeline report and the rollup run to their end
+    over a journal without loading torch."""
+    import json
+
+    jd = tmp_path / "journals"
+    jd.mkdir()
+    (jd / "health_2026-08-01.jsonl").write_text("".join(json.dumps(e) + "\n"
+                                                        for e in (
+        {"kind": "serve_request", "request_id": "r1", "kernel": "scan",
+         "ok": True, "wall_s": 0.01, "shapes": [[64]], "dtypes": ["int32"],
+         "pad_frac": 0.0, "pid": 3, "t": 1.0},
+        {"kind": "serve_client_request", "request_id": "r1",
+         "kernel": "scan", "wall_s": 0.02, "ok": True, "pid": 2, "t": 1.0})))
+    env = _clean_env(tmp_path, TPKT_HEALTH_JOURNAL=jd,
+                     TPKT_ROLLUP_DIR=tmp_path / "roll",
+                     TPKT_SCALING_DIR=tmp_path / "scaling",
+                     TPKT_INTEGRITY_DIR=tmp_path / "integrity")
+    for module, argv, want in (
+            ("tpukernels_torch.obs.report", ["--check"], 0),
+            ("tpukernels_torch.obs.report", [], 0),
+            ("tpukernels_torch.obs.trace_report", ["--slowest", "1"], 0),
+            ("tpukernels_torch.obs.rollup", [], 0),
+            ("tpukernels_torch.serve.chaos", ["--events", "0"], 2)):
+        rc, bad, p = _run_cli(module, argv, env)
+        assert (rc, bad) == (want, ""), (module, p.stdout + p.stderr)
+    assert (tmp_path / "roll" / "rollup_2026-08-01.json").exists()

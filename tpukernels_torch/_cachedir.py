@@ -4,8 +4,9 @@ The port's own copy of ``tuning_cache_path``, ``read_json_memoized``,
 ``note_torn_artifact``, ``locked_json_update``, the AOT manifest's path,
 the integrity guard's paths, the serving daemon's paths, the SLO
 artifact's path and the adaptive bucket optimizer's paths in
-``tpukernels/_cachedir.py``, and of ``scaling_dir`` in
-``tpukernels/obs/scaling.py``. The state lives in the repository's
+``tpukernels/_cachedir.py``, of ``scaling_dir`` in
+``tpukernels/obs/scaling.py`` and of ``rollup_dir`` in
+``tpukernels/obs/rollup.py``. The state lives in the repository's
 ``.tpkt_cache/`` (gitignored) unless an env var redirects it; the env is
 read on every call, so a test's redirect takes effect at once.
 """
@@ -19,9 +20,30 @@ import sys
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# every state directory a knob redirects, and where it lies under
+# <repo>/.tpkt_cache when no knob does ("": that folder itself)
+STATE_DIRS = {"TPKT_TUNING_CACHE_DIR": "", "TPKT_AOT_DIR": "",
+              "TPKT_INTEGRITY_DIR": "", "TPKT_SLO_DIR": "",
+              "TPKT_ADAPT_DIR": "", "TPKT_SCALING_DIR": "scaling",
+              "TPKT_ROLLUP_DIR": "rollup"}
+
+
+def _under(base: str, var: str) -> str:
+    sub = STATE_DIRS.get(var, "")
+    return os.path.join(base, sub) if sub else base
+
+
+def state_dirs_under(base: str) -> dict:
+    """Each :data:`STATE_DIRS` knob set to its place under ``base``, as
+    it lies under ``<repo>/.tpkt_cache``: how a campaign or a report
+    moves the whole state at once."""
+    return {var: _under(base, var) for var in STATE_DIRS}
+
+
 def _state_dir(var: str, env: dict | None) -> str:
     target = os.environ if env is None else env
-    return target.get(var) or os.path.join(_REPO, ".tpkt_cache")
+    return target.get(var) or _under(os.path.join(_REPO, ".tpkt_cache"),
+                                     var)
 
 
 def tuning_cache_path(env: dict | None = None) -> str:
@@ -96,9 +118,16 @@ def scaling_dir(env: dict | None = None) -> str:
     weak-scaling sweep). ``$TPKT_SCALING_DIR``, else
     ``<repo>/.tpkt_cache/scaling``; a rehearsal redirects it, so its
     artifacts never mix with the card's."""
-    target = os.environ if env is None else env
-    return target.get("TPKT_SCALING_DIR") or os.path.join(
-        _REPO, ".tpkt_cache", "scaling")
+    return _state_dir("TPKT_SCALING_DIR", env)
+
+
+def rollup_dir(env: dict | None = None) -> str:
+    """Where the daily rollups go (``obs/rollup.py``):
+    ``$TPKT_ROLLUP_DIR``, else ``<repo>/.tpkt_cache/rollup``. The
+    reference keeps its rollups beside its journals in ``docs/logs``;
+    that folder holds the reference's TPU evidence, so the port never
+    writes there."""
+    return _state_dir("TPKT_ROLLUP_DIR", env)
 
 
 def serve_socket_path(env: dict | None = None) -> str:

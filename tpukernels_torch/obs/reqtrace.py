@@ -365,7 +365,7 @@ def _pct(vals, q):
 
 def aggregate(timelines) -> dict:
     """Phase-attribution percentiles per (kernel, bucket, tenant)
-    over assembled timelines (the reference's ``trace_report`` table).
+    over assembled timelines (``obs/trace_report.py``'s table).
     Keys are
     ``kernel|bucket|tenant``; per key: request count, client-wall
     p50/p99 and per-phase p50/p99/mean seconds."""
@@ -404,7 +404,7 @@ def aggregate(timelines) -> dict:
 def run_budget(events, request_ids=None) -> dict | None:
     """One run's trace-budget summary — the payload ``loadgen
     --serve`` stamps as a ``serve_trace_budget`` event (the
-    ``serve_copy_budget`` pattern) for a trend check
+    ``serve_copy_budget`` pattern) for ``trend.analyze_trace_budget``
     to judge. ``request_ids`` restricts to the ids the run minted so
     a shared journal's other traffic cannot pollute the verdict.
     Returns None when nothing assembled (journal off, no serve

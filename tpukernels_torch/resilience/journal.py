@@ -22,8 +22,10 @@ repository's ``git_head`` (None where the tree is not a git checkout).
 from __future__ import annotations
 
 import datetime
+import glob
 import json
 import os
+import re
 import subprocess
 import time
 
@@ -66,6 +68,49 @@ def resolve(raw):
 def path():
     """The journal file of this process now, or None when it is off."""
     return resolve(os.environ.get("TPKT_HEALTH_JOURNAL"))
+
+
+_DATED = re.compile(r"health_(\d{4}-\d{2}-\d{2})\.jsonl$")
+
+
+def directory():
+    """The folder of the dated journal files: the one
+    ``TPKT_HEALTH_JOURNAL`` names, or the folder of the file it names;
+    None when journaling is off."""
+    raw = os.environ.get("TPKT_HEALTH_JOURNAL")
+    p = resolve(raw)
+    if p is None:
+        return None
+    return raw if os.path.isdir(raw) else (os.path.dirname(p) or ".")
+
+
+def dated_files() -> dict:
+    """``{date: [paths]}`` of the ``health_<date>.jsonl`` files in
+    :func:`directory`, ascending by date ({} with journaling off)."""
+    d = directory()
+    if d is None:
+        return {}
+    out: dict = {}
+    for p in sorted(glob.glob(os.path.join(d, "health_*.jsonl"))):
+        m = _DATED.search(os.path.basename(p))
+        if m:
+            out.setdefault(m.group(1), []).append(p)
+    return dict(sorted(out.items()))
+
+
+def reader_paths(explicit=None) -> list:
+    """The journal files a report reads: ``explicit``, else
+    ``TPKT_HEALTH_JOURNAL`` (a directory: its newest dated file), else
+    none. Never a default file: the port has none."""
+    if explicit:
+        return list(explicit)
+    raw = os.environ.get("TPKT_HEALTH_JOURNAL")
+    if resolve(raw) is None:
+        return []
+    if os.path.isdir(raw):
+        dated = dated_files()
+        return dated[max(dated)] if dated else []
+    return [raw]
 
 
 def load_events(paths):

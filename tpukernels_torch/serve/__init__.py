@@ -19,15 +19,20 @@ The port's counterpart of ``tpukernels/serve/``:
   flocked pidfile they share with the daemon.
 
 The adaptive bucket loop is ``adapt.py`` with ``optimize.py``
-(``python -m tpukernels_torch.serve.optimize``). What of the reference's
-serving still waits (ROADMAP.md Queue A item 7): the mesh tier
-(``bucketing.mesh_tier_for`` stays None: ``registry.dispatch_mesh`` is
-collective, and the one-process daemon has no group of follower ranks
-to call it with) and the seeded chaos campaigns of ``tools/chaos.py``.
+(``python -m tpukernels_torch.serve.optimize``; ``adapt.window_mix``
+widens its evidence with the daily rollups of ``obs/rollup.py``). The
+fleet's operations: ``top.py`` (``ctl top``, the live dashboard over the
+``stats`` op) and ``chaos.py`` (``python -m
+tpukernels_torch.serve.chaos``, the seeded chaos campaign, which ends
+with ``python -m tpukernels_torch.obs.report --check`` over its own
+journal). What of the reference's serving still waits (ROADMAP.md Queue
+A item 7): the mesh tier (``bucketing.mesh_tier_for`` stays None:
+``registry.dispatch_mesh`` is collective, and the one-process daemon has
+no group of follower ranks to call it with).
 
 Standard library and numpy at import; torch loads with ``server.py``, in
-the daemons only: the router, health manager, guardian and ctl never
-import it.
+the daemons only: the router, health manager, guardian, ctl, top and the
+campaign never import it.
 """
 
 from tpukernels_torch.serve.client import (  # noqa: F401

@@ -9,7 +9,10 @@ shapes and dtypes, the bucket and ``pad_frac``. This module closes the
 loop:
 
 - :func:`shape_mix` mines those records into per-kernel (shapes,
-  dtypes, count) groups; :func:`histogram_pad_frac` reads the daemon's
+  dtypes, count) groups; :func:`window_mix` widens today's mix with the
+  prior days' rollups (``obs/rollup.py``) under
+  ``TPKT_ADAPT_WINDOW_DAYS`` (:func:`merge_mix` sums the rows);
+  :func:`histogram_pad_frac` reads the daemon's
   ``serve.bucket_pad_frac`` aggregate off ``metrics`` events.
 - :func:`propose` turns a mix and the incumbent table into ranked
   SPLITs (a new avatar at a hot observed shape, one compile each) and
@@ -116,6 +119,26 @@ def min_requests() -> int:
     return val
 
 
+def window_days() -> int:
+    """``TPKT_ADAPT_WINDOW_DAYS`` (default 1): the days of evidence the
+    miner sees. 1 is today's journal alone; N > 1 widens the mix with
+    the prior N - 1 days' rollups (``obs/rollup.py``), so a quiet
+    morning still proposes off a week of traffic. Fail-loud parse,
+    >= 1."""
+    raw = os.environ.get("TPKT_ADAPT_WINDOW_DAYS")
+    if raw is None:
+        return 1
+    try:
+        val = int(raw)
+    except ValueError:
+        val = 0
+    if val < 1:
+        raise ValueError(
+            f"TPKT_ADAPT_WINDOW_DAYS={raw!r}: expected an int >= 1"
+        )
+    return val
+
+
 def path() -> str:
     return _cachedir.adapt_path()
 
@@ -172,6 +195,63 @@ def shape_mix(events) -> dict:
 
 def mix_requests(mix: dict) -> int:
     return sum(r["count"] for rows in mix.values() for r in rows)
+
+
+def merge_mix(mixes) -> dict:
+    """Combine :func:`shape_mix` outputs (today's journal, prior days'
+    rollups) into one mix: rows merge by (kernel, shapes, dtypes) with
+    count, pad_frac_sum and bucketed summed, which is what mining the
+    concatenated events would give, so the proposal cannot tell a
+    window from one day."""
+    groups: dict = {}
+    for mix in mixes:
+        for kernel, rows in (mix or {}).items():
+            for r in rows:
+                try:
+                    shapes = [tuple(int(d) for d in s) for s in r["shapes"]]
+                    dtypes = list(r["dtypes"])
+                except (KeyError, TypeError, ValueError):
+                    continue
+                key = (kernel, tuple(shapes), tuple(dtypes))
+                row = groups.get(key)
+                if row is None:
+                    row = groups[key] = {
+                        "kernel": kernel, "shapes": shapes,
+                        "dtypes": dtypes, "count": 0,
+                        "pad_frac_sum": 0.0, "bucketed": 0,
+                    }
+                row["count"] += int(r.get("count") or 0)
+                row["pad_frac_sum"] += float(r.get("pad_frac_sum") or 0.0)
+                row["bucketed"] += int(r.get("bucketed") or 0)
+    out: dict = {}
+    for row in groups.values():
+        out.setdefault(row["kernel"], []).append(row)
+    for rows in out.values():
+        rows.sort(key=lambda r: (-r["count"], r["shapes"]))
+    return out
+
+
+def window_mix(events, days: int | None = None,
+               end_date: str | None = None):
+    """Today's mix from ``events`` (the live journal) widened with the
+    prior ``days - 1`` days' validated rollup mixes: ``(mix,
+    days_used)``, ``days_used`` the rollup days folded in + 1. A rollup
+    dated ``end_date`` (default today) is skipped: today's evidence is
+    the journal's, and folding today's rollup in too would count every
+    request twice."""
+    if days is None:
+        days = window_days()
+    today_mix = shape_mix(events)
+    if days <= 1:
+        return today_mix, 1
+    from tpukernels_torch.obs import rollup
+
+    if end_date is None:
+        end_date = time.strftime("%Y-%m-%d")
+    prior = [(date, art) for date, art in rollup.load_series()
+             if date < end_date][-(days - 1):]
+    mixes = [today_mix] + [art.get("shape_mix") or {} for _, art in prior]
+    return merge_mix(mixes), 1 + len(prior)
 
 
 def histogram_pad_frac(events):

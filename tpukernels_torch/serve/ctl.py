@@ -16,6 +16,8 @@ Usage:
     python -m tpukernels_torch.serve.ctl health [--wait S]
     python -m tpukernels_torch.serve.ctl guardian [--wait S]
     python -m tpukernels_torch.serve.ctl fsck
+    python -m tpukernels_torch.serve.ctl top [--once] [--interval S]
+                                             [--socket PATH]
 
 Single daemon: ``start`` spawns the daemon detached and waits for a
 protocol ping; ``stop`` SIGTERMs the pid the flocked pidfile records and
@@ -43,6 +45,9 @@ supervisor (``serve/guardian.py``) and waits for its pidfile flock.
 ``fsck`` reaps crash residue: pidfiles whose flock nothing holds,
 ``tpkserve-*`` shm segments whose creator is dead, and a fleet.json
 that does not parse; journaled as ``fleet_fsck``, always exit 0.
+``top`` is the live dashboard over the read-only ``stats`` op
+(``serve/top.py``): one row a worker, ``--once`` for one frame (rc 1
+when nothing answers).
 
 Exit codes: 0 — done (``status``: up; ``health``: all workers live);
 1 — failed (``status``: down; ``health``: a worker is dead or
@@ -603,7 +608,7 @@ def fsck() -> int:
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     verbs = ("start", "stop", "status", "start-fleet", "stop-fleet",
-             "drain", "undrain", "health", "guardian", "fsck")
+             "drain", "undrain", "health", "guardian", "fsck", "top")
     if not argv or argv[0] not in verbs:
         print(__doc__, file=sys.stderr)
         return 2
@@ -619,6 +624,7 @@ def main(argv=None):
         count = int(rest[0])
         rest = rest[1:]
     wait_s, socket_path = 30.0, None
+    once, interval_s = False, 2.0
     it = iter(rest)
     try:
         for a in it:
@@ -626,6 +632,10 @@ def main(argv=None):
                 wait_s = float(next(it))
             elif a == "--socket":
                 socket_path = next(it)
+            elif a == "--once" and cmd == "top":
+                once = True
+            elif a == "--interval" and cmd == "top":
+                interval_s = float(next(it))
             else:
                 print(__doc__, file=sys.stderr)
                 print(f"ctl: unknown argument {a!r}",
@@ -656,6 +666,11 @@ def main(argv=None):
         return guardian(wait_s)
     if cmd == "fsck":
         return fsck()
+    if cmd == "top":
+        from tpukernels_torch.serve import top
+
+        return top.run(once=once, interval_s=interval_s,
+                       socket_path=socket_path)
     return status(socket_path)
 
 

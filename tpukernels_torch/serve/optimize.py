@@ -9,8 +9,10 @@
 The port's copy of ``tools/serve_optimize.py``, over ``serve/adapt.py``.
 
 ``propose`` (no torch in the process) mines the journal's
-``serve_request`` shape mix, projects it against the incumbent table
-(``TPKT_SERVE_BUCKETS``, default ``aot.BENCH_CONFIGS``) and, when the
+``serve_request`` shape mix (under ``TPKT_ADAPT_WINDOW_DAYS`` > 1 widened
+with the prior days' rollups, ``adapt.window_mix``), projects it against
+the incumbent table (``TPKT_SERVE_BUCKETS``, default
+``aot.BENCH_CONFIGS``) and, when the
 projected mean pad_frac is at or above ``TPKT_ADAPT_PAD_TARGET`` and at
 least ``TPKT_ADAPT_MIN_REQUESTS`` requests back it, writes the ranked
 split/merge candidate as ``adapt.json`` (event ``adapt_proposed``). No
@@ -79,8 +81,14 @@ def _cmd_propose(journals, target):
         target = adapt.pad_target()
     need = adapt.min_requests()
     events = _mine_events(journals)
-    mix = adapt.shape_mix(events)
+    days = adapt.window_days()
+    mix, days_used = adapt.window_mix(events, days=days)
     seen = adapt.mix_requests(mix)
+    if days > 1:
+        print(f"optimize: mining a {days}-day window "
+              f"(TPKT_ADAPT_WINDOW_DAYS): today's journal + "
+              f"{days_used - 1} prior rollup day(s), {seen} "
+              "request(s) total")
     max_pad = bucketing.max_pad_frac()
     incumbent = bucketing.bucket_configs()
     if seen < need:
@@ -104,7 +112,7 @@ def _cmd_propose(journals, target):
     p = adapt.record_candidate(result, mix, target)
     journal.emit(
         "adapt_proposed", path=p, requests_mined=seen, pad_target=target,
-        hist_pad_frac=hist,
+        hist_pad_frac=hist, window_days=days_used,
         proposals=[{"action": a["action"], "kernel": a["kernel"],
                     "waste_saved": a["waste_saved"],
                     "compiles": a["compiles"]}
