@@ -236,6 +236,29 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    ``{"ops": ...}`` JSON line; each kernel entry gains
    ``chaos_launches``.
 
+13. runs the revalidation supervisor on the card, only through ``python
+   -m tpukernels_torch.revalidate`` processes, its checkpoint, stamps,
+   journal, lock and every state directory in a temporary directory:
+   (a) ``--plan`` (rc 0) prints the production queue's order; (b) a
+   queue of production steps, cut in duration only (``prewarm_all`` as
+   shipped, ``slo_probe`` at 10 s, ``integrity_envelopes``,
+   ``rollup_daily``, ``fleet_fsck``, ``obs_check``): a first run with
+   ``kill_supervisor`` armed at ``slo_probe`` dies by SIGKILL after the
+   prewarm went green, and a second run without the plan ends green (rc
+   0) without running the prewarm again and with ``slo_probe`` run
+   again; (c) stub steps (``sleep 60`` under a 3 s timeout): with the
+   live probe (a torch child on the card) the step is ``slow``, never
+   ``wedged``, and the queue goes on; with ``"probe": ["dead", "dead"]``
+   it is ``wedged`` twice, then quarantined, and the next run moves on
+   to the next step. Then the card's ``memory.used`` must be within 256
+   MiB of before, ``obs.report`` over the phase's journal must print the
+   supervisor section with these steps and outcomes, and
+   ``obs.health_report`` over it must exit 0. Each kernel's launches by
+   the step children come from the exit ``metrics`` events in that
+   journal (``kernel.launches.<name>``). It prints one
+   ``{"supervisor": ...}`` JSON line; each kernel entry gains
+   ``supervisor_launches``.
+
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
 check raises: the script then exits non-zero and prints no result. It
@@ -324,18 +347,6 @@ def keep(src, name):
         shutil.copytree(src, dst, dirs_exist_ok=True)
     else:
         shutil.copy(src, dst)
-
-
-def run_all_rows():
-    """The single-device ``run <driver> <flags>`` rows of c/run_all.sh
-    (phase 6 runs each through the port's shim)."""
-    rows = []
-    with open(os.path.join(REPO, "c", "run_all.sh")) as f:
-        for line in f:
-            m = re.match(r"run (\w+) (.*?)\s*(#.*)?$", line.rstrip("\n"))
-            if m and m.group(1) != "allreduce_bench":
-                rows.append((m.group(1), m.group(2).split()))
-    return rows
 
 
 def log(msg=""):
@@ -2863,7 +2874,7 @@ def phase_c_entry(torch, times):
     """Phase 6: the unchanged C drivers on the port through its shim."""
     log("== phase 6: the C entry (c/ drivers -> port shim -> "
         "registry.dispatch)")
-    from tpukernels_torch import _build
+    from tpukernels_torch import _build, cgate
 
     torch.cuda.empty_cache()
     t_phase = t0 = time.perf_counter()
@@ -2884,7 +2895,7 @@ def phase_c_entry(torch, times):
         # correctness: test_shim_abi and c/run_all.sh's single-device rows
         rows = [("test_shim_abi", "test_shim_abi", [])] + [
             (f"run_all {i}", d, ["--check", "--reps=1", *a])
-            for i, (d, a) in enumerate(run_all_rows())]
+            for i, (d, a) in enumerate(cgate.run_all_rows())]
         with concurrent.futures.ThreadPoolExecutor(4) as pool:
             done = list(pool.map(
                 lambda r: c_child(cbin, state, re.sub(r"\W+", "_", r[0]),
@@ -5734,6 +5745,250 @@ def phase_ops(card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ #
+# phase 13: the revalidation supervisor on the card                  #
+# ------------------------------------------------------------------ #
+
+# 13b's queue: production steps, in the order they are listed
+SUPERVISOR_STEPS = ("prewarm_all", "slo_probe", "integrity_envelopes",
+                    "rollup_daily", "fleet_fsck", "obs_check")
+SUPERVISOR_SLO_S = 10   # slo_probe's load, cut from the queue's 60 s
+SUPERVISOR_STUCK_S = 3  # 13c's stub step's timeout
+# the kernels phase 13's step children must launch: the prewarm's
+# first-trust canaries and the SLO probe's avatars of every key
+# (scan_histogram's fuse is off: B11 is not on the path; nor is B2)
+SUPERVISOR_PATH = ("saxpy", "sgemm_prep", "sgemm_split3", "jacobi2d",
+                   "jacobi3d", "nbody_forces", "scan", "histogram")
+
+
+def supervisor_queue(path):
+    """Write 13b's queue file: the production steps of SUPERVISOR_STEPS,
+    cut in duration only (the SLO probe's load), their ``after`` edges
+    kept where the step is in the queue."""
+    from tpukernels_torch import revalidate
+
+    prod = {s.name: s for s in revalidate.PRODUCTION_QUEUE}
+    fields = ("gating", "timeout_s", "cost_min", "value",
+              "max_attempts_per_day", "quarantine_after", "stamp",
+              "needs_chip", "inputs", "cost_from")
+    steps = []
+    for name in SUPERVISOR_STEPS:
+        spec = prod[name]
+        shell = spec.shell
+        if name == "slo_probe":
+            shell = shell.replace("--duration 60",
+                                  f"--duration {SUPERVISOR_SLO_S}")
+            if shell == spec.shell:
+                raise AssertionError("13b: slo_probe's body has no "
+                                     "--duration 60 to cut")
+        steps.append({"name": name, "shell": shell,
+                      "after": [a for a in spec.after
+                                if a in SUPERVISOR_STEPS],
+                      **{f: getattr(spec, f) for f in fields}})
+    with open(path, "w") as f:
+        json.dump(steps, f)
+
+
+def supervisor_records(path, kind=None):
+    from tpukernels_torch.resilience import journal
+
+    events, _ = journal.load_events([path])
+    return [e for e in events if kind is None or e.get("kind") == kind]
+
+
+def phase_supervisor(card):
+    """Phase 13: the revalidation supervisor on the card (item 13 of the
+    module docstring)."""
+    log("== phase 13: the revalidation supervisor (python -m "
+        "tpukernels_torch.revalidate, obs.report, obs.health_report)")
+    from tpukernels_torch import _cachedir, revalidate
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="tpkt_supervisor_")
+    journal_dir = os.path.join(root, "journal")
+    os.makedirs(journal_dir)
+    base = {k: v for k, v in os.environ.items() if not k.startswith("TPKT_")}
+    base.update(PYTHONPATH=REPO, TPKT_HEALTH_JOURNAL=journal_dir,
+                TPKT_SERVE_DIR=os.path.join(root, "serve"),
+                TPKT_REVALIDATE_LOCK=os.path.join(root, "gpu_wait.lock"),
+                **_cachedir.state_dirs_under(os.path.join(root, "state")))
+
+    def env(sup, plan=None):
+        e = dict(base, TPKT_SUPERVISOR_DIR=os.path.join(root, sup))
+        if plan is not None:
+            e["TPKT_FAULT_PLAN"] = json.dumps(plan)
+        return e
+
+    def checkpoint(sup):
+        return os.path.join(root, sup,
+                            f"supervisor_{time.strftime('%Y-%m-%d')}.jsonl")
+
+    def dones(sup):
+        return [(e["step"], e["outcome"])
+                for e in supervisor_records(checkpoint(sup), "step_done")]
+
+    out = {"walls_s": {}}
+
+    def revalidate_run(label, sup, argv, plan=None, ok=(0,)):
+        rc, wall, text, err = ops_child(
+            label, "tpukernels_torch.revalidate", argv, env(sup, plan),
+            timeout=600, ok=ok)
+        out["walls_s"][label] = round(wall, 3)
+        for ln in (text + err).strip().splitlines():
+            log(f"  {label}: {ln}")
+        return rc, text, err
+
+    used0 = card_memory_used()
+    try:
+        # (13a) the plan
+        _rc, text, _err = revalidate_run("13a --plan", "plan", ["--plan"])
+        order = [ln.split()[0] for ln in text.strip().splitlines()[2:]]
+        if sorted(order) != sorted(s.name for s in
+                                   revalidate.PRODUCTION_QUEUE):
+            raise AssertionError(f"13a: --plan listed {order}")
+        log(f"PASS 13a --plan: rc 0, the production queue's order on the "
+            f"card: {', '.join(order)}; waiting: "
+            + ", ".join(f"{k} ({v.split(' (')[0]})"
+                        for k, v in revalidate.WAITING.items()))
+        out["plan"] = order
+
+        # (13b) production steps, a SIGKILL mid-queue and the resume
+        qf = os.path.join(root, "queue.json")
+        supervisor_queue(qf)
+        rc, _t, _e = revalidate_run(
+            "13b run 1", "sup", ["--queue", qf],
+            plan={"kill_supervisor": "slo_probe"},
+            ok=(-signal.SIGKILL.value,))
+        starts = [e["step"] for e in
+                  supervisor_records(checkpoint("sup"), "step_start")]
+        if starts != ["prewarm_all", "slo_probe"] or dones("sup") != [
+                ("prewarm_all", "green")]:
+            raise AssertionError(f"13b run 1: started {starts}, done "
+                                 f"{dones('sup')}")
+        log("PASS 13b run 1: rc -9 (SIGKILL) after slo_probe's step_start; "
+            "prewarm_all green before it")
+        revalidate_run("13b run 2", "sup", ["--queue", qf])
+        got = dones("sup")[1:]
+        skips = [(e["step"], e["reason"]) for e in
+                 supervisor_records(checkpoint("sup"), "step_skipped")]
+        resume = supervisor_records(checkpoint("sup"), "supervisor_resume")
+        ran = [s for s, _o in got]
+        if ("prewarm_all", "green-today") not in skips or \
+                "prewarm_all" in ran or sorted(ran) != sorted(
+                    set(SUPERVISOR_STEPS) - {"prewarm_all"}) or \
+                any(o != "green" for _s, o in got) or \
+                resume[-1]["interrupted"] != ["slo_probe"]:
+            raise AssertionError(f"13b run 2: done {got}, skipped {skips}, "
+                                 f"resume {resume}")
+        walls = {e["step"]: e["wall_s"] for e in
+                 supervisor_records(checkpoint("sup"), "step_done")}
+        log("PASS 13b run 2: rc 0, prewarm_all skipped (green-today), "
+            "slo_probe ran again, every step green; step walls s: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+        out["steps"] = {"order": ["prewarm_all"] + ran, "wall_s": walls}
+
+        # (13c) slow versus wedged, and the quarantine
+        stuck = {"name": "stuck", "shell": "sleep 60",
+                 "timeout_s": SUPERVISOR_STUCK_S, "cost_min": 1,
+                 "value": 10}
+        nxt = {"name": "next", "shell": "true", "cost_min": 1, "value": 1,
+               "needs_chip": False, "stamp": "never"}
+        qs = os.path.join(root, "stub.json")
+        with open(qs, "w") as f:
+            json.dump([dict(stuck, gating=False), nxt], f)
+        revalidate_run("13c live probe", "slow", ["--queue", qs])
+        probes = [e for e in supervisor_records(
+            os.path.join(journal_dir, f"health_{time.strftime('%Y-%m-%d')}"
+                         ".jsonl"), "probe") if not e.get("injected")]
+        if dones("slow") != [("stuck", "slow"), ("next", "green")] or \
+                not probes or probes[-1]["outcome"] != "alive":
+            raise AssertionError(f"13c live probe: {dones('slow')}, probes "
+                                 f"{probes}")
+        log(f"PASS 13c live probe: stuck timed out after "
+            f"{SUPERVISOR_STUCK_S} s, the probe on the card answered, "
+            "classified slow (not wedged); next ran")
+        with open(qs, "w") as f:
+            json.dump([dict(stuck, quarantine_after=2), nxt], f)
+        dead = {"probe": ["dead", "dead"]}
+        for i in (1, 2):
+            revalidate_run(f"13c dead probe {i}", "wedge", ["--queue", qs],
+                           plan=dead, ok=(124,))
+        revalidate_run("13c after the quarantine", "wedge", ["--queue", qs])
+        quar = supervisor_records(checkpoint("wedge"), "step_quarantined")
+        skips = [(e["step"], e["reason"]) for e in
+                 supervisor_records(checkpoint("wedge"), "step_skipped")]
+        if dones("wedge") != [("stuck", "wedged"), ("stuck", "wedged"),
+                              ("next", "green")] or \
+                [(q["step"], q["wedges"]) for q in quar] != [("stuck", 2)] \
+                or ("stuck", "quarantined") not in skips:
+            raise AssertionError(f"13c dead probe: {dones('wedge')}, "
+                                 f"{quar}, {skips}")
+        log("PASS 13c dead probe: stuck wedged twice (rc 124 each), "
+            "step_quarantined after 2, the next run skipped it and ran "
+            "next (rc 0)")
+        out["stub"] = {"slow": dones("slow"), "wedge": dones("wedge")}
+
+        # the card after the phase, and the launches of the step children
+        used1 = card_memory_used()
+        journal_file = os.path.join(
+            journal_dir, f"health_{time.strftime('%Y-%m-%d')}.jsonl")
+        launches = {}
+        for e in supervisor_records(journal_file, "metrics"):
+            for k, v in (e.get("counters") or {}).items():
+                if k.startswith("kernel.launches."):
+                    name = k[len("kernel.launches."):]
+                    launches[name] = launches.get(name, 0) + v
+        log(f"13 the step children's launches (their exit metrics): "
+            f"{json.dumps(launches, sort_keys=True)}")
+        missing = [k for k in SUPERVISOR_PATH if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"13: the step children launched no "
+                                 f"{missing}: {launches}")
+        log(f"13 the card's memory.used {used0} -> {used1} MiB")
+        if used0 is not None and used1 is not None and used1 > used0 + 256:
+            raise AssertionError(f"13: the card's memory.used {used0} -> "
+                                 f"{used1} MiB: a step child left a context")
+
+        # the readers over the phase's journal
+        _rc, wall, text, _err = ops_child(
+            "13 obs.report", "tpukernels_torch.obs.report",
+            ["--journal", journal_file], base)
+        lines = text.splitlines()
+        i = next(i for i, ln in enumerate(lines)
+                 if ln.startswith("== supervisor step breakdown"))
+        rows = {}
+        for ln in lines[i + 3:]:
+            if not ln.strip() or ln.startswith("=="):
+                break
+            rows[ln.split()[0]] = ln
+            log(f"13 obs.report: {ln}")
+        want = set(SUPERVISOR_STEPS) | {"stuck", "next"}
+        if set(rows) != want or "QUARANTINED" not in rows["stuck"] or \
+                "slow=1" not in rows["stuck"] or \
+                "wedged=2" not in rows["stuck"]:
+            raise AssertionError(f"13 obs.report: {lines[i:i + 14]}")
+        _rc, hwall, text, _err = ops_child(
+            "13 obs.health_report", "tpukernels_torch.obs.health_report",
+            [journal_file], base)
+        table = [ln.strip() for ln in text.splitlines()
+                 if ln.startswith("  ") and "attempts=" in ln]
+        for ln in table:
+            log(f"13 health_report: {ln}")
+        verdict = text.strip().splitlines()[-1]
+        log(f"13 health_report: {verdict}")
+        log(f"PASS 13 readers: obs.report's supervisor section holds the "
+            f"{len(rows)} steps and their outcomes ({wall:.1f} s), "
+            f"health_report rc 0 ({hwall:.1f} s)")
+        out.update(launches=launches, memory_used_mib=[used0, used1],
+                   health_table=table)
+        out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+        log(f"phase 13 wall {out['phase_s']:.1f} s [{card}]")
+        print(json.dumps({"supervisor": out}), flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5795,6 +6050,7 @@ def run_all(torch, args):
     phase_compile(torch, guarded)
     phase_loop(torch, serve, args, card)
     ops = phase_ops(card)
+    sup = phase_supervisor(card)
 
     # B3/B4, B5/B6 and B9/B10 share an entry: the dict keeps B4, B6 and
     # B10, and B3, B5 and B10 stand in also_replaces
@@ -5812,6 +6068,7 @@ def run_all(torch, args):
                 "serve_launches": serve["launches"].get(name, 0),
                 "fleet_launches": fleet["launches"].get(name, 0),
                 "chaos_launches": ops["launches"].get(name, 0),
+                "supervisor_launches": sup["launches"].get(name, 0),
                 "dist_launches": dist["nccl"]["launches"].get(name, 0),
                 "max_abs_err": err, **{k: t[k] for k in keys}, **extra}
 
@@ -5909,6 +6166,7 @@ def run_all(torch, args):
         "serve_launches": serve["launches"].get("sgemm_prep", 0),
         "fleet_launches": fleet["launches"].get("sgemm_prep", 0),
         "chaos_launches": ops["launches"].get("sgemm_prep", 0),
+        "supervisor_launches": sup["launches"].get("sgemm_prep", 0),
         "max_abs_err": errs["sgemm_prep"], "shape": t["shape"],
         "precision": "high", "library_ms": None,
         **{key: t[key] for key in prep_keys},
@@ -5952,6 +6210,7 @@ def run_all(torch, args):
         "serve_launches": serve["launches"].get("nbody_forces_ij", 0),
         "fleet_launches": fleet["launches"].get("nbody_forces_ij", 0),
         "chaos_launches": ops["launches"].get("nbody_forces_ij", 0),
+        "supervisor_launches": sup["launches"].get("nbody_forces_ij", 0),
         "max_abs_err": errs["nbody_forces_ij"], "ms": fij[0]["ms"],
         "plain_ms": fij[0]["plain_ms"], "bound_ms": fij[0]["bound_ms"],
         "bound_by": fij[0]["bound_by"], "library_ms": None,

@@ -28,6 +28,11 @@
   names no JAX, nothing of the JAX package and no torch, reads only
   ``TPKT_`` knobs (``TPKT_ROLLUP_DIR`` and ``TPKT_ADAPT_WINDOW_DAYS``
   among them), and its CLIs run without loading torch.
+- The revalidation supervisor (``resilience/supervisor``, ``revalidate``,
+  ``obs/health_report``) and the C gate its steps run (``cgate``) name
+  no JAX and nothing of the JAX package, read only ``TPKT_`` knobs, and
+  the first three import no torch; its state is a ``_cachedir`` state
+  directory under the gitignored ``.tpkt_cache``.
 """
 
 import ast
@@ -687,3 +692,63 @@ def test_operations_clis_run_without_torch(tmp_path):
         rc, bad, p = _run_cli(module, argv, env)
         assert (rc, bad) == (want, ""), (module, p.stdout + p.stderr)
     assert (tmp_path / "roll" / "rollup_2026-08-01.json").exists()
+
+
+# the revalidation supervisor: the queue, its CLI and the session report,
+# none of which may open a CUDA context; and the C gate its steps run
+SUPERVISOR = ("tpukernels_torch.resilience.supervisor",
+              "tpukernels_torch.revalidate",
+              "tpukernels_torch.obs.health_report")
+
+
+def test_supervisor_layer_is_under_the_rules():
+    mods = set(_port_modules())
+    assert set(SUPERVISOR) | {"tpukernels_torch.cgate"} <= mods
+    read = []
+    for m in SUPERVISOR + ("tpukernels_torch.cgate",):
+        src = (ROOT / (m.replace(".", "/") + ".py")).read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|tpukernels\b(?!_))",
+                             src, re.M), m
+        assert not re.search(r"\bjax\b", src), m
+        if m in SUPERVISOR:
+            assert not re.search(r"^\s*(import|from)\s+torch", src,
+                                 re.M), m
+        read += re.findall(r"environ(?:\.get|\.setdefault)?\(\s*\"(\w+)\"",
+                           src)
+        read += re.findall(r"env\[\"(\w+)\"\]", src)
+    assert read and all(k.startswith("TPKT_") or k in ("HOME",
+                                                       "ASAN_OPTIONS",
+                                                       "TPU_KERNELS_SHIM")
+                        for k in read), read
+    assert {"TPKT_REVALIDATE_STAMP_DIR", "TPKT_REVALIDATE_FORCE",
+            "TPKT_SUPERVISOR_CHECKPOINT", "TPKT_SUPERVISOR_WINDOW_MIN",
+            "TPKT_SUPERVISOR_PROBE_BASE_S", "TPKT_SUPERVISOR_PROBE_CAP_S",
+            "TPKT_REVALIDATE_LOCK", "TPKT_REVALIDATE_LOCK_WAIT_S",
+            "TPKT_SUPERVISOR_QUEUE", "TPKT_HEALTH_JOURNAL"} <= set(read)
+
+
+def test_supervisor_state_is_a_state_dir():
+    from tpukernels_torch import _cachedir
+
+    assert _cachedir.STATE_DIRS["TPKT_SUPERVISOR_DIR"] == "supervisor"
+    assert _cachedir.supervisor_dir({}) == str(ROOT / ".tpkt_cache" /
+                                               "supervisor")
+    assert _cachedir.supervisor_dir({"TPKT_SUPERVISOR_DIR": "/x"}) == "/x"
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert ".tpkt_cache/" in ignored
+
+
+def test_supervisor_layer_imports_no_torch():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SUPERVISOR!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'tpukernels'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT, env=env, timeout=120)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == ""

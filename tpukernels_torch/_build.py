@@ -342,21 +342,23 @@ def _site_packages() -> str:
                                           paths["platlib"])))
 
 
-def build_shim(out_dir=None) -> Path:
+def build_shim(out_dir=None, extra_cflags=()) -> Path:
     """Compile ``csrc/tpkt_shim.c`` into ``<out_dir>/libtpkt_shim-<hash>
     .so`` (default ``_build/``) unless it is there, and return its path.
     The repository root and the running interpreter's site-packages are
-    baked in; the hash covers the source, its header, the flags and the
-    Python version. A missing compiler or ``python3-config``, or a failed
-    build, raises. Under ``out_dir``'s build lock (:func:`_dir_lock`)."""
+    baked in; the hash covers the source, its header, the flags (with
+    ``extra_cflags``, a sanitizer's say) and the Python version. A
+    missing compiler or ``python3-config``, or a failed build, raises.
+    Under ``out_dir``'s build lock (:func:`_dir_lock`)."""
     out_dir = Path(out_dir) if out_dir else BUILD_DIR
     with _dir_lock(out_dir):
-        return _build_shim_locked(out_dir)
+        return _build_shim_locked(out_dir, tuple(extra_cflags))
 
 
-def _build_shim_locked(out_dir: Path) -> Path:
+def _build_shim_locked(out_dir: Path, extra_cflags: tuple = ()) -> Path:
     cc = c_compiler()
     cflags, ldflags = python_embed_flags()
+    cflags = [*cflags, *extra_cflags]
     defines = (f'-DTPKT_DEFAULT_ROOT="{_PKG.parent}"',
                f'-DTPKT_SITE_PACKAGES="{_site_packages()}"')
     flags = [*SHIM_CFLAGS, *cflags, *ldflags, *defines]
@@ -377,13 +379,15 @@ def _build_shim_locked(out_dir: Path) -> Path:
     return out
 
 
-def build_c_drivers(bin_dir=None) -> Path:
+def build_c_drivers(bin_dir=None, cflags=None, ldlibs=None) -> Path:
     """Build the unchanged C drivers of ``C_DRIVERS`` from ``c/`` into
     ``bin_dir`` (default ``_build/cbin/``, never ``c/bin/``) with
     ``c/Makefile`` (a command-line ``BIN`` and ``CC`` override its own:
-    ``CC`` is a compiler with OpenMP), and return the directory.
-    ``make`` rebuilds only what is out of date, under ``bin_dir``'s build
-    lock (:func:`_dir_lock`); a missing tool or a failed build raises."""
+    ``CC`` is a compiler with OpenMP; ``cflags`` and ``ldlibs``, when
+    given, replace its ``CFLAGS`` and ``LDLIBS``), and return the
+    directory. ``make`` rebuilds only what is out of date, under
+    ``bin_dir``'s build lock (:func:`_dir_lock`); a missing tool or a
+    failed build raises."""
     bin_dir = Path(bin_dir or BUILD_DIR / "cbin").resolve()
     make = shutil.which("make")
     if not make:
@@ -393,6 +397,8 @@ def build_c_drivers(bin_dir=None) -> Path:
         r = subprocess.run(
             [make, "-C", str(C_DIR), f"-j{len(C_DRIVERS)}",
              f"CC={c_compiler(openmp=True)}", f"BIN={bin_dir}",
+             *([f"CFLAGS={cflags}"] if cflags is not None else []),
+             *([f"LDLIBS={ldlibs}"] if ldlibs is not None else []),
              *(str(bin_dir / d) for d in C_DRIVERS)],
             capture_output=True, text=True)
     if r.returncode != 0:

@@ -5,10 +5,12 @@ The port's own copy of ``tuning_cache_path``, ``read_json_memoized``,
 the integrity guard's paths, the serving daemon's paths, the SLO
 artifact's path and the adaptive bucket optimizer's paths in
 ``tpukernels/_cachedir.py``, of ``scaling_dir`` in
-``tpukernels/obs/scaling.py`` and of ``rollup_dir`` in
-``tpukernels/obs/rollup.py``. The state lives in the repository's
-``.tpkt_cache/`` (gitignored) unless an env var redirects it; the env is
-read on every call, so a test's redirect takes effect at once.
+``tpukernels/obs/scaling.py``, of ``rollup_dir`` in
+``tpukernels/obs/rollup.py`` and of the revalidation supervisor's
+checkpoint and stamp directory in ``tpukernels/resilience/supervisor.py``.
+The state lives in the repository's ``.tpkt_cache/`` (gitignored) unless
+an env var redirects it; the env is read on every call, so a test's
+redirect takes effect at once.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STATE_DIRS = {"TPKT_TUNING_CACHE_DIR": "", "TPKT_AOT_DIR": "",
               "TPKT_INTEGRITY_DIR": "", "TPKT_SLO_DIR": "",
               "TPKT_ADAPT_DIR": "", "TPKT_SCALING_DIR": "scaling",
-              "TPKT_ROLLUP_DIR": "rollup"}
+              "TPKT_ROLLUP_DIR": "rollup",
+              "TPKT_SUPERVISOR_DIR": "supervisor"}
 
 
 def _under(base: str, var: str) -> str:
@@ -128,6 +131,18 @@ def rollup_dir(env: dict | None = None) -> str:
     that folder holds the reference's TPU evidence, so the port never
     writes there."""
     return _state_dir("TPKT_ROLLUP_DIR", env)
+
+
+def supervisor_dir(env: dict | None = None) -> str:
+    """State of the revalidation supervisor (``resilience/supervisor.py``,
+    ``python -m tpukernels_torch.revalidate``): its checkpoint
+    ``supervisor_<date>.jsonl``, its stamps under ``.revalidate_stamps/``
+    and its steps' logs under ``logs/``. ``$TPKT_SUPERVISOR_DIR``, else
+    ``<repo>/.tpkt_cache/supervisor``; ``TPKT_SUPERVISOR_CHECKPOINT`` and
+    ``TPKT_REVALIDATE_STAMP_DIR`` move the checkpoint and the stamps
+    alone. The reference keeps all three under ``docs/logs``, which
+    holds its TPU evidence, so the port never writes there."""
+    return _state_dir("TPKT_SUPERVISOR_DIR", env)
 
 
 def serve_socket_path(env: dict | None = None) -> str:

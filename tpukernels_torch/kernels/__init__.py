@@ -15,14 +15,24 @@ and nowhere else.
 kernel (work the reference leaves to XLA): they have a counter and a
 source, but no row in ``TPU_KERNELS``.
 ``chip_smoke.py`` zeroes the counts before it drives the main path and
-reads them after, to show the path went through the kernels.
+reads them after, to show the path went through the kernels. At exit a
+process adds its nonzero counts to its metrics as
+``kernel.launches.<name>`` counters, so the exit ``metrics`` journal
+event says which kernels a child process (a revalidation step, say)
+launched.
 """
 
 from __future__ import annotations
 
+import atexit
 import threading
 from dataclasses import dataclass
 from typing import Optional
+
+# imported before the exit hook below is registered, so the metrics'
+# exit flush (registered at its import) runs after the hook: atexit runs
+# the last registered first
+from tpukernels_torch.obs import metrics
 
 
 @dataclass(frozen=True)
@@ -128,3 +138,13 @@ def reset_launches() -> None:
     with _LAUNCH_LOCK:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+
+
+def _publish_launches() -> None:
+    with _LAUNCH_LOCK:
+        counts = {k: n for k, n in LAUNCHES.items() if n}
+    for name, n in counts.items():
+        metrics.inc(f"kernel.launches.{name}", n)
+
+
+atexit.register(_publish_launches)

@@ -17,8 +17,10 @@ Sections:
    ``--roofline`` and ``--eps`` (the reference's roofline view and trend
    band) exit 2 with that line.
 3. **Span breakdown** — wall time a span name (``TPKT_TRACE=1`` runs).
-4. **Supervisor steps** — ``step/<name>`` spans and ``step_*`` events
-   (empty until the port has a supervisor).
+4. **Supervisor steps** — ``step/<name>`` spans and the ``step_done``
+   and ``step_quarantined`` events of the revalidation supervisor
+   (``resilience/supervisor.py``, ``python -m
+   tpukernels_torch.revalidate``): runs, wall time and outcomes a step.
 5. **AOT** — ``aot_hit``/``aot_miss`` with their build, load and plan
    seconds, ``aot_rejected``, ``prewarm_end``.
 6. **Output integrity** — guard traffic from the metric snapshots,

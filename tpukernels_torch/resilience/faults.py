@@ -2,7 +2,8 @@
 
 The port's own copy of the parts of ``tpukernels/resilience/faults.py``
 that ``registry.dispatch``, the integrity guard, ``atomic.py``, the C
-entry, the serving daemon and the fleet router reach.
+entry, the serving daemon, the fleet router and the revalidation
+supervisor reach.
 ``TPKT_FAULT_PLAN`` holds inline JSON or the path of a JSON file. It is
 read once, at import; a process that sets it later calls
 :func:`reload_plan`. Unset (the production case), every injection point
@@ -44,6 +45,16 @@ narrows a key to processes whose environment holds those values:
 - ``"fail_capi": "sgemm"`` / ``"wedge_capi": "sgemm"`` — the C entry's
   ``capi.run_from_c`` for that kernel raises, or hangs as
   ``wedge_dispatch`` does, before its adapter runs.
+- ``"probe": ["hang", "dead", "ok"]`` — scripted outcomes of the
+  supervisor's liveness probe (``resilience/supervisor.py``), one
+  consumed a probe attempt in this process, the last repeated once the
+  list runs out: ``"ok"`` is alive without a probe child, anything else
+  is not alive. ``"hang_probe": N`` is sugar: the first N attempts
+  ``"hang"``, later ones run the real probe.
+- ``"kill_supervisor": "step"`` (or ``{"step": "step"}``; no step
+  matches any) — the supervisor SIGKILLs itself right after it has
+  checkpointed that step's ``step_start``, before the step runs: the
+  worst instant for resuming.
 - ``"torn_write": {"path_substr": "integrity", "on_call": 1}`` — the
   ``on_call``-th matching ``resilience/atomic.py`` write leaves half
   its bytes in the temporary file and aborts before the rename
@@ -87,18 +98,19 @@ _KILL_CALLS: dict = {}      # kernel -> dispatches seen (kill_worker)
 _RESPONSE_CALLS: dict = {}  # kernel -> responses seen (delay_response)
 _ROUTE_CALLS = 0            # router admissions seen (kill_router)
 _TORN_CALLS = 0             # matching atomic writes seen (torn_write)
+_PROBE_IDX = 0              # probe attempts scripted (probe, hang_probe)
 
 
 def reload_plan():
     """Re-read ``TPKT_FAULT_PLAN`` and reset the per-process fault
     counters; returns the plan (None when unset)."""
-    global _PLAN, _ROUTE_CALLS, _TORN_CALLS
+    global _PLAN, _ROUTE_CALLS, _TORN_CALLS, _PROBE_IDX
     _PLAN = _load_plan()
     _DISPATCH_CALLS.clear()
     _WEDGE_CALLS.clear()
     _KILL_CALLS.clear()
     _RESPONSE_CALLS.clear()
-    _ROUTE_CALLS = _TORN_CALLS = 0
+    _ROUTE_CALLS = _TORN_CALLS = _PROBE_IDX = 0
     return _PLAN
 
 
@@ -304,3 +316,42 @@ def output_fault(site: str, kernel):
                      fault=key)
         return mode
     return None
+
+
+def probe_outcome():
+    """The scripted outcome of the next liveness-probe attempt, or None
+    to run the real probe; one ``probe`` entry is consumed an attempt."""
+    global _PROBE_IDX
+    if _PLAN is None:
+        return None
+    idx = _PROBE_IDX
+    out = None
+    script = _PLAN.get("probe")
+    if script:
+        out = script[min(idx, len(script) - 1)]
+    elif idx < int(_PLAN.get("hang_probe", 0)):
+        out = "hang"
+    if out is None:
+        return None
+    _PROBE_IDX += 1
+    journal.emit("fault_injected", site="probe", outcome=out, attempt=idx)
+    return out
+
+
+def supervisor_fault(step: str):
+    """Injection point of the revalidation supervisor, after ``step``'s
+    ``step_start`` is durably checkpointed and before the step runs:
+    ``kill_supervisor`` SIGKILLs this process."""
+    if _PLAN is None:
+        return
+    spec = _PLAN.get("kill_supervisor")
+    if spec is None:
+        return
+    want = spec.get("step") if isinstance(spec, dict) else spec
+    if want and want != step:
+        return
+    journal.emit("fault_injected", site="supervisor", step=step,
+                 fault="kill_supervisor")
+    print(f"# fault: SIGKILL supervisor mid-{step}", file=sys.stderr,
+          flush=True)
+    os.kill(os.getpid(), signal.SIGKILL)
