@@ -259,6 +259,25 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    ``{"supervisor": ...}`` JSON line; each kernel entry gains
    ``supervisor_launches``.
 
+14. runs the port's jax-free tools on the card, as child processes with
+   every state directory in a temporary directory: (a) ``python -m
+   tpukernels_torch.profile`` traces SGEMM 1024^3 (a chain of 50
+   dependent calls, three times) and the 2-D Jacobi 4096^2 (64 sweeps at
+   k = 8, three times) with ``torch.profiler`` and summarizes each trace
+   (``obs/profile_summary.py``); it prints each summary's device-plane
+   busy % beside its prediction and its top five kernels with the port's
+   source of each, and fails when a summary has no device plane or its
+   top kernel is not the port's own (the SGEMM ring or its operand
+   preparation for the chain, the 2-D pass for the stencil); (b)
+   ``python -m tpukernels_torch.cgate --fuzz 1`` at ``TPKT_FUZZ_SEED``
+   42: one extent set of the six C drivers drawn from
+   ``tools/fuzz_c.sh``'s ranges, each at ``--device=omp`` and through the
+   port's shim on the card, every row checked; it prints each row's
+   extents, rc and wall and the kernels the C hosts launched (their exit
+   ``metrics`` events), and fails on any ``FUZZ FAIL`` or a kernel of
+   the drivers' path launched no time. It prints the phase's wall and
+   one ``{"tools": ...}`` JSON line.
+
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
 check raises: the script then exits non-zero and prints no result. It
@@ -5796,6 +5815,18 @@ def supervisor_records(path, kind=None):
     return [e for e in events if kind is None or e.get("kind") == kind]
 
 
+def exit_launches(path):
+    """``{kernel: launches}`` summed over the exit ``metrics`` events of a
+    journal (``kernel.launches.<name>``: one event a child process)."""
+    launches = {}
+    for e in supervisor_records(path, "metrics"):
+        for k, v in (e.get("counters") or {}).items():
+            if k.startswith("kernel.launches."):
+                name = k[len("kernel.launches."):]
+                launches[name] = launches.get(name, 0) + v
+    return launches
+
+
 def phase_supervisor(card):
     """Phase 13: the revalidation supervisor on the card (item 13 of the
     module docstring)."""
@@ -5932,12 +5963,7 @@ def phase_supervisor(card):
         used1 = card_memory_used()
         journal_file = os.path.join(
             journal_dir, f"health_{time.strftime('%Y-%m-%d')}.jsonl")
-        launches = {}
-        for e in supervisor_records(journal_file, "metrics"):
-            for k, v in (e.get("counters") or {}).items():
-                if k.startswith("kernel.launches."):
-                    name = k[len("kernel.launches."):]
-                    launches[name] = launches.get(name, 0) + v
+        launches = exit_launches(journal_file)
         log(f"13 the step children's launches (their exit metrics): "
             f"{json.dumps(launches, sort_keys=True)}")
         missing = [k for k in SUPERVISOR_PATH if not launches.get(k)]
@@ -5984,6 +6010,109 @@ def phase_supervisor(card):
         out["phase_s"] = round(time.perf_counter() - t_phase, 3)
         log(f"phase 13 wall {out['phase_s']:.1f} s [{card}]")
         print(json.dumps({"supervisor": out}), flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------------------------------ #
+# phase 14: the jax-free tools on the card                           #
+# ------------------------------------------------------------------ #
+
+# 14a: each profile's predicted device-plane busy % (PERF.md §6) and
+# the port's sources its top kernel must come from
+PROFILE_PREDICTED = {"sgemm": (25.0, 45.0), "stencil": (90.0, 100.0)}
+PROFILE_TOP = {"sgemm": ("tpukernels_torch/csrc/sgemm_ring.cuh",
+                         "tpukernels_torch/csrc/sgemm_prep.cu"),
+               "stencil": ("tpukernels_torch/csrc/jacobi2d.cu",)}
+FUZZ_ROUNDS, FUZZ_SEED = 1, 42
+# the kernels the fuzz's C hosts must launch: one draw of each driver at
+# the default knobs (SGEMM `high`, scan + histogram unfused)
+FUZZ_PATH = ("saxpy", "sgemm_prep", "sgemm_split3", "jacobi2d", "jacobi3d",
+             "nbody_forces", "scan", "histogram")
+
+
+def phase_tools(card):
+    """Phase 14: the jax-free tools on the card (item 14 of the module
+    docstring)."""
+    log("== phase 14: the jax-free tools (python -m tpukernels_torch.profile, "
+        "python -m tpukernels_torch.cgate --fuzz)")
+    from tpukernels_torch import _cachedir
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="tpkt_tools_")
+    base = {k: v for k, v in os.environ.items() if not k.startswith("TPKT_")}
+    base.update(PYTHONPATH=REPO,
+                **_cachedir.state_dirs_under(os.path.join(root, "state")))
+    out = {}
+    try:
+        # (14a) a trace each of the two headline kernels, summarized
+        _rc, wall, text, err = ops_child(
+            "14a profile", "tpukernels_torch.profile",
+            [os.path.join(root, "profile")], base, timeout=600)
+        for ln in text.splitlines():
+            if ln.startswith(("plane ", "# ")):
+                log(f"  14a: {ln}")
+        record = json.loads(text.strip().splitlines()[-1])["profile"]
+        out["profile"] = {"wall_s": round(wall, 3)}
+        for label, (lo, hi) in PROFILE_PREDICTED.items():
+            planes = record[label]["planes"]
+            device = [p for p in planes if p["name"].startswith("/device:")]
+            if record[label]["rc"] != 0 or not device:
+                raise AssertionError(f"14a {label}: no device plane "
+                                     f"(rc {record[label]['rc']}): {planes}")
+            dev = device[0]
+            host = [p for p in planes if not p["name"].startswith("/device:")]
+            log(f"14a {label}: device plane {dev['name']} busy "
+                f"{dev['busy_pct']:.2f} % of {dev['span_ms']:.3f} ms "
+                f"(predicted {lo:g}-{hi:g} %: "
+                f"{'held' if lo <= dev['busy_pct'] <= hi else 'missed'})"
+                + (f"; host plane busy {host[0]['busy_pct']:.2f} %"
+                   if host else "") + f" [{card}]")
+            for name, ms, src in dev["top"]:
+                log(f"14a {label} top: {ms:10.3f} ms  "
+                    f"{src or 'not the port'}  {name[:100]}")
+            if dev["top"][0][2] not in PROFILE_TOP[label]:
+                raise AssertionError(f"14a {label}: the top kernel "
+                                     f"{dev['top'][0]} is not from "
+                                     f"{PROFILE_TOP[label]}")
+            out["profile"][label] = {
+                "busy_pct": dev["busy_pct"], "span_ms": dev["span_ms"],
+                "predicted_pct": [lo, hi],
+                "host_busy_pct": host[0]["busy_pct"] if host else None,
+                "top": dev["top"]}
+        log(f"PASS 14a profile: two summaries with a device plane, each top "
+            f"kernel the port's own ({wall:.1f} s)")
+
+        # (14b) the C fuzz through the port's shim, on the card
+        journal_file = os.path.join(root, "fuzz.jsonl")
+        env = dict(base, TPKT_HEALTH_JOURNAL=journal_file,
+                   TPKT_FUZZ_SEED=str(FUZZ_SEED))
+        _rc, wall, text, err = ops_child(
+            "14b cgate --fuzz", "tpukernels_torch.cgate",
+            ["--fuzz", str(FUZZ_ROUNDS)], env, timeout=900, ok=(0, 1))
+        rows = [ln for ln in text.splitlines() if ln.startswith("fuzz round")]
+        for ln in rows:
+            log(f"14b {ln}")
+        verdict = text.strip().splitlines()[-1] if text.strip() else ""
+        want = (f"FUZZ: PASS ({FUZZ_ROUNDS} rounds x 6 drivers x 2 devices, "
+                f"seed {FUZZ_SEED})")
+        if "FUZZ FAIL" in text or verdict != want or len(rows) != 12:
+            raise AssertionError(f"14b fuzz: {verdict!r}\n{text[-6000:]}\n"
+                                 f"{err[-4000:]}")
+        launches = exit_launches(journal_file)
+        log(f"14b the C hosts' launches (their exit metrics): "
+            f"{json.dumps(launches, sort_keys=True)}")
+        missing = [k for k in FUZZ_PATH if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"14b: the fuzz's C hosts launched no "
+                                 f"{missing}: {launches}")
+        log(f"PASS 14b {verdict} ({wall:.1f} s)")
+        out["fuzz"] = {"rows": rows, "launches": launches,
+                       "wall_s": round(wall, 3)}
+        out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+        log(f"phase 14 wall {out['phase_s']:.1f} s [{card}]")
+        print(json.dumps({"tools": out}), flush=True)
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -6051,6 +6180,7 @@ def run_all(torch, args):
     phase_loop(torch, serve, args, card)
     ops = phase_ops(card)
     sup = phase_supervisor(card)
+    phase_tools(card)
 
     # B3/B4, B5/B6 and B9/B10 share an entry: the dict keeps B4, B6 and
     # B10, and B3, B5 and B10 stand in also_replaces

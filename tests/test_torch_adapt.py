@@ -532,9 +532,12 @@ def test_canary_daemon_that_does_not_start_fails(tmp_path, monkeypatch):
     monkeypatch.setenv("TPKT_ADAPT_DIR", str(adapt_dir))
     adapt.record_candidate(_result({"vector_add": _spec(512)}),
                            _mix_one(n=256), 0.25)
+    # no card (hidden from the children on a host that has one), and no
+    # CPU asked for
     env = _tool_env(tmp_path, TPKT_ADAPT_DIR=adapt_dir,
-                    TPKT_HEALTH_JOURNAL=tmp_path / "ops.jsonl")
-    env.pop("TPKT_SERVE_DEVICE")  # no card here, and no CPU asked for
+                    TPKT_HEALTH_JOURNAL=tmp_path / "ops.jsonl",
+                    CUDA_VISIBLE_DEVICES="")
+    env.pop("TPKT_SERVE_DEVICE")
     r = _tool("tpukernels_torch.serve.optimize",
               ["canary", "--requests", "4"], env, timeout=120)
     assert r.returncode == 1, r.stdout + r.stderr

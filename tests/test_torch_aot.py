@@ -296,7 +296,11 @@ def _leaves(out):
 
 # ------------------------------------------------- manifest validation
 
-def test_stale_source_sha_rejects_exactly_that_kernel(aot_env, capfd):
+def test_stale_source_sha_rejects_exactly_that_kernel(aot_env, capfd,
+                                                      monkeypatch):
+    # the sources' sha as in a git checkout, whether or not this is one
+    monkeypatch.setattr(tcache, "source_sha",
+                        lambda sources, root=None: "1" * 40)
     x, s = _floats(1 << 10), _ints(1 << 10)
     registry.dispatch("vector_add", 1.0, x, x)
     registry.dispatch("scan", s)
@@ -305,8 +309,7 @@ def test_stale_source_sha_rejects_exactly_that_kernel(aot_env, capfd):
     scan_keys = [k for k in data["entries"] if k.startswith("scan|")]
     va_keys = [k for k in data["entries"] if k.startswith("vector_add|")]
     assert scan_keys and va_keys
-    if tcache.source_sha(aot.KERNEL_SOURCES["scan"]) is None:
-        pytest.skip("outside a git checkout the sha is not checked")
+    assert {data["entries"][k]["source_sha"] for k in scan_keys} == {"1" * 40}
     for k in scan_keys:
         data["entries"][k]["source_sha"] = "0" * 40
     path.write_text(json.dumps(data))

@@ -180,7 +180,9 @@ def test_in_process_on_the_cpu(tmp_path):
 
 
 def test_in_process_without_a_card_refuses(tmp_path):
-    r = _run(["--kernel", "scan", "--requests", "3"], _env(tmp_path))
+    # no card: hidden from the child on a host that has one
+    r = _run(["--kernel", "scan", "--requests", "3"],
+             _env(tmp_path, CUDA_VISIBLE_DEVICES=""))
     assert r.returncode == 2
     assert "no CUDA device" in r.stderr
     assert not (tmp_path / "slo").exists()

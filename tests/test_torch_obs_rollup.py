@@ -153,6 +153,9 @@ def _rejections(dirs):
 @pytest.mark.parametrize("case", ["torn", "schema", "stale_sha", "date",
                                   "torch"])
 def test_a_bad_rollup_is_rejected_once(dirs, capsys, case, monkeypatch):
+    # the sources' sha as in a git checkout, whether or not this is one
+    monkeypatch.setattr(tcache, "source_sha",
+                        lambda sources, root=None: "1" * 40)
     day = "2026-08-01"
     jp = dirs / f"health_{day}.jsonl"
     _write_journal(jp, DAY_EVENTS)

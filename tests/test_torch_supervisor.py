@@ -212,34 +212,44 @@ def test_quarantine_on_the_port(tmp_path):
 
 
 def _ref_call(tmp_path, fn, *args, env=None, **kw):
-    """A reference call under its own state in tmp_path; its fault plan
-    reloaded after, so nothing leaks into later tests."""
-    with mock.patch.dict(os.environ):
-        for n in _KNOBS:
-            os.environ.pop(f"TPK_{n}", None)
-        os.environ.update({
-            "TPK_SUPERVISOR_CHECKPOINT": str(tmp_path / "ref_cp.jsonl"),
-            "TPK_REVALIDATE_STAMP_DIR": str(tmp_path / "ref_stamps"),
-            "TPK_HEALTH_JOURNAL": str(tmp_path / "ref_health.jsonl"),
-            **(env or {})})
-        try:
+    """A reference call under its own state in tmp_path; both packages'
+    fault plans reloaded once the env is restored, so nothing leaks into
+    later tests."""
+    try:
+        with mock.patch.dict(os.environ):
+            for n in _KNOBS:
+                os.environ.pop(f"TPK_{n}", None)
+            os.environ.update({
+                "TPK_SUPERVISOR_CHECKPOINT": str(tmp_path / "ref_cp.jsonl"),
+                "TPK_REVALIDATE_STAMP_DIR": str(tmp_path / "ref_stamps"),
+                "TPK_HEALTH_JOURNAL": str(tmp_path / "ref_health.jsonl"),
+                **(env or {})})
             return fn(*args, **kw)
-        finally:
-            ref_faults.reload_plan()
+    finally:
+        _no_plan_left()
 
 
 def _port_call(tmp_path, fn, *args, env=None, **kw):
-    with mock.patch.dict(os.environ):
-        for n in _KNOBS:
-            os.environ.pop(f"TPKT_{n}", None)
-        os.environ.update({
-            "TPKT_SUPERVISOR_DIR": str(tmp_path / "port_state"),
-            "TPKT_HEALTH_JOURNAL": str(tmp_path / "port_health.jsonl"),
-            **(env or {})})
-        try:
+    try:
+        with mock.patch.dict(os.environ):
+            for n in _KNOBS:
+                os.environ.pop(f"TPKT_{n}", None)
+            os.environ.update({
+                "TPKT_SUPERVISOR_DIR": str(tmp_path / "port_state"),
+                "TPKT_HEALTH_JOURNAL": str(tmp_path / "port_health.jsonl"),
+                **(env or {})})
             return fn(*args, **kw)
-        finally:
-            faults.reload_plan()
+    finally:
+        _no_plan_left()
+
+
+def _no_plan_left():
+    """Reload both fault plans from the restored env: neither package may
+    keep a test's plan active."""
+    ref_faults.reload_plan()
+    faults.reload_plan()
+    assert not ref_faults.active()
+    assert not faults.active()
 
 
 PLAN_SPECS = [

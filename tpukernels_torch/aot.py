@@ -573,9 +573,11 @@ def _ensure(name: str, args, statics: dict, sources=None) -> dict:
     obs_metrics.inc("aot.misses" if prior is None else "aot.hits")
     fields = dict(key=key, libraries=list(libs), build_s=round(build_s, 6),
                   load_s=round(load_s, 6), plan_s=round(plan_s, 6))
-    if prior is not None:
+    if prior is None:
+        journal.emit("aot_miss", **fields)
+    else:
         fields["prior_build_s"] = prior.get("build_s")
-    journal.emit(f"aot_{expected}", **fields)
+        journal.emit("aot_hit", **fields)
     row = _record(key, sources, libs, build_s, load_s, plan_s)
     return {**row, "key": key, "expected": expected,
             "library_files": row["libraries"], "libraries": list(libs)}

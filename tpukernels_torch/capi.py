@@ -78,7 +78,7 @@ import warnings
 import numpy as np
 import torch
 
-from tpukernels_torch import registry
+from tpukernels_torch import kernels, registry
 from tpukernels_torch.obs import metrics as obs_metrics
 from tpukernels_torch.obs import trace
 from tpukernels_torch.resilience import faults, integrity, journal
@@ -169,6 +169,7 @@ def shutdown_from_c() -> int:
     teardown exits with its NCCL threads still running against a card
     whose runtime is being torn down: a C host that had passed its check
     once died of SIGSEGV at exit that way."""
+    kernels.publish_launches()
     obs_metrics.emit_snapshot(site="capi.shutdown")
     mesh_mod.leave()
     return 0

@@ -148,7 +148,7 @@ def _inner(device) -> int:
         finite(*nbody_dist_psum(rep + (blk(state[6]),), 1, mesh))
 
     # the walls, stamped with the hardware that made them
-    inv = scaling.emit_inventory("dryrun", probe=True)
+    inv = scaling.emit_inventory("dryrun", probe=True, device=mesh.device)
     if rank == 0:
         print(_PROGRAMS_LINE + json.dumps({"n_devices": n,
                                            "programs": programs}),

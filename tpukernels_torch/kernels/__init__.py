@@ -17,9 +17,9 @@ source, but no row in ``TPU_KERNELS``.
 ``chip_smoke.py`` zeroes the counts before it drives the main path and
 reads them after, to show the path went through the kernels. At exit a
 process adds its nonzero counts to its metrics as
-``kernel.launches.<name>`` counters, so the exit ``metrics`` journal
-event says which kernels a child process (a revalidation step, say)
-launched.
+``kernel.launches.<name>`` counters (:func:`publish_launches`; a C host
+at its shim's exit flush), so the exit ``metrics`` journal event says
+which kernels a child process (a revalidation step, a C driver) launched.
 """
 
 from __future__ import annotations
@@ -138,13 +138,23 @@ def reset_launches() -> None:
     with _LAUNCH_LOCK:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        _PUBLISHED.clear()
 
 
-def _publish_launches() -> None:
+_PUBLISHED: dict = {}  # name -> the count publish_launches last added
+
+
+def publish_launches() -> None:
+    """Add the launches since the last publish (or reset) to the
+    ``kernel.launches.<name>`` counters. Runs at exit, and from
+    ``capi.shutdown_from_c`` before a C host's exit flush: a C host never
+    finalises its interpreter, so it never runs this exit hook."""
     with _LAUNCH_LOCK:
-        counts = {k: n for k, n in LAUNCHES.items() if n}
+        counts = {k: n - _PUBLISHED.get(k, 0) for k, n in LAUNCHES.items()
+                  if n > _PUBLISHED.get(k, 0)}
+        _PUBLISHED.update((k, LAUNCHES[k]) for k in counts)
     for name, n in counts.items():
         metrics.inc(f"kernel.launches.{name}", n)
 
 
-atexit.register(_publish_launches)
+atexit.register(publish_launches)

@@ -190,16 +190,18 @@ def ceiling_gb_s(op: str, kind=None, net: bool = False, local: bool = False):
 # device inventory                                                   #
 # ------------------------------------------------------------------ #
 
-def inventory(probe: bool = False) -> dict:
+def inventory(probe: bool = False, device=None) -> dict:
     """The hardware this process runs on, as a plain dict.
 
     ``probe=True`` reads ``torch.cuda`` (``source="torch"``): platform
-    ``cuda`` or ``cpu``, the device kind of the tuning cache
-    (``nvidia_h100_80gb_hbm3``), the devices, and ``process_index`` /
-    ``process_count`` from ``torch.distributed`` when a group is up. It
-    initialises CUDA, so only a process about to run on the card asks for
-    it. ``probe=False`` imports nothing and derives the dict from
-    ``CUDA_VISIBLE_DEVICES`` (``source="env"``). ``fake_basis`` says why
+    ``cuda`` or ``cpu`` (the type of ``device`` when the caller names the
+    device it runs on, so a run asked onto the CPU of a host with a card
+    is stamped ``cpu``; else whether a card answers), the device kind of
+    the tuning cache (``nvidia_h100_80gb_hbm3``), the devices, and
+    ``process_index`` / ``process_count`` from ``torch.distributed`` when
+    a group is up. It initialises CUDA, so only a process about to run
+    on the card asks for it. ``probe=False`` imports nothing and derives
+    the dict from ``CUDA_VISIBLE_DEVICES`` (``source="env"``). ``fake_basis`` says why
     ``fake`` is what it is, in the reference's words: ``probe`` (the
     runtime answered), ``declared-platform`` (the env named the devices,
     or none), ``unknown-platform`` (nothing declared them, the usual case:
@@ -213,7 +215,8 @@ def inventory(probe: bool = False) -> dict:
 
             from tpukernels_torch.tuning import cache as tcache
 
-            on_card = torch.cuda.is_available()
+            on_card = torch.cuda.is_available() and (
+                device is None or torch.device(device).type == "cuda")
             n = torch.cuda.device_count() if on_card else 1
             index, count = 0, 1
             if torch.distributed.is_available() and \
@@ -262,11 +265,11 @@ def inventory(probe: bool = False) -> dict:
     return inv
 
 
-def emit_inventory(site: str, probe: bool = False) -> dict:
+def emit_inventory(site: str, probe: bool = False, device=None) -> dict:
     """Stamp one ``device_inventory`` event for this process (nothing
-    when journaling is off) and return the inventory; ``probe`` as in
-    :func:`inventory`."""
-    inv = inventory(probe)
+    when journaling is off) and return the inventory; ``probe`` and
+    ``device`` as in :func:`inventory`."""
+    inv = inventory(probe, device)
     journal.emit("device_inventory", site=site, **inv)
     return inv
 

@@ -166,7 +166,7 @@ def main(argv=None) -> int:
             return 2
     mesh = make_mesh(mesh_arg, device=device)
     # the mesh first: the probe reads the process group it joined
-    inv = scaling.emit_inventory("busbw", probe=True)
+    inv = scaling.emit_inventory("busbw", probe=True, device=mesh.device)
     res = sweep(mesh=mesh, **kw)
     if mesh.rank == 0:
         artifact = scaling.write_busbw_artifact(

@@ -243,7 +243,8 @@ def measure(ops=None, mesh=None, axis: str = "x", depth=None,
         depth = C._dist_depth()
     depth = int(depth)
     if fake is None:
-        fake = scaling.inventory(probe=True).get("fake", True)
+        fake = scaling.inventory(probe=True, device=mesh.device).get(
+            "fake", True)
     points = []
     for op in ops or DEFAULT_OPS:
         if op not in _BUILDERS:
@@ -306,7 +307,7 @@ def main(argv=None) -> int:
             return 2
     mesh = make_mesh(device=device)
     # the mesh first: the probe reads the process group it joined
-    inv = scaling.emit_inventory("overlap", probe=True)
+    inv = scaling.emit_inventory("overlap", probe=True, device=mesh.device)
     points = measure(mesh=mesh, fake=inv.get("fake", True), **kw)
     if mesh.rank == 0:
         artifact = scaling.write_overlap_artifact(points, inv)

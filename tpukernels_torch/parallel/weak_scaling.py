@@ -168,7 +168,8 @@ def run_group(reps: int, quick: bool, device=None, echo=True):
     mesh = make_mesh(device=device)
     n = mesh.size
     # the mesh first: the probe reads the process group it joined
-    inv = scaling.emit_inventory("weak_scaling", probe=True)
+    inv = scaling.emit_inventory("weak_scaling", probe=True,
+                                 device=mesh.device)
     lead = mesh.rank == 0
     rng = np.random.default_rng(0)
     points, failed = [], 0

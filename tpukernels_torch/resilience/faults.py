@@ -101,6 +101,11 @@ _TORN_CALLS = 0             # matching atomic writes seen (torn_write)
 _PROBE_IDX = 0              # probe attempts scripted (probe, hang_probe)
 
 
+def active() -> bool:
+    """Whether a fault plan is loaded in this process."""
+    return _PLAN is not None
+
+
 def reload_plan():
     """Re-read ``TPKT_FAULT_PLAN`` and reset the per-process fault
     counters; returns the plan (None when unset)."""

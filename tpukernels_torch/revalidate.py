@@ -261,6 +261,16 @@ set -e -o pipefail
 timeout 600 python3 -m tpukernels_torch.cgate scan_histogram --n=4194304
 """, timeout_s=660, cost_min=10, value=25, after=("c_gate",),
       inputs=("c", "tpukernels_torch")),
+    # profiler evidence: a trace each of SGEMM 1024^3 and the 2-D Jacobi
+    # 4096^2, summarized into the supervisor's logs/; non-gating, as the
+    # reference's (a failed capture must not abort a queue whose gates
+    # passed)
+    S("profile", """
+set -o pipefail
+timeout -k 10 1140 python3 -m tpukernels_torch.profile | grep -E '^(==|plane)'
+""", gating=False, timeout_s=1200, cost_min=10, value=20,
+      inputs=("tpukernels_torch/profile.py",
+              "tpukernels_torch/obs/profile_summary.py")),
 ]
 
 # the port's tests on the card, in stamped groups (pytest has no resume;
@@ -407,7 +417,6 @@ WAITING = {
                    "bench_scan_hist and bench_sgemm)",
     "roofline_report": "Queue A item 4 (tuning/roofline.py)",
     "autotune_smoke": "Queue A item 4 (the tuning runner)",
-    "profile": "Queue A item 9 (profile_summary.py)",
 }
 
 
@@ -455,7 +464,8 @@ _WATCHER_MARKS = ("tpukernels_torch.revalidate --wait",
 _RUN_MARKS = ("tpukernels_torch.revalidate", "tpukernels_torch/revalidate.py")
 _STEP_MARKS = ("tpukernels_torch.prewarm", "tpukernels_torch.loadgen",
                "tpukernels_torch.serve", "tpukernels_torch.cgate",
-               "tpukernels_torch.parallel", "pytest")
+               "tpukernels_torch.parallel", "tpukernels_torch.profile",
+               "pytest")
 
 
 def classify_holder(cmdline: str) -> str:
