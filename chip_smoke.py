@@ -72,12 +72,14 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    group in flight, ``float32`` SGEMM's share of its contract's bound
    (six bf16 products: the run fails at half), for the scan at 2^26
    its resident blocks a SM and its time on capped grids and without its
-   look-back, for the 2-D and 3-D Jacobi every fusion depth k and
-   the HBM floor of their passes (``pass_bytes_ms``), for the 3-D also
-   every ring depth, the halo's redundancy at each k and each
-   instantiation's registers, and for N-body
-   its forces launch alone, every (r, s, bi, bj) of a sweep, the SM
-   clock under load and the issue floor it gives (``issue_floor_ms``).
+   look-back, for the 2-D Jacobi every fusion depth k, for the 3-D the
+   default k and its neighbours and every ring depth (the whole space is
+   the tuning runner's), for both the HBM floor of their passes
+   (``pass_bytes_ms``), for the 3-D the halo's redundancy at each k and
+   each instantiation's registers, and for N-body its forces launch
+   alone, every (r, s) at the default tiles and every (bi, bj) at the
+   default (r, s), the SM clock under load and the issue floor it gives
+   (``issue_floor_ms``).
 
 6. runs the repository's unchanged C drivers (``c/``) on the port: builds
    the port's CPython shim (``csrc/tpkt_shim.c``) and the drivers into
@@ -85,15 +87,21 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    single-device row of ``c/run_all.sh`` with ``--device=tpu --check``
    and ``TPU_KERNELS_SHIM`` naming the shim (each must print its own
    CHECK PASS), then each driver at its configuration of record with
-   ``--check --reps=5``, and proves from each child's journal
+   ``--check --reps=3`` (four children at once, so each driver's own
+   ``time_ms`` shares the host and is printed as such; SGEMM also at
+   depth 3 and scan + histogram also fused), and proves from each
+   child's journal
    (``TPKT_TRACE``) that every call ran on the card through
    ``registry.dispatch`` and that both first-trust canaries fell in the
    checked call; an injected ``corrupt_output`` at site ``capi`` must fail
-   the C program's own check and ``fail_capi`` the program. It prints the
+   the C program's own check and ``fail_capi`` the program (these two
+   beside the run_all rows, none of them timed). It prints the
    host<->card copy rates (pageable and pinned, 64 MiB) and one
-   ``{"c_entry": ...}`` JSON line a configuration: the driver's
-   ``time_ms`` and metric beside phase 5's wrapper ``ms``, the bytes the
-   adapter copies each way and their transfer bound.
+   ``{"c_entry": ...}`` JSON line a configuration: the C path's cost in
+   this process (``capi.run_from_c``, one at a time, and its parts)
+   beside phase 5's wrapper ``ms`` (``gap_ms``), the driver's shared-host
+   ``time_ms`` and metric, the bytes the adapter copies each way and
+   their transfer bound.
 
 7. runs the serving daemon (``python -m tpukernels_torch.serve``) on the
    card with no knob but its state paths and ``TPKT_TRACE=1``, and drives
@@ -102,7 +110,7 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    and the shm lane, bit for bit against ``registry.dispatch`` of the
    same operands in this process and against the oracle; one request
    under its avatar for SAXPY, scan and SGEMM (padded up, cut back); a
-   seeded Poisson burst of 200 SAXPY / scan / SGEMM requests from two
+   seeded Poisson burst of 120 SAXPY / scan / SGEMM requests from two
    client threads, with per kernel the client's p50/p99, batch sizes,
    queue waits, rejections (none), the journal's spans beside phase 5's
    wrapper ms and the operand and result bytes against phase 6's copy
@@ -141,12 +149,14 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    counted after a warm-up that spends the guard's first-trust canaries,
    held against the single-device wrappers (bitwise; N-body within its
    band of its plain version), each one's ms beside the entry's and phase
-   5's wrapper's; and the overlap probe, both ops at depth 1 and 2, its
-   artifact flagged ``shared-card``); (c) the unchanged C drivers as four
-   rank processes on c/run_all.sh's mesh rows and ``allreduce_bench`` at
-   ``TPKT_MESH=1`` on NCCL, each printing CHECK PASS; (d) ``python -m
-   tpukernels_torch.parallel.weak_scaling --sizes "1 2 4"`` and ``python
-   -m tpukernels_torch.dryrun 4`` on the card, each rc 0, their walls and
+   5's wrapper's; and the overlap probe, both ops at depth 1 and 2 (two
+   timed reps a point), its artifact flagged ``shared-card``); (c) the
+   unchanged C drivers as four rank processes on c/run_all.sh's mesh
+   rows (three rows at once) and ``allreduce_bench`` at ``TPKT_MESH=1``
+   on NCCL, each printing CHECK PASS; (d) ``python -m
+   tpukernels_torch.parallel.weak_scaling --sizes "1 4" --reps 1`` and
+   ``python -m tpukernels_torch.dryrun 4`` on the card, the two at once
+   and beside (c), each rc 0, their walls (never judged) and
    efficiencies printed, their artifacts flagged ``shared-card``, and
    every artifact of the phase judged (``analyze_repo``): a gating
    verdict fails the phase. It prints one ``{"dist": ...}`` JSON line.
@@ -201,7 +211,7 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    verdicts against the ``nvidia_h100_80gb_hbm3|record`` row of
    ``obs/slo.py`` (``no_target`` for a key the row does not hold); (b)
    one daemon driven by ``loadgen --serve`` with SAXPY, scan and SGEMM
-   at 5 requests a second for 25 s (p50/p99 beside phase 7's closed-loop
+   at 5 requests a second for 10 s (p50/p99 beside phase 7's closed-loop
    burst, ``slo.dropped``, the trace budget); every answer bitwise the
    first of its key, and that one bitwise this process's dispatch of the
    same ones, held against the oracle; (c) traffic at shapes that pad
@@ -240,8 +250,10 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    -m tpukernels_torch.revalidate`` processes, its checkpoint, stamps,
    journal, lock and every state directory in a temporary directory:
    (a) ``--plan`` (rc 0) prints the production queue's order; (b) a
-   queue of production steps, cut in duration only (``prewarm_all`` as
-   shipped, ``slo_probe`` at 10 s, ``integrity_envelopes``,
+   queue of production steps, cut in duration only (``prewarm_all``
+   with ``--bench saxpy_gb_s`` for ``--bench all``, its one ``bench
+   --prewarm`` child journaled ok, ``slo_probe`` at 10 s,
+   ``integrity_envelopes``,
    ``rollup_daily``, ``fleet_fsck``, ``obs_check``): a first run with
    ``kill_supervisor`` armed at ``slo_probe`` dies by SIGKILL after the
    prewarm went green, and a second run without the plan ends green (rc
@@ -277,6 +289,29 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    ``metrics`` events), and fails on any ``FUZZ FAIL`` or a kernel of
    the drivers' path launched no time. It prints the phase's wall and
    one ``{"tools": ...}`` JSON line.
+
+15. runs the suite's own bench and the tuning loop on the card, as child
+   processes with every state directory in a temporary directory: (a)
+   ``python -m tpukernels_torch.bench``, its seven metrics each a ``--one``
+   child timed as a slope (SGEMM, SAXPY, SAXPY stream and scan +
+   histogram over R calls captured in a CUDA graph, the stencils and
+   N-body over their own iteration count); it prints the line, each
+   metric's graph and host-issued value beside phase 5's number for the
+   same work (no gate), its ceiling and each capture's seconds and graph
+   pool peak, and fails if a metric is null, invalidated or over its
+   ceiling; (b) ``python -m tpukernels_torch.autotune --kernel
+   scan_histogram --quick`` (``fuse`` off, the control, and on) against a
+   tuning cache of its own, then one ``bench --one scan_hist_melem_s``
+   on that cache, which must journal ``tuning_resolved`` with the
+   promoted entry (and none when nothing was promoted); the repository's
+   own tuning cache must be untouched; (c) the revalidation queue's
+   ``knob_sanity`` body, its fuse loop cut to ``on`` (fuse off is (a)'s
+   metric): the fused scan + histogram and the ``float32`` SGEMM, each
+   a number at or under its ceiling, its kernel launched. Each kernel's
+   launches by the bench's processes come from their exit ``metrics``
+   events. It prints
+   the phase's wall and one ``{"bench": ...}`` JSON line; each kernel
+   entry gains ``bench_launches``.
 
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -2116,12 +2151,14 @@ def phase_times(torch, gen, peaks, nbody):
     row["bound_ms"], row["bound_by"] = bound(
         8 * n3 ** 3, 6 * (n3 - 2) ** 3 * iters, fp32, bw)
     row["pass_bytes_ms"] = 8 * n3 ** 3 * row["launches_per_call"] / bw * 1e3
-    # every fusion depth and ring depth the kernel takes: the defaults
-    # are the fastest
-    row["per_k_ms"] = {kk3: time_ms(lambda: J.jacobi3d(x, iters, k=kk3), 10)
-                       for kk3 in range(1, J.HALO3D_MAX + 1)}
+    # the default k beside its neighbours, and every ring depth, three
+    # calls each: the whole (k, depth) space is the tuning runner's
+    # (python -m tpukernels_torch.autotune --kernel stencil3d)
+    row["per_k_ms"] = {kk3: time_ms(lambda: J.jacobi3d(x, iters, k=kk3), 3)
+                       for kk3 in (k3 - 1, k3, k3 + 1)
+                       if 1 <= kk3 <= J.HALO3D_MAX}
     row["per_depth_ms"] = {
-        dd: time_ms(lambda: J.jacobi3d(x, iters, depth=dd), 10)
+        dd: time_ms(lambda: J.jacobi3d(x, iters, depth=dd), 3)
         for dd in range(1, J.RING_MAX + 1)}
     row["halo_redundancy"] = {kk3: stencil3d_redundancy(J, n3, kk3)
                               for kk3 in range(1, J.HALO3D_MAX + 1)}
@@ -2253,15 +2290,19 @@ def nbody_times(torch, NB, gen, peaks, nbody):
     # 20 flops per pair, the reference's CostEstimate; 7 arrays in, 6 out
     row["bound_ms"], row["bound_by"] = bound(4 * 13 * n, 20 * n * n, fp32,
                                              bw)
+    # every (r, s) at the default tiles, and every (bi, bj) at the
+    # default (r, s): the whole (bi, bj) space is the tuning runner's
+    # (python -m tpukernels_torch.autotune --kernel nbody)
     sweep = {}
-    for r in NBODY_SWEEP["r"]:
-        for s in NBODY_SWEEP["s"]:
-            for bi2 in NBODY_SWEEP["bi"]:
-                for bj2 in NBODY_SWEEP["bj"]:
-                    p = NB.plan_forces(n, bi2, bj2, r, s)
-                    key = f"r={p.r} s={p.s} bi={bi2} bj={bj2}"
-                    if key not in sweep:
-                        sweep[key] = time_ms(forces(p), 5, warmup=1)
+    configs = [(r, s, bi, bj) for r in NBODY_SWEEP["r"]
+               for s in NBODY_SWEEP["s"]]
+    configs += [(plan.r, plan.s, bi2, bj2) for bi2 in NBODY_SWEEP["bi"]
+                for bj2 in NBODY_SWEEP["bj"]]
+    for r, s, bi2, bj2 in configs:
+        p = NB.plan_forces(n, bi2, bj2, r, s)
+        key = f"r={p.r} s={p.s} bi={bi2} bj={bj2}"
+        if key not in sweep:
+            sweep[key] = time_ms(forces(p), 5, warmup=1)
     row["per_config_ms"] = sweep
     row["registers"] = {f"r={r} s={s}": v["registers"]
                         for (r, s), v in sorted(nbody.items())}
@@ -2656,7 +2697,8 @@ def guard_costs(guarded, times):
 # ---------------------------------------------------------------- phase 6
 
 # the C drivers at their configurations of record, each with --check and
-# five timed reps: (label, driver, flags, env, phase 5's wrapper row).
+# three timed reps (five until phase 15 needed the time): (label, driver,
+# flags, env, phase 5's wrapper row).
 # N-body takes one step (the C golden at 65 536 bodies and 10 steps is
 # 4.3e10 double-precision pairs on one core); its metric is per step.
 C_RECORD = (
@@ -2676,7 +2718,12 @@ C_RECORD = (
     ("nbody 65536, 1 step", "nbody", ["--n=65536", "--iters=1"], {},
      "nbody"),
 )
-C_REPS = 5
+C_REPS = 3
+# the record children run this many at once (one at a time until phase
+# 15 needed the time), those with the longest serial C goldens first
+C_RECORD_WIDE = 4
+C_RECORD_FIRST = ("stencil 4096^2 x 1000", "nbody 65536, 1 step",
+                  "sgemm 1024^3", "sgemm 1024^3 depth 3")
 _METRIC_LINE = re.compile(
     r"kernel=(\S+) device=tpu n=(\d+) time_ms=([\d.]+) metric=(\S+) "
     r"value=([\d.]+) unit=(\S+)")
@@ -2915,7 +2962,10 @@ def phase_c_entry(torch, times):
         rows = [("test_shim_abi", "test_shim_abi", [])] + [
             (f"run_all {i}", d, ["--check", "--reps=1", *a])
             for i, (d, a) in enumerate(cgate.run_all_rows())]
-        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        # the chaos children beside them: none of these is timed
+        with concurrent.futures.ThreadPoolExecutor(1) as side, \
+                concurrent.futures.ThreadPoolExecutor(6) as pool:
+            chaos = side.submit(c_chaos, cbin, state, shim)
             done = list(pool.map(
                 lambda r: c_child(cbin, state, re.sub(r"\W+", "_", r[0]),
                                   r[1], r[2], {}, shim), rows))
@@ -2932,12 +2982,27 @@ def phase_c_entry(torch, times):
             log(f"PASS C {' '.join([driver, *args])}: {want.split()[-1]}"
                 + ("" if driver == "test_shim_abi" else
                    f" ({c_key(driver, args)} on the card, journal)"))
-        # the configurations of record, one child at a time
+        chaos.result()
+        # the configurations of record, C_RECORD_WIDE children at a time,
+        # the longest serial goldens first: a child's wall is mostly its
+        # start and its C check's golden, so its time_ms shares the host
+        # with the others' and is not the C path's cost. That cost is the
+        # in-process breakdown after them, one at a time
+        def record_child(row):
+            label, driver, args, env, _p5 = row
+            t_child = time.perf_counter()
+            p, events = c_child(cbin, state, re.sub(r"\W+", "_", label),
+                                driver, ["--check", f"--reps={C_REPS}", *args],
+                                env, shim)
+            return p, events, time.perf_counter() - t_child
+
+        first = sorted(C_RECORD, key=lambda r: r[0] not in C_RECORD_FIRST)
+        with concurrent.futures.ThreadPoolExecutor(C_RECORD_WIDE) as pool:
+            futures = {r[0]: pool.submit(record_child, r) for r in first}
         out = []
         for label, driver, args, env, p5 in C_RECORD:
             flags = ["--check", f"--reps={C_REPS}", *args]
-            p, events = c_child(cbin, state, re.sub(r"\W+", "_", label),
-                                driver, flags, env, shim)
+            p, events, child_s = futures[label].result()
             m = _METRIC_LINE.search(p.stdout)
             if (p.returncode != 0 or f"kernel={driver} CHECK PASS"
                     not in p.stdout or not m):
@@ -2953,6 +3018,7 @@ def phase_c_entry(torch, times):
                 "env": env, "key": c_key(driver, args), "check": True,
                 "time_ms": float(m.group(3)), "metric": m.group(4),
                 "value": float(m.group(5)), "unit": m.group(6),
+                "shared_host": C_RECORD_WIDE,
                 "wrapper_ms": wrapper, "wrapper_row": p5,
                 "h2d_bytes": up, "d2h_bytes": down,
                 "transfer_bound_ms": {
@@ -2960,21 +3026,24 @@ def phase_c_entry(torch, times):
                     for kind, r in rates.items()},
                 "capi_wall_ms": {"check": walls[0], "warm_up": walls[1],
                                  "reps": walls[2:]},
+                "child_s": round(child_s, 3),
             }
-            row["gap_ms"] = row["time_ms"] - wrapper
             row["in_process"] = c_breakdown(torch, driver, args, env, state)
+            row["gap_ms"] = row["in_process"]["run_from_c_ms"] - wrapper
             out.append(row)
-            log(f"PASS C {label}: CHECK PASS; time_ms {row['time_ms']:.3f} "
-                f"({row['metric']} {row['value']:.3f} {row['unit']}), "
-                f"wrapper {wrapper:.4f} ms, gap {row['gap_ms']:.3f} ms; "
-                f"transfer bound pageable "
+            log(f"PASS C {label}: CHECK PASS; in this process run_from_c "
+                f"{row['in_process']['run_from_c_ms']:.3f} ms, wrapper "
+                f"{wrapper:.4f} ms, gap {row['gap_ms']:.3f} ms; the driver's "
+                f"time_ms {row['time_ms']:.3f} ({row['metric']} "
+                f"{row['value']:.3f} {row['unit']}; {C_RECORD_WIDE} children "
+                f"at once: shared host, not a cost); transfer bound pageable "
                 f"{row['transfer_bound_ms']['pageable']:.3f} ms, pinned "
                 f"{row['transfer_bound_ms']['pinned']:.3f} ms; capi span "
-                f"ms first {walls[0]}, warm-up {walls[1]}, reps {walls[2:]}; "
-                "in this process (ms): " + ", ".join(
+                f"ms first {walls[0]}, warm-up {walls[1]}, reps {walls[2:]} "
+                f"(shared host); child {child_s:.1f} s; in this process (ms): "
+                + ", ".join(
                     f"{k[:-3]} {v:.3f}" for k, v in row["in_process"].items()))
             print(json.dumps({"c_entry": row}), flush=True)
-        c_chaos(cbin, state, shim)
         after = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
         if after != libs:
             raise AssertionError(f"a C child built a library: {libs} -> "
@@ -2991,9 +3060,17 @@ def c_chaos(cbin, state, shim):
     injected corruption fails the program's C check; ``fail_capi`` fails
     the program."""
     plan = {"corrupt_output": {"kernel": "sgemm", "site": "capi"}}
-    p, events = c_child(cbin, state, "chaos_corrupt", "sgemm",
-                        ["--check", "--reps=1", "--n=256"],
-                        {"TPKT_FAULT_PLAN": json.dumps(plan)}, shim)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        corrupt = pool.submit(
+            c_child, cbin, state, "chaos_corrupt", "sgemm",
+            ["--check", "--reps=1", "--n=256"],
+            {"TPKT_FAULT_PLAN": json.dumps(plan)}, shim)
+        fail = pool.submit(
+            c_child, cbin, state, "chaos_fail", "vector_add",
+            ["--check", "--reps=1", "--n=1000"],
+            {"TPKT_FAULT_PLAN": json.dumps({"fail_capi": "vector_add"})},
+            shim)
+        (p, events), (p2, events2) = corrupt.result(), fail.result()
     failed = [e for e in events if e.get("kind") == "output_integrity_failed"
               and e.get("site") == "capi" and e.get("kernel") == "sgemm"]
     if p.returncode == 0 or "kernel=sgemm CHECK FAIL" not in p.stdout \
@@ -3004,15 +3081,11 @@ def c_chaos(cbin, state, shim):
     log(f"PASS chaos C corrupt_output at capi: the C program's check failed "
         f"(rc {p.returncode}, {p.stdout.strip().splitlines()[0]}), tier "
         f"{failed[0]['tier']} journaled")
-    p, events = c_child(cbin, state, "chaos_fail", "vector_add",
-                        ["--check", "--reps=1", "--n=1000"],
-                        {"TPKT_FAULT_PLAN":
-                         json.dumps({"fail_capi": "vector_add"})}, shim)
-    errors = [e for e in events if e.get("kind") == "capi_error"]
-    if p.returncode == 0 or not errors:
-        raise AssertionError(f"chaos fail_capi: rc {p.returncode}, "
+    errors = [e for e in events2 if e.get("kind") == "capi_error"]
+    if p2.returncode == 0 or not errors:
+        raise AssertionError(f"chaos fail_capi: rc {p2.returncode}, "
                              f"{len(errors)} capi_error events")
-    log(f"PASS chaos C fail_capi: rc {p.returncode}, capi_error journaled")
+    log(f"PASS chaos C fail_capi: rc {p2.returncode}, capi_error journaled")
 
 
 # ---------------------------------------------------------------- phase 7
@@ -3021,10 +3094,11 @@ def c_chaos(cbin, state, shim):
 # knob set: B7, B1 and its prep launch, B4, B6, B12, B8, B9
 SERVE_PATH = ("saxpy", "sgemm_prep", "sgemm_split3", "jacobi2d", "jacobi3d",
               "nbody_forces", "scan", "histogram")
-# the burst: about 200 requests at SERVE_RATE a second, Poisson, from
-# two client threads, over three kernels at their avatars
+# the burst: 120 requests (200 until phase 15 needed the time) at
+# SERVE_RATE a second, Poisson, from two client threads, over three
+# kernels at their avatars
 SERVE_BURST = ("vector_add", "scan", "sgemm")
-SERVE_BURST_N, SERVE_RATE = 200, 40.0
+SERVE_BURST_N, SERVE_RATE = 120, 40.0
 # phase 5's wrapper row of each burst kernel's configuration
 SERVE_P5 = {"vector_add": f"saxpy n={1 << 20}", "scan": f"scan n={SCAN_N}",
             "sgemm": "sgemm[high]"}
@@ -3780,8 +3854,12 @@ def phase_dist(torch, times, peaks, args):
                       "TPKT_SCALING_DIR": scaling_dir}):
             out = {"nccl": dist_nccl(torch, times, peaks, state, args.seed)}
             out["gloo"] = dist_gloo(torch, times, state, args.seed)
-            out["c"] = dist_c(state, shim, cbin)
-            out["sweeps"] = dist_sweeps(state)
+            # 8c beside 8d: neither judges a time (8d's walls are never
+            # judged: ranks on one card share it, and now the host too)
+            with concurrent.futures.ThreadPoolExecutor(2) as pool:
+                c_rows = pool.submit(dist_c, state, shim, cbin)
+                sweeps = pool.submit(dist_sweeps, state)
+                out["c"], out["sweeps"] = c_rows.result(), sweeps.result()
         after = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
         if after != libs:
             raise AssertionError(f"a rank built a library: {libs} -> {after}")
@@ -4149,8 +4227,9 @@ def dist_rank_overlap(mesh):
     if (inv["fake"], inv["fake_basis"]) != (True, "shared-card"):
         raise AssertionError(f"8b overlap's stamp: {inv}")
     points = []
-    for depth in (1, 2):
-        points += overlap.measure(mesh=mesh, depth=depth, fake=inv["fake"])
+    for depth in (1, 2):  # two timed reps a point (the tool's default 5)
+        points += overlap.measure(mesh=mesh, depth=depth, fake=inv["fake"],
+                                  reps=2)
     if mesh.rank == 0:
         scaling.write_overlap_artifact(points, inv)
 
@@ -4171,8 +4250,8 @@ def run_tree(cmd, env, timeout):
 
 
 def dist_sweeps(state):
-    """8d: the weak-scaling sweep at 1, 2 and 4 ranks and the dry run at
-    4, each as fresh rank processes on the card; rc 0 each, their walls
+    """8d: the weak-scaling sweep at 1 and 4 ranks and the dry run at 4,
+    each as fresh rank processes on the card, the two at once; rc 0 each, their walls
     and efficiencies printed, their artifacts flagged ``shared-card``;
     then every artifact of phase 8 judged, and a gating verdict fails."""
     from tpukernels_torch.obs import scaling
@@ -4183,13 +4262,15 @@ def dist_sweeps(state):
     env.update(TPKT_SCALING_DIR=d, PYTHONPATH=REPO,
                TPKT_MULTICHIP_ARTIFACT=os.path.join(d, "multichip_4.json"))
     out = {}
-    for name, cmd in (
-            ("weak", [sys.executable, "-m",
+    cmds = (("weak", [sys.executable, "-m",
                       "tpukernels_torch.parallel.weak_scaling",
-                      "--sizes", "1 2 4", "--reps", "2"]),
+                      "--sizes", "1 4", "--reps", "1"]),
             ("dryrun", [sys.executable, "-m", "tpukernels_torch.dryrun",
-                        str(DIST_RANKS)])):
-        rc, text, secs = run_tree(cmd, env, 600)
+                        str(DIST_RANKS)]))
+    # the two trees at once: their walls are never judged
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        done = list(pool.map(lambda c: run_tree(c[1], env, 600), cmds))
+    for (name, cmd), (rc, text, secs) in zip(cmds, done):
         for line in text.splitlines():
             log(f"  8d {name}: {line}")
         if rc != 0:
@@ -4205,8 +4286,8 @@ def dist_sweeps(state):
     for prog, v in scaling.analyze_weak([weak]).items():
         log(f"8d weak {prog}: walls " + ", ".join(
             f"n={n} {w * 1e3:.3f} ms" for n, w in v["walls"].items())
-            + f"; efficiency {v['efficiency']} (ranks share one card: "
-            "contention, not scaling; never judged)")
+            + f"; efficiency {v['efficiency']} (ranks share one card, "
+            "and the host with 8c: contention, not scaling; never judged)")
         out["weak"][prog] = {"walls_s": v["walls"],
                              "efficiency": v["efficiency"]}
     (dry,) = scaling.load_dryruns()
@@ -4264,7 +4345,8 @@ def c_mesh_row(cbin, state, shim, name, driver, args, env_extra, ranks):
 def dist_c(state, shim, cbin):
     """8c: the unchanged C drivers as four rank processes
     (``TPKT_MESH=4``, gloo on the one card) on c/run_all.sh's mesh rows,
-    each rank printing its own CHECK PASS (the residual rows their
+    three rows at once, each rank printing its own CHECK PASS (the
+    residual rows their
     stderr line, the sweep row its table), and ``allreduce_bench`` at
     ``TPKT_MESH=1`` on NCCL."""
     rows = [(f"mesh {i}", env, driver, args, DIST_RANKS)
@@ -4272,7 +4354,7 @@ def dist_c(state, shim, cbin):
     rows.append(("nccl allreduce_bench", {}, "allreduce_bench",
                  ["--n=1048576"], 1))
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         done = list(pool.map(lambda r: c_mesh_row(
             cbin, state, shim, re.sub(r"\W+", "_", r[0]), r[2], r[3], r[1],
             r[4]), rows))
@@ -5229,17 +5311,18 @@ def aot_child(out_path):
 # requests a key, Poisson at LOOP_RATE a second
 LOOP_LEAST, LOOP_RATE = 20, 50.0
 # 11b: one daemon, three keys at their avatars, Poisson at 5 a second for
-# about 25 s (40 % of the 12.8 a second phase 7's two closed-loop threads
-# completed in AC1)
+# about 10 s (40 % of the 12.8 a second phase 7's two closed-loop threads
+# completed in AC1; 25 s until phase 15 needed the time)
 LOOP_SERVED = {"vector_add": 1.0, "scan": 1.0, "sgemm": 1.0}
-LOOP_SERVED_RATE, LOOP_SERVED_S = 5.0, 25.0
+LOOP_SERVED_RATE, LOOP_SERVED_S = 5.0, 10.0
 # 11c: traffic that buckets with waste under the default table: SAXPY
 # pads 42.8 % into 2^20, the scan 28.5 % into 2^22
 LOOP_TRAFFIC = {"vector_add": ((), (600_000,), (600_000,)),
                 "scan": ((3_000_000,),)}
 LOOP_TRAFFIC_N, LOOP_TRAFFIC_RATE = 60, 5.0
-# the canary: 40 requests a run, each side run twice
-LOOP_CANARY = ("--seed", "11", "--requests", "40", "--rate", "5")
+# the canary: 24 requests a run (40 until phase 15 needed the time),
+# each side run twice
+LOOP_CANARY = ("--seed", "11", "--requests", "24", "--rate", "5")
 
 
 def loop_env(root, journal_path, **extra):
@@ -5772,6 +5855,7 @@ def phase_ops(card):
 SUPERVISOR_STEPS = ("prewarm_all", "slo_probe", "integrity_envelopes",
                     "rollup_daily", "fleet_fsck", "obs_check")
 SUPERVISOR_SLO_S = 10   # slo_probe's load, cut from the queue's 60 s
+SUPERVISOR_BENCH = "saxpy_gb_s"  # prewarm_all's bench metric (was all)
 SUPERVISOR_STUCK_S = 3  # 13c's stub step's timeout
 # the kernels phase 13's step children must launch: the prewarm's
 # first-trust canaries and the SLO probe's avatars of every key
@@ -5782,7 +5866,8 @@ SUPERVISOR_PATH = ("saxpy", "sgemm_prep", "sgemm_split3", "jacobi2d",
 
 def supervisor_queue(path):
     """Write 13b's queue file: the production steps of SUPERVISOR_STEPS,
-    cut in duration only (the SLO probe's load), their ``after`` edges
+    cut in duration only (the SLO probe's load, the prewarm's bench
+    metrics: one graphed metric of the seven), their ``after`` edges
     kept where the step is in the queue."""
     from tpukernels_torch import revalidate
 
@@ -5800,6 +5885,14 @@ def supervisor_queue(path):
             if shell == spec.shell:
                 raise AssertionError("13b: slo_probe's body has no "
                                      "--duration 60 to cut")
+        if name == "prewarm_all":
+            # one bench --prewarm child, at the metric with the largest
+            # graph (21 000 SAXPY calls); phase 15 runs all seven metrics
+            shell = shell.replace("--bench all ",
+                                  f"--bench {SUPERVISOR_BENCH} ")
+            if shell == spec.shell:
+                raise AssertionError("13b: prewarm_all's body has no "
+                                     "--bench all to cut")
         steps.append({"name": name, "shell": shell,
                       "after": [a for a in spec.after
                                 if a in SUPERVISOR_STEPS],
@@ -5896,8 +5989,16 @@ def phase_supervisor(card):
                 ("prewarm_all", "green")]:
             raise AssertionError(f"13b run 1: started {starts}, done "
                                  f"{dones('sup')}")
+        warmed = [e for e in supervisor_records(os.path.join(
+            journal_dir, f"health_{time.strftime('%Y-%m-%d')}.jsonl"),
+            "prewarm_kernel") if e.get("mode") == "bench"]
+        if [(e["kernel"], e["status"]) for e in warmed] != [
+                (SUPERVISOR_BENCH, "ok")]:
+            raise AssertionError(f"13b run 1: prewarm_all's bench children "
+                                 f"{warmed}")
         log("PASS 13b run 1: rc -9 (SIGKILL) after slo_probe's step_start; "
-            "prewarm_all green before it")
+            f"prewarm_all green before it, its bench --prewarm "
+            f"{SUPERVISOR_BENCH} child ok in {warmed[0]['wall_s']} s")
         revalidate_run("13b run 2", "sup", ["--queue", qf])
         got = dones("sup")[1:]
         skips = [(e["step"], e["reason"]) for e in
@@ -6118,6 +6219,212 @@ def phase_tools(card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ #
+# phase 15: the suite's bench and the tuning loop on the card         #
+# ------------------------------------------------------------------ #
+
+# phase 5's number for each bench metric's work: (phase 5 row, its key,
+# the metric from ms a call); the scan + histogram chain adds an xor a
+# round, and the bench's stencils and N-body run other iteration counts
+BENCH_BESIDE = {
+    "sgemm_gflops": ("sgemm[high]", "device_ms",
+                     lambda ms, r: 2 * 1024 ** 3 / ms / 1e6),
+    "saxpy_gb_s": (f"saxpy n={1 << 20}", "device_ms",
+                   lambda ms, r: 12 * (1 << 20) / ms / 1e6),
+    "scan_hist_melem_s": (f"scan_histogram[off] n={SCAN_N}", "device_ms",
+                          lambda ms, r: SCAN_N / ms / 1e3),
+    "nbody_ginter_s": ("nbody", "ms", lambda ms, r: NBODY_N ** 2 / ms / 1e6),
+    "stencil2d_mcells_s": ("jacobi2d", "ms",
+                           lambda ms, r: 4096 ** 2 * r["iters"] / ms / 1e3),
+    "saxpy_stream_gb_s": (f"saxpy n={STREAM_N}", "device_ms",
+                          lambda ms, r: 12 * STREAM_N / ms / 1e6),
+    "stencil3d_mcells_s": ("jacobi3d", "ms",
+                           lambda ms, r: STENCIL3D_N ** 3 * r["iters"]
+                           / ms / 1e3),
+}
+# 15b's sweep: the control (fuse off) and the fused pass
+TUNE_KERNEL, TUNE_METRIC = "scan_histogram", "scan_hist_melem_s"
+# 15c: the queue's knob_sanity body, its fuse loop cut to the fused pass
+# (fuse off is 15a's scan_hist_melem_s), and the kernel each of its two
+# processes must launch
+KNOB_LOOP = ("for fuse in off on; do", "for fuse in on; do")
+KNOB_LINES = {"scan_hist fuse=on:": ("scan_histogram", "scan_hist_melem_s",
+                                     None),
+              "sgemm float32 (six bf16 products):": (
+                  "sgemm_float32", "sgemm_gflops", "float32")}
+
+
+def knob_sanity(base, root, card):
+    """15c: ``revalidate``'s ``knob_sanity`` body as the queue runs it,
+    its fuse loop cut to ``on``: each value a number at or under its
+    ceiling, and each of its kernels launched (exit metrics)."""
+    from tpukernels_torch import revalidate
+    from tpukernels_torch.bench import ceilings
+
+    shell = {s.name: s for s in revalidate.PRODUCTION_QUEUE}[
+        "knob_sanity"].shell
+    if KNOB_LOOP[0] not in shell:
+        raise AssertionError(f"15c: knob_sanity's body has no "
+                             f"{KNOB_LOOP[0]!r} to cut")
+    shell = shell.replace(*KNOB_LOOP)
+    journal_file = os.path.join(root, "knob.jsonl")
+    t0 = time.perf_counter()
+    p = subprocess.run(["bash", "-c", shell], cwd=REPO, capture_output=True,
+                       text=True, timeout=900,
+                       env=dict(base, TPKT_HEALTH_JOURNAL=journal_file))
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"15c knob_sanity: rc {p.returncode}\n"
+                             f"{p.stdout[-2000:]}\n{p.stderr[-6000:]}")
+    launches = exit_launches(journal_file)
+    values = {}
+    for prefix, (kernel, metric, precision) in KNOB_LINES.items():
+        hits = [ln for ln in p.stdout.splitlines() if ln.startswith(prefix)]
+        value = float(hits[-1].split()[-1]) if hits else float("nan")
+        ceiling = ceilings(precision)[metric]
+        if not 0 < value <= ceiling or not launches.get(kernel):
+            raise AssertionError(f"15c knob_sanity {prefix} {value} (ceiling "
+                                 f"{ceiling}), {kernel} launched "
+                                 f"{launches.get(kernel)}\n{p.stdout}")
+        values[prefix.rstrip(":")] = value
+        log(f"15c knob_sanity {prefix} {value} {metric} ({value / ceiling:.1%}"
+            f" of its ceiling {ceiling}); {kernel} launched "
+            f"{launches[kernel]} [{card}]")
+    log(f"PASS 15c knob_sanity's body (fuse loop cut to on): rc 0 in "
+        f"{wall:.1f} s")
+    return {"values": values, "wall_s": round(wall, 3)}
+
+
+def phase_bench(card, times):
+    """Phase 15: the suite's bench and the tuning loop on the card (item
+    15 of the module docstring)."""
+    log("== phase 15: the bench and the tuning loop (python -m "
+        "tpukernels_torch.bench, python -m tpukernels_torch.autotune)")
+    from tpukernels_torch import _cachedir
+    from tpukernels_torch.bench import BENCH_METRICS
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="tpkt_bench_")
+    base = {k: v for k, v in os.environ.items() if not k.startswith("TPKT_")}
+    base.update(PYTHONPATH=REPO, TPKT_BENCH_PROBE_ATTEMPTS="1",
+                **_cachedir.state_dirs_under(os.path.join(root, "state")))
+    repo_cache = os.path.join(REPO, ".tpkt_cache", "tuning.json")
+    cache_before = (os.stat(repo_cache).st_mtime_ns
+                    if os.path.exists(repo_cache) else None)
+    out = {}
+    try:
+        # (15a) the whole bench
+        journal_file = os.path.join(root, "bench.jsonl")
+        _rc, wall, text, err = ops_child(
+            "15a bench", "tpukernels_torch.bench", [],
+            dict(base, TPKT_HEALTH_JOURNAL=journal_file), timeout=900)
+        line = json.loads(text.strip().splitlines()[-1])
+        log(f"15a bench line: {json.dumps(line)}")
+        for ln in err.splitlines():
+            if ln.startswith("# graph R="):
+                log(f"  15a {ln[2:]}")
+        bad = []
+        for name, _fn in BENCH_METRICS:
+            value, host = line["details"][name], \
+                line["details"][f"{name}_host"]
+            ceiling = line["ceilings"].get(name)
+            if value is None or host is None:
+                bad.append(f"{name}: {line.get('reasons', {}).get(name)}")
+                continue
+            if ceiling is not None and max(value, host) > ceiling:
+                bad.append(f"{name}: {max(value, host)} over {ceiling}")
+            row_label, key, rate = BENCH_BESIDE[name]
+            row = times[row_label]
+            p5 = rate(row[key], row)
+            caps = line.get("captures", {}).get(name, [])
+            log(f"15a {name}: {value:.2f} ({line['timing'].get(name)}), "
+                f"host-issued {host:.2f} ({value / host:.2f}x); phase 5's "
+                f"{row_label} {key} {row[key]:.4f} ms gives {p5:.2f}, "
+                f"ratio {value / p5:.3f}; ceiling "
+                + ("none (L2-resident)" if ceiling is None
+                   else f"{ceiling:.1f} ({value / ceiling:.1%})")
+                + "".join(f"; R={c['R']} capture {c['capture_s']} s "
+                          f"instantiate {c['instantiate_s']} s pool "
+                          f"{c['pool_peak_mib']} MiB" for c in caps)
+                + f" [{card}]")
+        if line.get("invalidated"):
+            bad.append(f"invalidated: {line['invalidated']}")
+        if bad:
+            raise AssertionError("15a bench: " + "; ".join(bad)
+                                 + f"\n{err[-6000:]}")
+        launches = exit_launches(journal_file)
+        log(f"15a the bench children's launches (their exit metrics): "
+            f"{json.dumps(launches, sort_keys=True)}")
+        log(f"PASS 15a bench: seven metrics, none null, invalidated or over "
+            f"its ceiling ({wall:.1f} s)")
+        out["bench"] = {"line": line, "wall_s": round(wall, 3)}
+
+        # (15b) one sweep of scan_histogram's fuse, then the read side
+        tune_dir = os.path.join(root, "tune")
+        env = dict(base, TPKT_TUNING_CACHE_DIR=tune_dir,
+                   TPKT_HEALTH_JOURNAL=os.path.join(root, "tune.jsonl"))
+        _rc, wall_t, text, err = ops_child(
+            "15b autotune", "tpukernels_torch.autotune",
+            ["--kernel", TUNE_KERNEL, "--quick"], env, timeout=900)
+        for ln in text.splitlines():
+            log(f"  15b {ln}")
+        cands = supervisor_records(env["TPKT_HEALTH_JOURNAL"],
+                                   "tuning_candidate")
+        values = {c["params"]["fuse"]: c["value"] for c in cands}
+        if sorted(values) != ["off", "on"] or None in values.values():
+            raise AssertionError(f"15b: candidates {cands}")
+        (promo,) = supervisor_records(env["TPKT_HEALTH_JOURNAL"],
+                                      "tuning_sweep_end") or [None]
+        promoted = (promo or {}).get("promoted")
+        _rc, wall_o, text, err = ops_child(
+            "15b bench --one", "tpukernels_torch.bench",
+            ["--one", TUNE_METRIC], env, timeout=600)
+        resolved = [e for e in supervisor_records(
+            env["TPKT_HEALTH_JOURNAL"], "tuning_resolved")
+            if e.get("kernel") == TUNE_KERNEL]
+        one = json.loads(text.strip().splitlines()[-1])
+        gain = values["on"] / values["off"] - 1
+        log(f"15b fuse=off (control) {values['off']:.2f}, fuse=on "
+            f"{values['on']:.2f} {TUNE_METRIC} ({gain:+.1%}; margin 3%); "
+            f"promoted {promoted}; bench --one on the tuned cache "
+            f"{one['value']:.2f} [{card}]")
+        if promoted:
+            if not resolved or resolved[-1]["params"] != promoted or \
+                    set(resolved[-1]["sources"].values()) != {"cache"}:
+                raise AssertionError(f"15b: bench --one resolved "
+                                     f"{resolved}, not {promoted}")
+            log(f"PASS 15b promoted {promoted} and bench --one resolved it "
+                f"from the cache ({wall_t:.1f} + {wall_o:.1f} s)")
+        else:
+            if resolved:
+                raise AssertionError(f"15b: nothing promoted, yet "
+                                     f"resolved {resolved}")
+            log(f"PASS 15b nothing promoted (fuse=on {gain:+.1%}, under the "
+                f"3% margin); bench --one ran at the defaults ({wall_t:.1f} "
+                f"+ {wall_o:.1f} s)")
+        after = (os.stat(repo_cache).st_mtime_ns
+                 if os.path.exists(repo_cache) else None)
+        if after != cache_before:
+            raise AssertionError("15b wrote the repository's tuning cache")
+        out["tune"] = {"values": values, "gain": round(gain, 4),
+                       "promoted": promoted, "one": one,
+                       "wall_s": round(wall_t + wall_o, 3)}
+
+        # (15c) the queue's knob_sanity body on the card
+        out["knob_sanity"] = knob_sanity(base, root, card)
+        for path in (env["TPKT_HEALTH_JOURNAL"],
+                     os.path.join(root, "knob.jsonl")):
+            for k, v in exit_launches(path).items():
+                launches[k] = launches.get(k, 0) + v
+        out["launches"] = launches
+        out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+        log(f"phase 15 wall {out['phase_s']:.1f} s [{card}]")
+        print(json.dumps({"bench": out}), flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6181,6 +6488,7 @@ def run_all(torch, args):
     ops = phase_ops(card)
     sup = phase_supervisor(card)
     phase_tools(card)
+    bench = phase_bench(card, times)
 
     # B3/B4, B5/B6 and B9/B10 share an entry: the dict keeps B4, B6 and
     # B10, and B3, B5 and B10 stand in also_replaces
@@ -6199,6 +6507,7 @@ def run_all(torch, args):
                 "fleet_launches": fleet["launches"].get(name, 0),
                 "chaos_launches": ops["launches"].get(name, 0),
                 "supervisor_launches": sup["launches"].get(name, 0),
+                "bench_launches": bench["launches"].get(name, 0),
                 "dist_launches": dist["nccl"]["launches"].get(name, 0),
                 "max_abs_err": err, **{k: t[k] for k in keys}, **extra}
 
@@ -6297,6 +6606,7 @@ def run_all(torch, args):
         "fleet_launches": fleet["launches"].get("sgemm_prep", 0),
         "chaos_launches": ops["launches"].get("sgemm_prep", 0),
         "supervisor_launches": sup["launches"].get("sgemm_prep", 0),
+        "bench_launches": bench["launches"].get("sgemm_prep", 0),
         "max_abs_err": errs["sgemm_prep"], "shape": t["shape"],
         "precision": "high", "library_ms": None,
         **{key: t[key] for key in prep_keys},
@@ -6341,6 +6651,7 @@ def run_all(torch, args):
         "fleet_launches": fleet["launches"].get("nbody_forces_ij", 0),
         "chaos_launches": ops["launches"].get("nbody_forces_ij", 0),
         "supervisor_launches": sup["launches"].get("nbody_forces_ij", 0),
+        "bench_launches": bench["launches"].get("nbody_forces_ij", 0),
         "max_abs_err": errs["nbody_forces_ij"], "ms": fij[0]["ms"],
         "plain_ms": fij[0]["plain_ms"], "bound_ms": fij[0]["bound_ms"],
         "bound_by": fij[0]["bound_by"], "library_ms": None,

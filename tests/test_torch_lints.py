@@ -8,8 +8,8 @@
 - In a ``--root`` tree of their own, each catches an undocumented knob
   (a constant, a shell body, the C shim's ``getenv``), an undocumented
   kind, a non-literal kind, an untagged traced emit and an undocumented
-  fault key (literal ``_PLAN.get``, literal ``_spec``, ``_spec`` through
-  a loop over a literal tuple) with rc 1, and warns with rc 0 on a row
+  fault key (literal ``_PLAN.get``, literal ``_spec``, ``_spec`` or
+  ``_PLAN.get`` through a loop over a literal tuple) with rc 1, and warns with rc 0 on a row
   nothing references.
 """
 
@@ -40,7 +40,8 @@ def test_the_trees_fault_keys_are_the_fault_modules():
     assert journal_kinds.fault_plan_keys(str(ROOT)) == sorted([
         "slow_dispatch", "wedge_dispatch", "kill_worker", "delay_response",
         "kill_router", "torn_write", "nan_output", "corrupt_output",
-        "fail_capi", "wedge_capi", "probe", "hang_probe", "kill_supervisor"])
+        "fail_capi", "wedge_capi", "probe", "hang_probe", "kill_supervisor",
+        "wedge_metric", "fail_metric"])
 
 
 def test_the_trees_traced_kinds_are_the_serve_paths():
@@ -212,6 +213,7 @@ def test_an_untagged_traced_emit_fails(tmp_path, capsys):
     '    _PLAN.get("new_key")',
     '    _spec("new_key", "k")',
     '    for key in ("new_key",):\n        _spec(key)',
+    '    for key, act in (("new_key", 1),):\n        _PLAN.get(key)',
 ])
 def test_an_undocumented_fault_key_fails(tmp_path, capsys, line):
     faults = FAULTS + "\n\ndef more():\n" + line + "\n"

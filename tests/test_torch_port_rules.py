@@ -33,6 +33,10 @@
   no JAX and nothing of the JAX package, read only ``TPKT_`` knobs, and
   the first three import no torch; its state is a ``_cachedir`` state
   directory under the gitignored ``.tpkt_cache``.
+- The bench and the tuning loop (``bench``, ``tuning/runner``,
+  ``autotune``, ``sgemm_tune``) name no JAX and nothing of the JAX
+  package, read only ``TPKT_`` knobs, spawn the port's bench, and the
+  tuning CLI imports no torch.
 """
 
 import ast
@@ -742,6 +746,55 @@ def test_supervisor_layer_imports_no_torch():
     code = (
         "import importlib, sys\n"
         f"for m in {SUPERVISOR!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'tpukernels'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT, env=env, timeout=120)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == ""
+
+
+BENCH_LAYER = ("tpukernels_torch.bench", "tpukernels_torch.tuning.runner",
+               "tpukernels_torch.autotune", "tpukernels_torch.sgemm_tune")
+
+
+def test_bench_layer_is_under_the_rules():
+    """The bench and the tuning loop name no JAX and nothing of the JAX
+    package, read and set only ``TPKT_`` knobs (and, for the children,
+    the variable that hides the card from a smoke sweep's and the
+    repository on their path), and spawn the port's own bench, never the
+    reference's ``bench.py``."""
+    mods = set(_port_modules())
+    assert set(BENCH_LAYER) <= mods
+    read = []
+    for m in BENCH_LAYER:
+        src = (ROOT / (m.replace(".", "/") + ".py")).read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|tpukernels\b(?!_))",
+                             src, re.M), m
+        assert not re.search(r"\bjax\b", src), m
+        assert not re.search(r"[\"']bench\.py[\"']", src), m
+        read += re.findall(r"environ(?:\.get|\.setdefault)?\(\s*\"(\w+)\"",
+                           src)
+        read += re.findall(r"env\w*\[\"(\w+)\"\]", src)
+        read += re.findall(r"\"(\w+)\":", src.split("_SMOKE_ENV", 1)[-1]
+                           .split("}", 1)[0]) if "_SMOKE_ENV =" in src else []
+    assert read and all(k.startswith("TPKT_") or k in (
+        "CUDA_VISIBLE_DEVICES", "PYTHONPATH") for k in read), read
+    assert {"TPKT_BENCH_SMOKE", "TPKT_BENCH_DEADLINE_S", "TPKT_BENCH_ONLY",
+            "TPKT_TUNE_TIMEOUT_S", "TPKT_TUNING_CACHE"} <= set(read)
+
+
+def test_tuning_cli_imports_no_torch():
+    """``autotune`` and the runner import no torch when imported: the
+    sweep's parent makes no CUDA context, only its children do."""
+    code = (
+        "import importlib, sys\n"
+        "for m in ('tpukernels_torch.autotune', "
+        "'tpukernels_torch.tuning.runner', 'tpukernels_torch.sgemm_tune'):\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'jaxlib', 'tpukernels'))\n"

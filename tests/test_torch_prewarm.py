@@ -187,3 +187,30 @@ def test_order_traffic_ranks_by_the_journals_requests(tmp_path):
         "scan", "sgemm"]
     p = _prewarm(tmp_path, "--device", "cpu", "--order", "hot")
     assert p.returncode == 2
+
+
+def test_bench_warms_each_metric_in_a_child(tmp_path):
+    """``--bench`` runs one ``bench --prewarm <metric>`` child a metric
+    (here in smoke mode on the CPU): each journals a ``prewarm_kernel``
+    row with mode bench; a child that refuses (the CPU without
+    TPKT_BENCH_SMOKE) fails the prewarm; an unknown metric is usage."""
+    j = tmp_path / "j.jsonl"
+    p = _prewarm(tmp_path, "--kernels", "vector_add", "--device", "cpu",
+                 "--bench", "saxpy_gb_s,scan_hist_melem_s",
+                 TPKT_HEALTH_JOURNAL=str(j), TPKT_BENCH_SMOKE="1")
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert "3 warmed, 0 failed" in p.stdout
+    rows = [e for e in _events(j, "prewarm_kernel") if e.get("mode")]
+    assert [(e["kernel"], e["mode"], e["status"]) for e in rows] == [
+        ("saxpy_gb_s", "bench", "ok"), ("scan_hist_melem_s", "bench", "ok")]
+    (start,) = _events(j, "prewarm_start")
+    assert start["metrics"] == ["saxpy_gb_s", "scan_hist_melem_s"]
+    assert "prewarm complete" in p.stderr and "# slope: timing" not in p.stderr
+
+    p = _prewarm(tmp_path, "--kernels", "vector_add", "--device", "cpu",
+                 "--bench", "saxpy_gb_s", TPKT_HEALTH_JOURNAL=str(j))
+    assert p.returncode == 1, p.stdout + p.stderr
+    assert "bench metric saxpy_gb_s FAILED (error)" in p.stderr
+
+    p = _prewarm(tmp_path, "--device", "cpu", "--bench", "nope")
+    assert p.returncode == 2 and "unknown bench metric" in p.stderr

@@ -231,6 +231,46 @@ def test_plan_prints_the_production_queue(tmp_path):
     assert not (tmp_path / "health.jsonl").exists()
 
 
+def test_only_the_bench_gate_and_the_roofline_wait():
+    """The bench and the tuning runner are ported: ``knob_sanity`` and
+    ``autotune_smoke`` run the port's commands, ``prewarm_all`` warms the
+    bench's chains, and only the steps of the bench's regression gate and
+    the roofline still wait."""
+    assert sorted(revalidate.WAITING) == ["bench", "roofline_report"]
+    q = _by_name(revalidate.PRODUCTION_QUEUE)
+    knob = q["knob_sanity"].shell
+    assert "for fuse in off on" in knob
+    assert "TPKT_SCANHIST_FUSE=$fuse" in knob
+    assert "from tpukernels_torch.bench import bench_scan_hist" in knob
+    assert "TPKT_SGEMM_PRECISION=float32" in knob
+    assert "from tpukernels_torch.bench import bench_sgemm" in knob
+    smoke = q["autotune_smoke"].shell
+    assert "python3 -m tpukernels_torch.autotune --kernel sgemm" in smoke
+    assert "--smoke" in smoke
+    assert "--bench all" in q["prewarm_all"].shell
+    assert "--timeout-s 420" in q["prewarm_all"].shell
+
+
+def test_autotune_smoke_step_runs_green_on_the_cpu(tmp_path):
+    """The step's body as the queue runs it, on a host without a card:
+    the smoke sweep's children run on the CPU, its log lands in the
+    supervisor's logs/, and its entry in the (isolated) tuning cache is
+    keyed device_kind=cpu."""
+    spec = _by_name(revalidate.PRODUCTION_QUEUE)["autotune_smoke"]
+    env = _env(tmp_path, TPKT_TUNING_CACHE_DIR=tmp_path / "tuning",
+               TPKT_AOT_DIR=tmp_path / "aot",
+               TPKT_INTEGRITY_DIR=tmp_path / "integrity",
+               CUDA_VISIBLE_DEVICES="", PYTHONPATH=ROOT)
+    p = subprocess.run(["bash", "-c", spec.shell], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert "autotune smoke: OK" in p.stdout
+    (log,) = (tmp_path / "state" / "logs").glob("autotune_smoke_*.log")
+    assert "promoted ->" in log.read_text()
+    entries = json.loads((tmp_path / "tuning" / "tuning.json").read_text())
+    assert list(entries["entries"]) == ["sgemm|1024x1024x1024|float32|cpu"]
+
+
 # ------------------------------------------------------ exit codes
 
 def _stub(tmp_path, name="a", **kw):

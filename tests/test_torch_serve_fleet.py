@@ -359,40 +359,59 @@ def test_ctl_status_shows_both_workers(fleet2):
 def test_drain_mid_burst_zero_drops_then_undrain(tmp_path):
     """Drain the scan bucket's home in the middle of a three-thread
     burst: its buckets fail over to the sibling, the worker stops, no
-    accepted request drops; undrain restarts it and restores the ring."""
+    accepted request drops; undrain restarts it and restores the ring.
+
+    Every request carries its own request id. The requests sent after
+    the drain was acknowledged and answered before the undrain began
+    are the drained window: each of them must have been routed to the
+    sibling. (A forward the router placed on the home before the drain
+    journals its route when it completes, which under load can be well
+    after the drain op: the window is what the clients saw, not a
+    margin on the journal's clock.)"""
     home = router.ring_order(SCAN_BUCKET, 2)[0]
     with _fleet(tmp_path, n=2, TPKT_SERVE_BATCH_WINDOW_MS="0") as (
             front, jpath, env):
         x, want = _scan_case()
-        errors, done = [], []
+        errors, done, drained = [], [], []
+        phase = ["before"]  # "drained" from the drain's ack to the undrain
         stop = threading.Event()
 
-        def stream():
+        def stream(tag):
             try:
                 with ref_client.ServeClient(front, timeout_s=120) as c:
+                    i = 0
                     while not stop.is_set():
+                        rid = f"burst-{tag}-{i}"
+                        i += 1
+                        sent_in = phase[0]
+                        c.next_request_id = rid
                         np.testing.assert_array_equal(c.dispatch("scan", x),
                                                       want)
+                        if sent_in == phase[0] == "drained":
+                            drained.append(rid)
                         done.append(1)
             except Exception as e:  # noqa: BLE001 - collected, asserted
                 errors.append(repr(e))
 
-        def wait_more(k, what):
-            mark = len(done)
+        def wait_more(k, what, seen=done):
+            mark = len(seen)
             deadline = time.monotonic() + 60
-            while len(done) < mark + k:
+            while len(seen) < mark + k:
                 assert not errors, errors
                 assert time.monotonic() < deadline, f"stalled {what}"
                 time.sleep(0.05)
 
-        threads = [threading.Thread(target=stream) for _ in range(3)]
+        threads = [threading.Thread(target=stream, args=(i,))
+                   for i in range(3)]
         for t in threads:
             t.start()
         try:
             wait_more(5, "before the drain")
             r = _ctl(env, "drain", str(home), "--wait", "30")
             assert r.returncode == 0, r.stdout + r.stderr
-            wait_more(5, "after the drain")
+            phase[0] = "drained"
+            wait_more(5, "after the drain", seen=drained)
+            phase[0] = "undraining"
             r = _ctl(env, "undrain", str(home), "--wait", "90")
             assert r.returncode == 0, r.stdout + r.stderr
             wait_more(5, "after the undrain")
@@ -412,10 +431,8 @@ def test_drain_mid_burst_zero_drops_then_undrain(tmp_path):
     assert all(e["worker"] == home for e in drains)
     routes = [e for e in events if e["kind"] == "serve_route"]
     assert routes and all(e["ok"] for e in routes)
-    t0, t1 = drains[0]["t"], drains[1]["t"]
-    # a forward that started just before the drain op may journal its
-    # serve_route just after it
-    window = [e for e in routes if t0 + 1.0 < e["t"] < t1]
+    window = [e for e in routes if e.get("request_id") in set(drained)]
+    assert {e["request_id"] for e in window} == set(drained)
     assert window and all(e["worker"] != home for e in window)
     (last,) = [e for e in routes if e.get("request_id") == "after-undrain"]
     assert last["worker"] == home

@@ -1,0 +1,892 @@
+"""The suite's own bench: seven metrics of the port on the card, one JSON
+line.
+
+    python -m tpukernels_torch.bench                  # the suite
+    python -m tpukernels_torch.bench --one METRIC     # one metric (a child)
+    python -m tpukernels_torch.bench --prewarm METRIC # build, plan, warm
+
+The port's copy of the reference's ``bench.py``. Each metric runs a chain
+of R dependent calls of the port's kernel wrapper (never
+``registry.dispatch``, whose guard synchronises) and is timed as a
+*slope*: :func:`_slope` times the chain at two repeat counts R_small and
+R_big in the interleaved order (s,b,b,s,b,s,s,b), fits
+``t = c0 + c1*midpoint + slope*R`` by least squares (the midpoint term
+absorbs a linear drift, the intercept any fixed cost a call) and takes
+the median of 5 such samples, at least 3 of them valid. What one timed
+call is differs from the reference, whose R iterations run inside one
+XLA program:
+
+- SGEMM, SAXPY, SAXPY stream and scan + histogram: the R chained calls
+  are captured once into a CUDA graph; a timed call is one ``replay()``
+  and the copy to the host of its scalar (the reference's
+  ``np.asarray(f(*a))``). The graph rate leaves out what the wrappers do
+  on the host (knob reads, the plan memo, argument checks), which ran
+  once at capture. Each of these metrics also reports ``<metric>_host``:
+  the same R calls issued one by one from Python, timed the same way,
+  which includes that host work.
+- The 2-D and 3-D Jacobi and N-body: R is the kernel's own ``iters`` or
+  ``steps``; a timed call is one wrapper call and the copy of its scalar,
+  with no graph, so ``<metric>_host`` is the same measurement.
+
+Before timing, each metric's key runs once through ``aot.run_cached``
+(its libraries built or loaded and its plan made, with ``aot_hit`` /
+``aot_miss`` evidence), the warm result of each repeat count passes
+the integrity guard (``integrity.guard("bench", ...)``), and a graph's
+first replay must give, bit for bit, the scalar of the same R calls
+issued from the host, all outside the timed window. A capture's seconds
+and its graph pool's peak are printed on stderr and carried in the
+child's line.
+
+Process structure (the reference's): ``main`` first asks a killable
+child whether the card answers (a CUDA context and one small kernel;
+``TPKT_BENCH_PROBE_ATTEMPTS``, ``TPKT_BENCH_PROBE_WAIT_S``), then runs one
+``--one <metric>`` child per metric under ``watchdog.kill_after``, in
+:data:`BENCH_METRICS` order, within the whole-run deadline
+``TPKT_BENCH_DEADLINE_S``; ``TPKT_BENCH_ONLY`` names a subset. A capture
+above its metric's ceiling (:func:`ceilings`, the card's bound for one
+iteration) by more than 1 % is invalidated. The line:
+
+    {"metric": "sgemm_gflops_per_chip", "value": ..., "unit": "GFLOPS",
+     "vs_baseline": null, "details": {metric: v, metric_host: v, ...},
+     "device": "h100", "name": ..., "power_limit_w": ..., "git_head": ...,
+     "ceilings": {...}, ...}
+
+It reads no artifact and writes none. With no card, ``--one`` and
+``--prewarm`` refuse (rc 2, no number) and ``main`` prints the line with
+every metric null and its reason. ``TPKT_BENCH_SMOKE=1`` with ``--device
+cpu`` runs a child on the CPU's plain versions with the repeat counts
+collapsed to 1 and 2 and no timing: its value is meaningless, marked
+``"smoke": true``, the pipeline proof of the tests and of ``python -m
+tpukernels_torch.autotune --smoke``.
+
+Each metric's kernel resolves its knobs env > tuning cache > default, so
+a ``--one`` child is also the tuning runner's measurement
+(``tuning/runner.py`` sets a candidate's knobs and ``TPKT_TUNING_CACHE=0``)
+and a normal run picks up promoted entries (a ``tuning_resolved`` event).
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+from tpukernels_torch import aot
+from tpukernels_torch.obs import metrics as obs_metrics
+from tpukernels_torch.obs import scaling as obs_scaling
+from tpukernels_torch.obs import trace
+from tpukernels_torch.resilience import faults, integrity, journal, watchdog
+
+# per-metric watchdog of a child (SIGALRM inside it, the parent's kill
+# outside)
+_BENCH_TIMEOUT_S = 600
+# held back from each child's window for the wedge probe and the line
+_CHILD_GRACE_S = 120
+# least budget left for a metric still to be started
+_DEADLINE_FLOOR_S = max(180, _CHILD_GRACE_S + 60)
+# a capture may pass its ceiling by this much before it is invalidated
+_CEILING_EPS = 0.01
+
+_Timeout = watchdog.Timeout
+
+# published dense peaks of the H100 SXM (NVIDIA's data sheet): bytes/s of
+# device memory, bf16 tensor-core flop/s, fp32 flop/s; int32 at half fp32
+_BW, _BF16, _FP32 = 3.35e12, 989e12, 67e12
+_INT32 = _FP32 / 2
+# bf16 products an SGEMM of each precision makes (kernels/sgemm.py)
+_PRODUCTS = {"high": 3, "float32": 6, "default": 1}
+
+# the guard's registry key of each bench function
+_SLOPE_GUARD_KERNELS = {
+    "bench_sgemm": "sgemm",
+    "bench_saxpy": "vector_add",
+    "bench_saxpy_stream": "vector_add",
+    "bench_stencil": "stencil2d",
+    "bench_stencil3d": "stencil3d",
+    "bench_scan_hist": "scan_histogram",
+    "bench_nbody": "nbody",
+}
+
+# what the last bench_* call measured besides its metric: the host-issued
+# rate, how a call was timed, and each repeat count's capture
+LAST: dict = {}
+# set by ``--prewarm`` in its own process: _slope builds and warms both
+# repeat counts and times nothing
+_PREWARM = False
+
+
+def _smoke() -> bool:
+    return os.environ.get("TPKT_BENCH_SMOKE") == "1"
+
+
+def _device(device=None):
+    from tpukernels_torch.utils import pick_device
+
+    return pick_device(device)
+
+
+def _with_timeout(fn, seconds=_BENCH_TIMEOUT_S):
+    """``fn()`` under SIGALRM: a second layer inside the child, for
+    slowness in Python; a call hung in the driver needs the parent's
+    kill."""
+    return watchdog.run_with_alarm(fn, seconds, site="bench._with_timeout")
+
+
+def _materialize(out):
+    """The host value of a timed call's result. Copying a card tensor to
+    the host waits for the work that made it, as ``np.asarray`` of a JAX
+    array does."""
+    if hasattr(out, "detach"):
+        return out.detach().cpu().numpy()
+    return np.asarray(out)
+
+
+def _timeit(fn, *args, reps=4, warmup=2):
+    """Best-of wall seconds a call; ``fn`` returns something small whose
+    materialization waits for the device."""
+    for _ in range(warmup):
+        _materialize(fn(*args))
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        _materialize(fn(*args))
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _slope(make_fn, r_small, r_big, samples=5, ensure=None, label=None):
+    """Marginal seconds a loop iteration.
+
+    ``make_fn(R) -> (fn, args)`` where ``fn(*args)`` runs R dependent
+    iterations and returns a scalar. ``ensure``, when given, runs the
+    metric's key once through ``aot.run_cached`` before either R is
+    built. Each repeat count's warm result passes the integrity guard,
+    for the key of ``label`` (the bench function, by default the one
+    ``make_fn`` is defined in);
+    then each sample times 8 calls in the order (s,b,b,s,b,s,s,b),
+    records each call's wall-clock midpoint and fits ``t = c0 +
+    c1*midpoint + slope*R``; the result is the median of ``samples``
+    positive slopes, at least 3, else RuntimeError.
+
+    ``TPKT_BENCH_SMOKE=1`` collapses the repeat counts to 1 and 2 and
+    returns 1.0 once both have run (the metric is then meaningless);
+    under ``--prewarm`` (:data:`_PREWARM`) it returns inf once both are
+    built and warm.
+    """
+    smoke = _smoke()
+    if smoke:
+        r_small, r_big = 1, 2
+    print("# slope: entered (operands built)", file=sys.stderr, flush=True)
+    faults.phase_fault("operand")
+    # bench_sgemm.<locals>.make -> "bench_sgemm"
+    label = label or make_fn.__qualname__.split(".")[0]
+    calls = {}
+    with trace.span("slope/compile", r_small=r_small, r_big=r_big):
+        if ensure is not None and aot.enabled():
+            ensure()
+        for r in (r_small, r_big):
+            print(f"# slope: building R={r}", file=sys.stderr, flush=True)
+            f, a = make_fn(r)
+            warm = f(*a)
+            # a NaN anywhere in the R iterations reaches this scalar, so
+            # the tripwire covers the whole chain; the first-trust canary
+            # checks the kernel against its oracle before timing
+            integrity.guard("bench", _SLOPE_GUARD_KERNELS.get(label), warm)
+            _materialize(warm)
+            calls[r] = (f, a)
+    faults.phase_fault("compile")
+    if _PREWARM:
+        print("# slope: prewarm complete (built, planned, warm)",
+              file=sys.stderr, flush=True)
+        return float("inf")
+    print("# slope: timing", file=sys.stderr, flush=True)
+    faults.phase_fault("execute")
+    if smoke:
+        return 1.0
+    octet = (r_small, r_big, r_big, r_small, r_big, r_small, r_small, r_big)
+    ests = []
+    min_valid = min(3, samples)
+    with trace.span("slope/execute", samples=samples, r_small=r_small,
+                    r_big=r_big):
+        for _attempt in range(3 * samples):
+            if len(ests) >= samples:
+                break
+            rows, durs = [], []
+            t_base = time.perf_counter()  # a centred time regressor
+            for r in octet:
+                f, a = calls[r]
+                t0 = time.perf_counter()
+                _materialize(f(*a))
+                t1 = time.perf_counter()
+                rows.append((1.0, (t0 + t1) / 2.0 - t_base, float(r)))
+                durs.append(t1 - t0)
+            coef, *_ = np.linalg.lstsq(np.array(rows), np.array(durs),
+                                       rcond=None)
+            if coef[2] > 0:
+                ests.append(float(coef[2]))
+    obs_metrics.inc("bench.slope_samples_valid", len(ests))
+    if len(ests) < min_valid:
+        raise RuntimeError(
+            f"only {len(ests)} valid slope samples after {3 * samples} "
+            "attempts (stalls corrupted the rest)")
+    return statistics.median(ests)
+
+
+# ------------------------------------------------------------------ #
+# the chains: one function per metric, shared by the timed path and   #
+# the parity tests                                                     #
+# ------------------------------------------------------------------ #
+
+def chain_sgemm_gflops(ops, R):
+    """``c <- sgemm(1, a, b, 0.5, c)`` R times (stable: c -> 2·A@B)."""
+    from tpukernels_torch.kernels.sgemm import sgemm
+
+    a, b, c = ops
+    for _ in range(R):
+        c = sgemm(1.0, a, b, 0.5, c)
+    return c
+
+
+def chain_saxpy_gb_s(ops, R):
+    """``y <- saxpy(1e-3, x, y)`` R times."""
+    from tpukernels_torch.kernels.vector_add import saxpy
+
+    x, y = ops
+    for _ in range(R):
+        y = saxpy(1e-3, x, y)
+    return y
+
+
+chain_saxpy_stream_gb_s = chain_saxpy_gb_s
+
+
+def chain_scan_hist_melem_s(ops, R):
+    """R rounds of ``s, h = scan_histogram(xc, 256)``; ``acc = (acc +
+    s[-1] + h[0]) & 1``; ``xc <- xc ^ acc``: the parity of a
+    data-dependent sum chains each round on the last and keeps the
+    values in [0, 256). Returns ``(xc, acc)``."""
+    import torch
+
+    from tpukernels_torch.kernels.scan_histogram import scan_histogram
+
+    (x,) = ops
+    xc, acc = x, torch.zeros((), dtype=torch.int32, device=x.device)
+    for _ in range(R):
+        s, h = scan_histogram(xc, 256)
+        acc = (acc + s[-1] + h[0]) & 1
+        xc = xc ^ acc
+    return xc, acc
+
+
+def chain_nbody_ginter_s(ops, R):
+    """``nbody_step(..., steps=R)``: R is the kernel's own step count."""
+    from tpukernels_torch.kernels.nbody import nbody_step
+
+    return nbody_step(*ops, steps=R)
+
+
+def chain_stencil2d_mcells_s(ops, R):
+    """``jacobi2d(x, R)``: R is the kernel's own sweep count."""
+    from tpukernels_torch.kernels.stencil import jacobi2d
+
+    (x,) = ops
+    return jacobi2d(x, R)
+
+
+def chain_stencil3d_mcells_s(ops, R):
+    """``jacobi3d(x, R)``: R is the kernel's own sweep count."""
+    from tpukernels_torch.kernels.stencil import jacobi3d
+
+    (x,) = ops
+    return jacobi3d(x, R)
+
+
+# the scalar each chain reduces to, as the reference's jnp.sum(...)
+def _sum_all(out):
+    return out.sum()
+
+
+def _sum_first(out):
+    return out[:1].sum()
+
+
+def _scan_hist_scalar(out):
+    xc, acc = out
+    return xc[:1].sum() + acc
+
+
+def _nbody_scalar(out):
+    return out[0].sum()
+
+
+def _graphed(chain, ops, R, scalar):
+    """``(fn, ())``: ``fn()`` replays the R calls of ``chain`` captured
+    once into a CUDA graph and returns its scalar. The wrappers run once
+    on a side stream first (libraries loaded, allocator warm, each
+    stream's scratch made), then are captured on that stream. On the CPU
+    (smoke) there is no graph: ``fn`` runs the chain."""
+    import torch
+
+    dev = ops[0].device
+    if dev.type != "cuda":
+        return (lambda: scalar(chain(ops, R))), ()
+    stream = torch.cuda.Stream(device=dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        scalar(chain(ops, 1))
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, stream=stream):
+        out = scalar(chain(ops, R))
+    t1 = time.perf_counter()
+    if hasattr(graph, "instantiate"):
+        graph.instantiate()
+    t2 = time.perf_counter()
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+    cap = {"R": R, "capture_s": round(t1 - t0, 4),
+           "instantiate_s": round(t2 - t1, 4), "pool_peak_mib": round(peak, 1)}
+    LAST.setdefault("capture", []).append(cap)
+    print(f"# graph R={R}: capture {cap['capture_s']} s, instantiate "
+          f"{cap['instantiate_s']} s, pool peak {cap['pool_peak_mib']} MiB",
+          file=sys.stderr, flush=True)
+
+    def replay():
+        graph.replay()
+        return out
+
+    return replay, ()
+
+
+def _replay_matches_host(replay, chain, ops, R, scalar):
+    """Raise unless one replay of the graph gives, bit for bit, the scalar
+    of the same R calls issued from the host: the same kernels in the same
+    order on the same operands. A capture that recorded too little, or a
+    replay that left its output stale, would time less work than the
+    chain, so its rate would come out too high."""
+    got = _materialize(replay())
+    want = _materialize(scalar(chain(ops, R)))
+    if got.dtype != want.dtype or got.tobytes() != want.tobytes():
+        raise RuntimeError(f"graph replay of R={R} gave {got!r}, the "
+                           f"host-issued chain {want!r}: the graph does not "
+                           "compute the chain")
+
+
+def _run_chained(label, work, chain, ops, scalar, r_small, r_big, ensure):
+    """The metric ``work / slope`` of the graphed chain, and its
+    host-issued twin in :data:`LAST`."""
+    LAST.clear()
+    LAST["timing"] = "graph" if ops[0].device.type == "cuda" else "call"
+
+    def make(R):
+        fn, a = _graphed(chain, ops, R, scalar)
+        if LAST["timing"] == "graph":
+            _replay_matches_host(fn, chain, ops, R, scalar)
+        return fn, a
+
+    def make_host(R):
+        return (lambda: scalar(chain(ops, R))), ()
+
+    value = work / _slope(make, r_small, r_big, ensure=ensure, label=label)
+    LAST["host"] = work / _slope(make_host, r_small, r_big, label=label)
+    return value
+
+
+def _run_call(label, work, chain, ops, scalar, r_small, r_big, ensure):
+    """The metric ``work / slope`` of a chain whose R is the kernel's own
+    count: one wrapper call a timed call, so the host-issued rate is the
+    same measurement."""
+    LAST.clear()
+    LAST["timing"] = "call"
+
+    def make(R):
+        return (lambda: scalar(chain(ops, R))), ()
+
+    value = LAST["host"] = work / _slope(make, r_small, r_big, ensure=ensure,
+                                         label=label)
+    return value
+
+
+def _host_operands(device, *arrays, dtype=None):
+    import torch
+
+    return tuple(torch.as_tensor(a, dtype=dtype).to(device) for a in arrays)
+
+
+def _device_normal(seed, shape, device):
+    """A standard-normal operand drawn on ``device`` from a generator
+    seeded with ``seed``. The values do not matter for timing (no golden
+    check here), only the shape and dtype; drawing them where they live
+    saves a host copy of hundreds of MB."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32)
+
+
+# ------------------------------------------------------------------ #
+# the seven metrics: the reference's sizes, seeds, chains and repeats  #
+# ------------------------------------------------------------------ #
+
+def bench_sgemm(m=1024, device=None):
+    import torch
+
+    from tpukernels_torch.kernels.sgemm import sgemm
+
+    dev = _device(device)
+    rng = np.random.default_rng(0)
+    ops = _host_operands(dev, *(rng.standard_normal((m, m))
+                                for _ in range(3)), dtype=torch.float32)
+    a, b, c = ops
+    return _run_chained(
+        "bench_sgemm", 2.0 * m**3 / 1e9, chain_sgemm_gflops, ops, _sum_all,
+        50, 750, lambda: aot.run_cached("sgemm", sgemm, (1.0, a, b, 0.5, c)))
+
+
+def bench_saxpy(n=1 << 20, device=None):
+    import torch
+
+    from tpukernels_torch.kernels.vector_add import saxpy
+
+    dev = _device(device)
+    rng = np.random.default_rng(4)
+    ops = _host_operands(dev, rng.standard_normal(n), rng.standard_normal(n),
+                         dtype=torch.float32)
+    x, y = ops
+    # ~3 us a call on the device: a large R delta keeps the marginal
+    # signal above the jitter of a call's fixed cost
+    return _run_chained(
+        "bench_saxpy", 3.0 * 4.0 * n / 1e9, chain_saxpy_gb_s, ops, _sum_first,
+        1000, 21000, lambda: aot.run_cached("vector_add", saxpy,
+                                            (1e-3, x, y)))
+
+
+def bench_scan_hist(n=1 << 22, device=None):
+    # the combined wrapper resolves TPKT_SCANHIST_FUSE (off: scan then
+    # histogram; on: the fused one-read pass), so a sweep of the fuse
+    # knob measures through this metric
+    import torch
+
+    from tpukernels_torch.kernels.scan_histogram import scan_histogram
+
+    dev = _device(device)
+    rng = np.random.default_rng(3)
+    ops = _host_operands(dev, rng.integers(0, 256, n), dtype=torch.int32)
+    return _run_chained(
+        "bench_scan_hist", float(n) / 1e6, chain_scan_hist_melem_s, ops,
+        _scan_hist_scalar, 2, 22,
+        lambda: aot.run_cached("scan_histogram", scan_histogram, ops,
+                               {"nbins": 256}))
+
+
+def bench_nbody(n=65536, device=None):
+    import torch
+
+    from tpukernels_torch.kernels.nbody import nbody_step
+
+    dev = _device(device)
+    rng = np.random.default_rng(2)
+    arrays = [rng.standard_normal(n) for _ in range(6)]
+    arrays.append(rng.uniform(0.5, 1.5, n))
+    ops = _host_operands(dev, *arrays, dtype=torch.float32)
+    return _run_call(
+        "bench_nbody", float(n) * n / 1e9, chain_nbody_ginter_s, ops,
+        _nbody_scalar, 1, 6,
+        lambda: aot.run_cached("nbody", nbody_step, ops, {"steps": 1}))
+
+
+def bench_stencil(n=4096, device=None):
+    from tpukernels_torch.kernels.stencil import jacobi2d
+
+    dev = _device(device)
+    ops = (_device_normal(1, (n, n), dev),)
+    return _run_call(
+        "bench_stencil", float(n) * n / 1e6, chain_stencil2d_mcells_s, ops,
+        _sum_all, 20, 320,
+        lambda: aot.run_cached("stencil2d", jacobi2d, ops, {"iters": 20}))
+
+
+def bench_saxpy_stream(n=1 << 26, device=None):
+    """Streaming SAXPY: 512 MiB of operands, ten times the L2, so this
+    measures the device memory's rate, unlike bench_saxpy's L2-resident
+    2^20."""
+    from tpukernels_torch.kernels.vector_add import saxpy
+
+    dev = _device(device)
+    ops = (_device_normal(5, (n,), dev), _device_normal(50, (n,), dev))
+    x, y = ops
+    return _run_chained(
+        "bench_saxpy_stream", 3.0 * 4.0 * n / 1e9, chain_saxpy_stream_gb_s,
+        ops, _sum_first, 10, 110,
+        lambda: aot.run_cached("vector_add", saxpy, (1e-3, x, y)))
+
+
+def bench_stencil3d(n=384, device=None):
+    from tpukernels_torch.kernels.stencil import jacobi3d
+
+    dev = _device(device)
+    ops = (_device_normal(6, (n, n, n), dev),)
+    return _run_call(
+        "bench_stencil3d", float(n) ** 3 / 1e6, chain_stencil3d_mcells_s,
+        ops, _sum_all, 8, 64,
+        lambda: aot.run_cached("stencil3d", jacobi3d, ops, {"iters": 8}))
+
+
+# the metric surface, in capture order: the headline first, the 3-D
+# stencil (the largest operands) last
+BENCH_METRICS = (
+    ("sgemm_gflops", bench_sgemm),
+    ("saxpy_gb_s", bench_saxpy),
+    ("scan_hist_melem_s", bench_scan_hist),
+    ("nbody_ginter_s", bench_nbody),
+    ("stencil2d_mcells_s", bench_stencil),
+    ("saxpy_stream_gb_s", bench_saxpy_stream),
+    ("stencil3d_mcells_s", bench_stencil3d),
+)
+# metrics whose operands stay in the 50 MB L2 across the chain: their
+# rate may pass the device memory's, so they get no ceiling
+L2_RESIDENT = ("saxpy_gb_s",)
+
+
+def ceilings(precision=None) -> dict:
+    """Each metric's ceiling on the H100: its work over the least time of
+    one iteration, the larger of the bytes it must move over 3.35 TB/s
+    and its operations over the peak rate of their type (bf16 989 TFLOP/s,
+    fp32 67, int32 half of fp32). SGEMM 1024^3 counts the bf16 products
+    of ``precision`` (``TPKT_SGEMM_PRECISION``, default ``high``: 3);
+    scan + histogram 2^22 reads x and writes the scan and the next x, 12
+    B an element; N-body 20 flops a pair; the stencils take the bound of
+    the call of record (2-D 4096^2 x 1000 sweeps, 3-D 384^3 x 8) a sweep;
+    SAXPY 2^26 12 B an element. ``saxpy_gb_s`` (2^20, L2-resident) has
+    none."""
+    if precision is None:
+        precision = os.environ.get("TPKT_SGEMM_PRECISION") or "high"
+    products = _PRODUCTS.get(precision, 1)
+
+    def bound(nbytes, ops, rate):
+        return max(nbytes / _BW, ops / rate)
+
+    m, n2, n3, nb, ns, nh = 1024, 4096, 384, 65536, 1 << 26, 1 << 22
+    t = {
+        "sgemm_gflops": (2.0 * m**3 / 1e9,
+                         bound(16 * m * m, products * 2 * m**3, _BF16)),
+        "scan_hist_melem_s": (nh / 1e6, bound(12 * nh, 3 * nh, _INT32)),
+        "nbody_ginter_s": (nb * nb / 1e9,
+                           bound(4 * 13 * nb, 20 * nb * nb, _FP32)),
+        "stencil2d_mcells_s": (n2 * n2 / 1e6, bound(
+            8 * n2 * n2, 5 * (n2 - 2) ** 2 * 1000, _FP32) / 1000),
+        "saxpy_stream_gb_s": (12 * ns / 1e9, bound(12 * ns, 2 * ns, _FP32)),
+        "stencil3d_mcells_s": (n3**3 / 1e6, bound(
+            8 * n3**3, 6 * (n3 - 2) ** 3 * 8, _FP32) / 8),
+    }
+    return {k: round(work / secs, 1) for k, (work, secs) in t.items()}
+
+
+# ------------------------------------------------------------------ #
+# the suite                                                           #
+# ------------------------------------------------------------------ #
+
+_PROBE_CODE = (
+    "import torch\n"
+    "ok = torch.cuda.is_available()\n"
+    "print('cuda=' + str(ok))\n"
+    "if ok:\n"
+    "    x = torch.ones(1024, device='cuda')\n"
+    "    print('platform=cuda', float((x * 2).sum()))\n"
+)
+
+
+def _card_alive(timeout_s=180, attempts=6, retry_wait_s=120):
+    """Whether the card answers, asked in a child with a hard kill (a
+    call hung in the driver cannot be interrupted in process): it makes
+    a CUDA context and runs one small kernel. A clean answer with no card
+    is final; a hang or an error is retried ``attempts`` times
+    (``TPKT_BENCH_PROBE_ATTEMPTS``), ``retry_wait_s`` apart
+    (``TPKT_BENCH_PROBE_WAIT_S``)."""
+    cap = os.environ.get("TPKT_BENCH_PROBE_ATTEMPTS")
+    if cap is not None:
+        try:
+            attempts = int(cap)
+        except ValueError:
+            attempts = 0
+        if attempts <= 0:
+            raise ValueError(f"TPKT_BENCH_PROBE_ATTEMPTS={cap!r}: expected a "
+                             "positive integer")
+    wait = os.environ.get("TPKT_BENCH_PROBE_WAIT_S")
+    if wait is not None:
+        retry_wait_s = float(wait)
+
+    def probe_once(attempt):
+        forced = faults.probe_outcome()
+        if forced is not None:
+            journal.emit("probe", attempt=attempt, outcome=forced,
+                         injected=True)
+            return "alive" if forced == "ok" else "retry"
+        try:
+            r = subprocess.run([sys.executable, "-c", _PROBE_CODE],
+                               timeout=timeout_s, capture_output=True,
+                               text=True)
+        except subprocess.TimeoutExpired:
+            journal.emit("probe", attempt=attempt, outcome="hang")
+            return "retry"
+        if r.returncode == 0 and "platform=cuda" in r.stdout:
+            journal.emit("probe", attempt=attempt, outcome="alive")
+            return "alive"
+        if r.returncode == 0 and "cuda=False" in r.stdout:
+            print("# no CUDA device on this host", file=sys.stderr)
+            journal.emit("probe", attempt=attempt, outcome="no_card")
+            return "dead"
+        journal.emit("probe", attempt=attempt, outcome="error",
+                     returncode=r.returncode)
+        return "retry"
+
+    return watchdog.patient_probe(probe_once, attempts, retry_wait_s,
+                                  label="card liveness probe")
+
+
+def _card_identity() -> dict:
+    """The card's name and power limit as ``nvidia-smi`` prints them
+    (None each where it cannot say); asks no CUDA context."""
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=30)
+        line = r.stdout.strip().splitlines()[0] if r.returncode == 0 else ""
+    except (OSError, subprocess.SubprocessError, IndexError):
+        line = ""
+    name, _, limit = line.partition(",")
+    try:
+        watts = float(limit.strip().split()[0])
+    except (ValueError, IndexError):
+        watts = None
+    return {"name": name.strip() or None, "power_limit_w": watts,
+            "nvidia_smi": line or None}
+
+
+def _one_argv(name):
+    return [sys.executable, "-m", "tpukernels_torch.bench", "--one", name]
+
+
+def _run_one_subprocess(name: str, timeout_s: float):
+    """One metric as a ``--one`` child under the watchdog's hard kill:
+    ``(record, status)``, the child's parsed line (None unless ``ok``)
+    and ``ok``, ``timeout``, ``error`` (a nonzero exit) or ``parse``.
+    A value that is not a positive number is ``parse``. The child's
+    stderr passes through to this process's."""
+    r, status = watchdog.kill_after(_one_argv(name), timeout_s,
+                                    site=f"bench --one {name}",
+                                    stdout=subprocess.PIPE, text=True)
+    if status == "timeout":
+        return None, "timeout"
+    if r.returncode != 0:
+        return None, "error"
+    try:
+        rec = json.loads(r.stdout.strip().splitlines()[-1])
+        if not float(rec["value"]) > 0:
+            # a rate is positive: a metric with none is null, never 0
+            return None, "parse"
+        return rec, "ok"
+    except (ValueError, KeyError, IndexError, TypeError):
+        return None, "parse"
+
+
+def _line(details, reasons, extra=None) -> dict:
+    headline = details.get("sgemm_gflops")
+    line = {
+        "metric": "sgemm_gflops_per_chip",
+        "value": headline,
+        "unit": "GFLOPS",
+        # no H100 baseline exists: null, never a placeholder ratio
+        "vs_baseline": None,
+        "details": details,
+        "device": "h100",
+        **_card_identity(),
+        "git_head": journal.git_head(),
+        "ceilings": ceilings(),
+        "l2_resident": list(L2_RESIDENT),
+    }
+    if reasons:
+        line["reasons"] = reasons
+    line.update(extra or {})
+    return line
+
+
+def main():
+    t0 = time.monotonic()
+    deadline_s = float(os.environ.get("TPKT_BENCH_DEADLINE_S", "4800"))
+    journal.emit("run_start", mode="suite", deadline_s=deadline_s,
+                 fault_plan_active=faults.active())
+    obs_scaling.emit_inventory("bench")
+    metrics = list(BENCH_METRICS)
+    only = os.environ.get("TPKT_BENCH_ONLY")
+    if only:
+        want = [n.strip() for n in only.split(",") if n.strip()]
+        unknown = [n for n in want if n not in dict(BENCH_METRICS)]
+        if unknown:
+            raise ValueError(
+                f"TPKT_BENCH_ONLY names unknown metrics {unknown}; known: "
+                + ", ".join(n for n, _f in BENCH_METRICS))
+        metrics = [(n, f) for n, f in metrics if n in want]
+        journal.emit("metrics_restricted", only=want)
+    with trace.span("probe/liveness"):
+        alive = _card_alive()
+    if not alive:
+        reason = "card unreachable (the liveness probe got no answer)"
+        journal.emit("run_end", outcome="unreachable", reason=reason)
+        details = {}
+        for n, _f in metrics:
+            details[n] = details[f"{n}_host"] = None
+        print(json.dumps(_line(details, {n: reason for n in details},
+                               {"error": reason})))
+        return
+    deadline = t0 + deadline_s
+    lim = ceilings()
+    details, reasons, invalidated, timing, captures = {}, {}, {}, {}, {}
+    wedged = False
+    for name, _fn in metrics:
+        remaining = deadline - time.monotonic()
+        if wedged or remaining < _DEADLINE_FLOOR_S:
+            if not wedged:
+                print(f"# whole-run deadline reached before {name} - "
+                      "emitting partial results", file=sys.stderr)
+                journal.emit("deadline_reached", before_metric=name,
+                             remaining_s=round(remaining, 1))
+                wedged = True
+            details[name] = details[f"{name}_host"] = None
+            reasons[name] = "skipped (wedged or deadline)"
+            journal.emit("partial_result", metric=name,
+                         reason=reasons[name])
+            continue
+        with trace.span(f"suite/{name}", metric=name):
+            rec, status = _run_one_subprocess(
+                name, min(_BENCH_TIMEOUT_S + _CHILD_GRACE_S,
+                          remaining - _CHILD_GRACE_S))
+        rec = rec or {}
+        value, host = rec.get("value"), rec.get("host")
+        obs_metrics.inc("bench.metric_ok" if value is not None
+                        else "bench.metric_failed")
+        ceiling = lim.get(name)
+        for key, v in ((name, value), (f"{name}_host", host)):
+            if v is not None and ceiling is not None and \
+                    v > ceiling * (1.0 + _CEILING_EPS):
+                print(f"# {key}: {v} exceeds the ceiling {ceiling} "
+                      f"(+{_CEILING_EPS:.0%}) - invalidated",
+                      file=sys.stderr)
+                journal.emit("invalidated", metric=key, value=v,
+                             ceiling=ceiling, epsilon=_CEILING_EPS)
+                invalidated[key] = [v, f"exceeds ceiling {ceiling}"]
+                reasons[key] = f"invalidated: exceeds ceiling {ceiling}"
+                if key == name:
+                    value = None
+                else:
+                    host = None
+        details[name], details[f"{name}_host"] = value, host
+        if "timing" in rec:
+            timing[name] = rec["timing"]
+        if rec.get("capture"):
+            captures[name] = rec["capture"]
+        if value is not None:
+            print(f"# {name}: {value} (host-issued {host})", file=sys.stderr)
+        else:
+            reasons.setdefault(name, status)
+            print(f"# {name} FAILED ({reasons[name]})", file=sys.stderr)
+            journal.emit("metric_failed", metric=name, status=status)
+        sys.stderr.flush()
+        if status == "timeout":
+            verdict = watchdog.classify_timeout(
+                _card_alive(timeout_s=90, attempts=1), metric=name)
+            if verdict == "wedged":
+                print("# card wedged mid-bench - emitting partial results",
+                      file=sys.stderr)
+                wedged = True
+    extra = {"timing": timing, "captures": captures}
+    if invalidated:
+        extra["invalidated"] = invalidated
+    failed = [n for n, _f in metrics if details.get(n) is None]
+    journal.emit("run_end", outcome="wedged_partial" if wedged
+                 else "complete",
+                 measured=sorted(n for n, _f in metrics
+                                 if details.get(n) is not None),
+                 failed=failed, invalidated=sorted(invalidated))
+    print(json.dumps(_line(details, reasons, extra)))
+
+
+def _refuse(mode, name, msg):
+    print(f"{mode} {name}: {msg} - refusing to run", file=sys.stderr)
+    sys.exit(2)
+
+
+def cli(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    device = None
+    if "--device" in argv:
+        i = argv.index("--device")
+        if i + 1 >= len(argv) or argv[i + 1] not in ("cuda", "cpu"):
+            print("usage: --device cuda|cpu", file=sys.stderr)
+            sys.exit(2)
+        device = argv[i + 1]
+        del argv[i:i + 2]
+    if os.environ.get("TPKT_HEALTH_JOURNAL") is None:
+        # one dated journal beside the AOT manifest, shared with the
+        # children through the environment (TPKT_HEALTH_JOURNAL=0: off)
+        d = os.path.dirname(aot.manifest_path())
+        os.makedirs(d, exist_ok=True)
+        os.environ["TPKT_HEALTH_JOURNAL"] = d
+    mode = argv[0] if argv else None
+    if mode not in (None, "--one", "--prewarm") or (mode is None and
+                                                    device == "cpu"):
+        print("usage: python -m tpukernels_torch.bench [--one|--prewarm "
+              "METRIC [--device cpu]]", file=sys.stderr)
+        sys.exit(2)
+    if mode is None:
+        main()
+        return
+    if len(argv) < 2 or argv[1] not in dict(BENCH_METRICS):
+        print(f"usage: python -m tpukernels_torch.bench {mode} <metric>; "
+              "metrics: " + ", ".join(n for n, _f in BENCH_METRICS),
+              file=sys.stderr)
+        sys.exit(2)
+    name = argv[1]
+    import torch
+
+    if device == "cpu":
+        # the CPU's plain versions time nothing meaningful: smoke only
+        if not _smoke():
+            _refuse(mode, name, "--device cpu needs TPKT_BENCH_SMOKE=1")
+    elif not torch.cuda.is_available():
+        _refuse(mode, name, "no CUDA device")
+    faults.enter_metric(name)
+    fn = functools.partial(dict(BENCH_METRICS)[name], device=device)
+    if mode == "--prewarm":
+        global _PREWARM
+        _PREWARM = True
+        print(f"# prewarm: {name} starting", file=sys.stderr, flush=True)
+        fn()
+        print(f"# prewarm: {name} done (built, planned, warm)",
+              file=sys.stderr, flush=True)
+        sys.exit(0)
+    print(f"# one: {name} starting", file=sys.stderr, flush=True)
+    obs_scaling.emit_inventory("bench:one", probe=True, device=device)
+    obs_metrics.inc(f"bench.measure.{name}")
+    with trace.span(f"measure/{name}"):
+        value = round(_with_timeout(fn), 2)
+    rec = {"name": name, "value": value,
+           "host": round(LAST.get("host", value), 2),
+           "timing": LAST.get("timing"), "capture": LAST.get("capture", [])}
+    if _smoke():
+        rec["smoke"] = True  # collapsed repeats, no timing: meaningless
+    print(json.dumps(rec))
+    sys.exit(0)
+
+
+if __name__ == "__main__":
+    cli()

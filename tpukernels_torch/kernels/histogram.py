@@ -34,6 +34,7 @@ from tpukernels_torch.utils import cdiv
 
 TUNABLES = SearchSpace(
     kernel="histogram",
+    metric="scan_hist_melem_s",
     bench_shape=(1 << 22, 256),
     bench_dtype="int32",
     sources=("tpukernels_torch/kernels/histogram.py",

@@ -35,6 +35,7 @@ from tpukernels_torch.tuning import SearchSpace, Tunable, resolve
 
 TUNABLES = SearchSpace(
     kernel="nbody",
+    metric="nbody_ginter_s",
     bench_shape=(1 << 16,),
     bench_dtype="float32",
     sources=("tpukernels_torch/kernels/nbody.py",
@@ -42,11 +43,13 @@ TUNABLES = SearchSpace(
     tunables=(
         # i-bodies per block, a multiple of 32 up to 1024: at 65 536
         # bodies 256 gives 256 blocks, about two per SM
-        Tunable("bi", env="TPKT_NBODY_BI", default=256),
+        Tunable("bi", env="TPKT_NBODY_BI", default=256,
+                values=(128, 256, 512)),
         # j-bodies per shared-memory tile for the whole block, 1..3072
         # (16 bytes each), bj / S a group: 2048 the fastest of
-        # chip_smoke.py's sweep (512, 1024, 2048)
-        Tunable("bj", env="TPKT_NBODY_BJ", default=2048),
+        # chip_smoke.py's sweep (512, 1024, 2048), the sweep values
+        Tunable("bj", env="TPKT_NBODY_BJ", default=2048,
+                values=(512, 1024, 2048)),
     ),
 )
 

@@ -39,6 +39,7 @@ from tpukernels_torch.utils import cdiv
 TILES = (1024, 2048, 4096, 8192, 16384)
 TUNABLES = SearchSpace(
     kernel="scan",
+    metric="scan_hist_melem_s",
     bench_shape=(1 << 22,),
     bench_dtype="int32",
     sources=("tpukernels_torch/kernels/scan.py",

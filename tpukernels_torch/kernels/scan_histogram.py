@@ -33,6 +33,7 @@ from tpukernels_torch.tuning import (SearchSpace, Tunable, plan_memo,
 
 TUNABLES = SearchSpace(
     kernel="scan_histogram",
+    metric="scan_hist_melem_s",
     bench_shape=(1 << 22, 256),
     bench_dtype="int32",
     sources=("tpukernels_torch/kernels/scan_histogram.py",

@@ -124,6 +124,7 @@ def _smem_bytes(params, shape=None, precision="high"):
 
 TUNABLES = SearchSpace(
     kernel="sgemm",
+    metric="sgemm_gflops",
     bench_shape=(1024, 1024, 1024),
     bench_dtype="float32",
     sources=("tpukernels_torch/kernels/sgemm.py",

@@ -49,22 +49,29 @@ RING_MAX = 3  # plane slots of jacobi3d.cu's ring, the reference's most depth
 TUNABLES = (
     SearchSpace(
         kernel="stencil2d",
+        metric="stencil2d_mcells_s",
         bench_shape=(4096, 4096),
         bench_dtype="float32",
         sources=("tpukernels_torch/kernels/stencil.py",
                  "tpukernels_torch/csrc/jacobi2d.cu"),
-        tunables=(Tunable("k", env="TPKT_STENCIL_K", default=8),),
+        # the sweep values: every fusion depth the kernel takes
+        tunables=(Tunable("k", env="TPKT_STENCIL_K", default=8,
+                          values=tuple(range(1, HALO_MAX + 1))),),
     ),
     SearchSpace(
         kernel="stencil3d",
+        metric="stencil3d_mcells_s",
         bench_shape=(384, 384, 384),
         bench_dtype="float32",
         sources=("tpukernels_torch/kernels/stencil.py",
                  "tpukernels_torch/csrc/jacobi3d.cu"),
         # the fastest k and depth at 384^3 on the H100 (chip_smoke.py's
-        # per_k_ms and per_depth_ms)
-        tunables=(Tunable("k", env="TPKT_STENCIL_K", default=4),
-                  Tunable("depth", env="TPKT_STENCIL_DEPTH", default=3)),
+        # per_k_ms and per_depth_ms); the sweep values: every fusion
+        # depth and ring depth the kernel takes
+        tunables=(Tunable("k", env="TPKT_STENCIL_K", default=4,
+                          values=tuple(range(1, HALO3D_MAX + 1))),
+                  Tunable("depth", env="TPKT_STENCIL_DEPTH", default=3,
+                          values=tuple(range(1, RING_MAX + 1)))),
     ),
 )
 _MOST_K = {2: HALO_MAX, 3: HALO3D_MAX}

@@ -30,6 +30,7 @@ from tpukernels_torch.utils import cdiv
 
 TUNABLES = SearchSpace(
     kernel="vector_add",
+    metric="saxpy_gb_s",
     bench_shape=(1 << 20,),
     bench_dtype="float32",
     sources=("tpukernels_torch/kernels/vector_add.py",

@@ -164,8 +164,8 @@ def untagged_traced_callsites(repo=_REPO, traced=None):
 
 
 def _spec_loop_keys(tree) -> set:
-    """Keys that reach ``_spec(name, ...)`` through ``for ... in
-    <literal tuple>`` loops whose target binds ``name``."""
+    """Keys that reach ``_spec(name, ...)`` or ``_PLAN.get(name)`` through
+    ``for ... in <literal tuple>`` loops whose target binds ``name``."""
     keys = set()
     for loop in ast.walk(tree):
         if not (isinstance(loop, ast.For)
@@ -174,10 +174,13 @@ def _spec_loop_keys(tree) -> set:
         names = ([loop.target] if isinstance(loop.target, ast.Name)
                  else list(getattr(loop.target, "elts", [])))
         for call in ast.walk(loop):
-            if not (isinstance(call, ast.Call)
-                    and isinstance(call.func, ast.Name)
-                    and call.func.id == "_spec" and call.args
-                    and isinstance(call.args[0], ast.Name)):
+            f = getattr(call, "func", None)
+            if not (isinstance(call, ast.Call) and call.args
+                    and isinstance(call.args[0], ast.Name)
+                    and ((isinstance(f, ast.Name) and f.id == "_spec")
+                         or (isinstance(f, ast.Attribute) and f.attr == "get"
+                             and isinstance(f.value, ast.Name)
+                             and f.value.id == "_PLAN"))):
                 continue
             pos = [i for i, n in enumerate(names)
                    if isinstance(n, ast.Name) and n.id == call.args[0].id]

@@ -3,6 +3,7 @@ record ahead of traffic.
 
     python -m tpukernels_torch.prewarm [--kernels a,b] [--check]
         [--device cuda|cpu] [--order registry|traffic]
+        [--bench METRICS|all] [--timeout-s S]
 
 The counterpart of ``tools/prewarm.py``. For each registry key (or the
 ``--kernels`` named) it runs ``aot.precompile`` at the key's
@@ -22,6 +23,16 @@ spill in a library whose design keeps its state in registers
 warning is reported. ``--check`` prints only failures, the traffic order
 and the summary.
 
+``--bench all`` (or a comma-separated list of the bench's metrics) also
+warms the bench's chains: one ``python -m tpukernels_torch.bench
+--prewarm <metric>`` child a metric under the watchdog's hard kill
+(``--timeout-s``, default 900), which builds the metric's operands, runs
+its key through the compile discipline, builds and warms both repeat
+counts (the CUDA graphs included) and exits without timing and without a
+stdout line; each journals a ``prewarm_kernel`` row with ``mode:
+bench``. With ``--device cpu`` a child runs the CPU's plain versions,
+which only ``TPKT_BENCH_SMOKE=1`` allows (collapsed repeat counts).
+
 ``--order traffic`` warms the keys in the order traffic hits them: ranked
 by the journal's ``serve_request`` count (``serve/adapt.traffic_order``),
 the keys no request named after them in registry order, so a prewarm cut
@@ -29,7 +40,8 @@ short still warmed what is served most. With no ``serve_request`` in the
 journal it says so on stderr and keeps registry order.
 
 Exit codes (the reference's): 0 every key asked for is built and
-trusted; 1 a key failed (a build, a plan, a spill or its canary), or the
+trusted; 1 a key failed (a build, a plan, a spill or its canary) or a
+bench metric did (its child's rc or its kill), or the
 layer is off (``TPKT_AOT_CACHE=0``: a prewarm that builds nothing never
 reports success); 2 a usage error (an unknown flag or key, or no card
 without ``--device cpu``).
@@ -42,8 +54,27 @@ import os
 import sys
 import time
 
-from tpukernels_torch import aot
-from tpukernels_torch.resilience import journal
+from tpukernels_torch import _cachedir, aot
+from tpukernels_torch.resilience import journal, watchdog
+
+
+def _prewarm_bench_metric(metric: str, timeout_s: float, device=None):
+    """One ``bench --prewarm <metric>`` child under the watchdog's hard
+    kill: ``(status, wall_s)``, status ok, timeout or error."""
+    import subprocess
+
+    argv = [sys.executable, "-m", "tpukernels_torch.bench", "--prewarm",
+            metric]
+    if device is not None and device.type == "cpu":
+        argv += ["--device", "cpu"]
+    t0 = time.monotonic()
+    r, status = watchdog.kill_after(argv, timeout_s,
+                                    site=f"prewarm --prewarm {metric}",
+                                    cwd=_cachedir._REPO,
+                                    stdout=subprocess.DEVNULL)
+    if status == "ok" and r.returncode != 0:
+        status = "error"
+    return status, round(time.monotonic() - t0, 3)
 
 
 def _libraries(names, failures: list, echo) -> dict:
@@ -82,6 +113,11 @@ def main(argv=None) -> int:
                     default="registry",
                     help="registry order, or hottest first by the "
                          "journal's serve_request count")
+    ap.add_argument("--bench", default="",
+                    help="also warm these bench metrics' chains "
+                         "(comma-separated, or all)")
+    ap.add_argument("--timeout-s", type=float, default=900.0,
+                    help="each bench --prewarm child's hard kill")
     try:
         args = ap.parse_args(argv)
     except SystemExit as e:
@@ -108,6 +144,17 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"prewarm: {e}", file=sys.stderr)
         return 2
+    from tpukernels_torch.bench import BENCH_METRICS
+
+    metric_names = [n for n, _f in BENCH_METRICS]
+    bench_metrics = [m.strip() for m in args.bench.split(",") if m.strip()]
+    if bench_metrics == ["all"]:
+        bench_metrics = metric_names
+    unknown = [m for m in bench_metrics if m not in metric_names]
+    if unknown:
+        print(f"prewarm: unknown bench metric(s) {unknown}; known: "
+              f"{metric_names}", file=sys.stderr)
+        return 2
     if os.environ.get("TPKT_HEALTH_JOURNAL") is None:
         d = os.path.dirname(aot.manifest_path())
         os.makedirs(d, exist_ok=True)
@@ -127,8 +174,11 @@ def main(argv=None) -> int:
                   file=sys.stderr)
 
     echo = (lambda line: None) if args.check else print
-    journal.emit("prewarm_start", kernels=kernels, device=str(device))
-    echo(f"prewarm: {len(kernels)} configuration(s) of record on {device}")
+    journal.emit("prewarm_start", kernels=kernels, metrics=bench_metrics,
+                 device=str(device))
+    echo(f"prewarm: {len(kernels)} configuration(s) of record on {device}"
+         + (f" + {len(bench_metrics)} bench metric(s)" if bench_metrics
+            else ""))
     t0 = time.monotonic()
     failed = []
     for name in kernels:
@@ -151,11 +201,22 @@ def main(argv=None) -> int:
                                             "build_s", "load_s", "plan_s")
                         if k in row},
                      libraries=libs)
+    for metric in bench_metrics:
+        status, wall = _prewarm_bench_metric(metric, args.timeout_s, device)
+        if status != "ok":
+            failed.append(metric)
+            print(f"prewarm: bench metric {metric} FAILED ({status})",
+                  file=sys.stderr)
+        else:
+            echo(f"  {metric:<22} chains built and warm wall={wall:.1f}s")
+        journal.emit("prewarm_kernel", kernel=metric, mode="bench",
+                     status=status, wall_s=wall)
     total = round(time.monotonic() - t0, 3)
-    journal.emit("prewarm_end", warmed=len(kernels) - len(failed),
+    asked = len(kernels) + len(bench_metrics)
+    journal.emit("prewarm_end", warmed=asked - len(failed),
                  failed=failed, total_wall_s=total)
     print(f"prewarm{' --check' if args.check else ''}: "
-          f"{len(kernels) - len(failed)} warmed, {len(failed)} failed in "
+          f"{asked - len(failed)} warmed, {len(failed)} failed in "
           f"{total:.1f}s" + (f" (failed: {','.join(failed)})"
                              if failed else ""))
     return 1 if failed else 0

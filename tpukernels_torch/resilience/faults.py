@@ -60,6 +60,16 @@ narrows a key to processes whose environment holds those values:
   its bytes in the temporary file and aborts before the rename
   (``"mode": "raise"``, the default, raises OSError; ``"kill"``
   SIGKILLs the process). The target keeps its old content.
+- ``"wedge_metric": {"metric": "stencil3d_mcells_s", "phase":
+  "execute"}`` — the bench child measuring that metric
+  (``python -m tpukernels_torch.bench --one``/``--prewarm``) hangs at
+  that phase (``operand``, ``compile`` or ``execute``), immune to
+  SIGALRM, so only its parent's hard kill reaps it. ``metric`` omitted
+  matches any metric, ``phase`` defaults to ``execute``; an ``env``
+  clause narrows it to one candidate of a tuning sweep (candidates
+  differ only by their ``TPKT_*`` knobs).
+- ``"fail_metric": {...}`` — the same matching, but the child raises
+  instead of hanging.
 
 Every fault that fires emits a ``fault_injected`` journal event.
 """
@@ -99,6 +109,7 @@ _RESPONSE_CALLS: dict = {}  # kernel -> responses seen (delay_response)
 _ROUTE_CALLS = 0            # router admissions seen (kill_router)
 _TORN_CALLS = 0             # matching atomic writes seen (torn_write)
 _PROBE_IDX = 0              # probe attempts scripted (probe, hang_probe)
+_CURRENT_METRIC = None      # the bench child's metric (enter_metric)
 
 
 def active() -> bool:
@@ -109,13 +120,14 @@ def active() -> bool:
 def reload_plan():
     """Re-read ``TPKT_FAULT_PLAN`` and reset the per-process fault
     counters; returns the plan (None when unset)."""
-    global _PLAN, _ROUTE_CALLS, _TORN_CALLS, _PROBE_IDX
+    global _PLAN, _ROUTE_CALLS, _TORN_CALLS, _PROBE_IDX, _CURRENT_METRIC
     _PLAN = _load_plan()
     _DISPATCH_CALLS.clear()
     _WEDGE_CALLS.clear()
     _KILL_CALLS.clear()
     _RESPONSE_CALLS.clear()
     _ROUTE_CALLS = _TORN_CALLS = _PROBE_IDX = 0
+    _CURRENT_METRIC = None
     return _PLAN
 
 
@@ -164,6 +176,38 @@ def _wedge(desc: str):
         pass  # not the main thread: the loop below still hangs
     while True:
         time.sleep(60)
+
+
+def _fail(desc: str):
+    raise RuntimeError(f"injected fault: {desc}")
+
+
+def enter_metric(name: str):
+    """Record which bench metric this child process measures, so that
+    :func:`phase_fault` can match ``wedge_metric``/``fail_metric``."""
+    global _CURRENT_METRIC
+    if _PLAN is None:
+        return
+    _CURRENT_METRIC = name
+
+
+def phase_fault(phase: str):
+    """Injection point of the bench's measure phases (``operand``,
+    ``compile``, ``execute``): ``wedge_metric`` and ``fail_metric``."""
+    if _PLAN is None:
+        return
+    for key, action in (("wedge_metric", _wedge), ("fail_metric", _fail)):
+        spec = _PLAN.get(key)
+        if not spec:
+            continue
+        want = spec.get("metric")
+        if want is not None and want != _CURRENT_METRIC:
+            continue
+        if spec.get("phase", "execute") != phase or not _env_match(spec):
+            continue
+        journal.emit("fault_injected", site="metric", fault=key,
+                     metric=_CURRENT_METRIC, phase=phase)
+        action(f"{key} {_CURRENT_METRIC or '<any>'}:{phase}")
 
 
 def dispatch_fault(kernel: str):

@@ -77,14 +77,14 @@ PRODUCTION_QUEUE = [
     # with git-aware inputs, two attempts a day (a deterministic failure,
     # rc 1, is not a wedge, and quarantine never catches it);
     # cost_from="prewarm" re-derives its device-minute cost from the
-    # journal's prewarm_kernel walls. `--bench all` waits for the port
-    # bench (ROADMAP Queue A item 1).
+    # journal's prewarm_kernel walls. `--bench all` also builds and warms
+    # the bench's chains, one killable child a metric.
     S("prewarm_all", f"""
 set -o pipefail
 mkdir -p {_LOGS}
 prewarm_log={_LOGS}/"prewarm_$(date +%Y-%m-%d_%H%M%S).log"
-if timeout -k 10 3540 python3 -m tpukernels_torch.prewarm --check \\
-    --order traffic >"$prewarm_log" 2>&1; then
+if timeout -k 10 3540 python3 -m tpukernels_torch.prewarm --bench all \\
+    --check --order traffic --timeout-s 420 >"$prewarm_log" 2>&1; then
   tail -1 "$prewarm_log"
 else
   echo "WARN: prewarm_all failed rc=$? (non-gating) -" \\
@@ -271,6 +271,23 @@ timeout -k 10 1140 python3 -m tpukernels_torch.profile | grep -E '^(==|plane)'
 """, gating=False, timeout_s=1200, cost_min=10, value=20,
       inputs=("tpukernels_torch/profile.py",
               "tpukernels_torch/obs/profile_summary.py")),
+    # the knobs' sanity while the card is warm: scan + histogram unfused
+    # and fused, SGEMM at float32 (six bf16 products). The reference
+    # loops over its two histogram kernels (its histogram-implementation
+    # knob); the port has one histogram kernel for both (B9/B10), so its
+    # loop runs over the fuse knob
+    S("knob_sanity", """
+set -e -o pipefail
+for fuse in off on; do
+  timeout 600 env TPKT_SCANHIST_FUSE=$fuse python3 -c "
+from tpukernels_torch.bench import bench_scan_hist
+print('scan_hist fuse=$fuse:', round(bench_scan_hist(), 1))"
+done
+timeout 600 env TPKT_SGEMM_PRECISION=float32 python3 -c "
+from tpukernels_torch.bench import bench_sgemm
+print('sgemm float32 (six bf16 products):', round(bench_sgemm(), 1))"
+""", timeout_s=1860, cost_min=10, value=18,
+      inputs=("tpukernels_torch/kernels", "tpukernels_torch/bench.py")),
 ]
 
 # the port's tests on the card, in stamped groups (pytest has no resume;
@@ -322,6 +339,22 @@ exit $rc
         inputs=("tpukernels_torch", "tests")))
 
 PRODUCTION_QUEUE += [
+    # the tuner's pipeline on the CPU (children with TPKT_BENCH_SMOKE=1
+    # and no card): sweep -> cache -> dispatch, never the card's time;
+    # non-gating, daily
+    S("autotune_smoke", f"""
+set -o pipefail
+mkdir -p {_LOGS}
+autotune_log={_LOGS}/"autotune_smoke_$(date +%Y-%m-%d_%H%M%S).log"
+if timeout -k 10 600 python3 -m tpukernels_torch.autotune --kernel sgemm \\
+    --smoke >"$autotune_log" 2>&1; then
+  echo "autotune smoke: OK (pipeline proven; $autotune_log)"
+else
+  echo "WARN: autotune smoke failed rc=$? (non-gating) - $autotune_log"
+  exit 1
+fi
+""", gating=False, timeout_s=660, cost_min=8, value=4, needs_chip=False,
+      inputs=("tpukernels_torch/tuning", "tpukernels_torch/autotune.py")),
     # the integrity guard's envelopes, re-recorded daily from the CPU
     # oracle; a failed refresh degrades tier 2 to the live oracle
     S("integrity_envelopes", """
@@ -410,13 +443,10 @@ timeout 1800 env TPKT_CAPI_DEVICE=cpu python3 -m tpukernels_torch.cgate \\
 # the reference's steps the port cannot run yet -> the ROADMAP Queue A
 # item each waits for. The reference's post-green harvest (a best-effort
 # SGEMM tile sweep after the first green queue of a watch) is no step;
-# it waits for the tuning runner, Queue A item 4, too
+# it waits for the bench's regression gate, Queue A item 1, too
 WAITING = {
-    "bench": "Queue A item 1 (the port bench)",
-    "knob_sanity": "Queue A item 1 (the port bench: it times through "
-                   "bench_scan_hist and bench_sgemm)",
+    "bench": "Queue A item 1 (the bench's regression gate and artifacts)",
     "roofline_report": "Queue A item 4 (tuning/roofline.py)",
-    "autotune_smoke": "Queue A item 4 (the tuning runner)",
 }
 
 
@@ -465,6 +495,7 @@ _RUN_MARKS = ("tpukernels_torch.revalidate", "tpukernels_torch/revalidate.py")
 _STEP_MARKS = ("tpukernels_torch.prewarm", "tpukernels_torch.loadgen",
                "tpukernels_torch.serve", "tpukernels_torch.cgate",
                "tpukernels_torch.parallel", "tpukernels_torch.profile",
+               "tpukernels_torch.bench", "tpukernels_torch.autotune",
                "pytest")
 
 

@@ -24,7 +24,14 @@ its own writes at once and another process's within ``RECHECK_S``.
 fresh read under the lock, a temporary file, fsync, rename.
 ``TPKT_TUNING_CACHE=0`` (or ``off``/``none``) turns lookups off.
 
-Hits, misses and rejections are counted in :data:`COUNTS`.
+An entry a ``--smoke`` sweep promoted (``tuning/runner.py``: values
+measured with collapsed repeat counts on the CPU, so meaningless) is
+honoured only in a run with ``TPKT_BENCH_SMOKE=1``; it is keyed
+``device_kind=cpu`` besides, so it can never steer a card run.
+
+Hits, misses and rejections are counted in :data:`COUNTS`; a rejection
+also journals ``tuning_rejected`` (once a key and reason, as the stderr
+line), a write ``tuning_cache_put``.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import sys
 import time
 
 from tpukernels_torch import _cachedir
+from tpukernels_torch.resilience import journal
 
 _REPO = _cachedir._REPO
 _DISABLED = ("0", "off", "none")
@@ -218,14 +226,15 @@ def installed_versions():
     return _INSTALLED[0]
 
 
-def reject(key, reason) -> None:
-    """Count a rejected entry or value; one stderr line per (key,
-    reason) per process."""
+def reject(key, reason, **fields) -> None:
+    """Count a rejected entry or value; one stderr line and one
+    ``tuning_rejected`` event per (key, reason) per process."""
     COUNTS["rejections"] += 1
     if (key, reason) in _REJECT_NOTED:
         return
     _REJECT_NOTED.add((key, reason))
     print(f"# tuning-cache rejected: {key} ({reason})", file=sys.stderr)
+    journal.emit("tuning_rejected", key=key, reason=reason, **fields)
 
 
 def get(space, shape=None, dtype=None, kind=None, device=None):
@@ -243,6 +252,9 @@ def get(space, shape=None, dtype=None, kind=None, device=None):
     entry = entries.get(key)
     if not isinstance(entry, dict):
         COUNTS["misses"] += 1
+        return None
+    if entry.get("smoke") and os.environ.get("TPKT_BENCH_SMOKE") != "1":
+        reject(key, "smoke entry ignored outside TPKT_BENCH_SMOKE=1")
         return None
     torch_v, cuda_v = _versions()
     if entry.get("torch") != torch_v:
@@ -265,11 +277,14 @@ def get(space, shape=None, dtype=None, kind=None, device=None):
 
 
 def put(space, params: dict, shape=None, dtype=None, kind=None,
-        device=None, value=None, control=None) -> str:
-    """Write one entry atomically; returns its key."""
+        device=None, value=None, control=None, smoke=False,
+        versions=None) -> str:
+    """Write one entry atomically; returns its key. ``kind`` and
+    ``versions`` (torch, CUDA) let the sweep runner stamp the identity
+    its bench children measured under instead of this process's."""
     key = key_str(space.kernel, shape, dtype,
                   kind if kind is not None else device_kind(device))
-    torch_v, cuda_v = _versions()
+    torch_v, cuda_v = versions if versions is not None else _versions()
     entry = {
         "params": {k: v for k, v in params.items() if v is not None},
         "value": value,
@@ -279,6 +294,7 @@ def put(space, params: dict, shape=None, dtype=None, kind=None,
         "source_sha": source_sha(space.sources),
         "git_head": _git("rev-parse", "HEAD"),
         "recorded": round(time.time(), 3),
+        "smoke": bool(smoke),
     }
 
     def mutate(data):
@@ -288,4 +304,6 @@ def put(space, params: dict, shape=None, dtype=None, kind=None,
 
     _cachedir.locked_json_update(path(), mutate)
     forget()
+    journal.emit("tuning_cache_put", key=key, params=entry["params"],
+                 value=value, control=control, smoke=bool(smoke))
     return key

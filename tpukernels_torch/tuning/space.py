@@ -12,8 +12,11 @@ resolution path every wrapper calls, per knob with the precedence
 Env parsing is fail-loud: ``TPKT_SAXPY_THREADS=abc`` raises a
 ValueError naming the variable. A value from the tuning cache
 (:mod:`tpukernels_torch.tuning.cache`) is checked by the same rules but
-rejected instead (counted, one stderr line, the default used): a bad
-cache file must never take down a kernel call.
+rejected instead (counted, one stderr line, a ``tuning_rejected``
+journal event, the default used): a bad cache file must never take down
+a kernel call. A resolution that took a value from the cache journals
+one ``tuning_resolved`` event per (kernel, shape, dtype) a process,
+with each knob's source: the evidence that a run read a promoted entry.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from dataclasses import dataclass, field
 from functools import cached_property
 from typing import Any, Callable, Optional, Sequence
 
+from tpukernels_torch.resilience import journal
 from tpukernels_torch.tuning import cache
 
 # shared memory one block of an H100 can use (NVIDIA's data sheet)
@@ -81,13 +85,16 @@ class SearchSpace:
     ``sources`` are the repo-relative files whose newest commit dates a
     tuning-cache entry (an entry tuned before it is stale).
     ``bench_shape``/``bench_dtype`` are the configuration of record, the
-    cache key a sweep writes for. ``smem_bytes(params, shape)`` is the
-    shared memory a block needs; candidates over ``smem_budget_bytes``
-    are pruned (both optional)."""
+    cache key a sweep writes for. ``metric`` is the bench metric
+    (``python -m tpukernels_torch.bench``) a sweep of this space
+    measures through, None when it has none. ``smem_bytes(params,
+    shape)`` is the shared memory a block needs; candidates over
+    ``smem_budget_bytes`` are pruned (both optional)."""
 
     kernel: str
     tunables: tuple
     sources: tuple = ()
+    metric: Optional[str] = None
     bench_shape: Optional[tuple] = None
     bench_dtype: Optional[str] = None
     smem_budget_bytes: Optional[int] = None
@@ -146,6 +153,11 @@ class SearchSpace:
         return (cands[:1] + probes)[:3]
 
 
+# (kernel, shape, dtype) whose cache-sourced resolution this process has
+# journaled: a wrapper called in a loop journals it once
+_JOURNALED: set = set()
+
+
 def resolve_with_sources(space: SearchSpace, shape=None, dtype=None,
                          device=None):
     """``(params, sources)`` for one kernel call: per knob a set env var
@@ -167,8 +179,16 @@ def resolve_with_sources(space: SearchSpace, shape=None, dtype=None,
             cache.reject(cache.key_str(space.kernel, shape, dtype,
                                        cache.device_kind(device)),
                          f"bad cached value for {t.name}: "
-                         f"{cached[t.name]!r}")
+                         f"{cached[t.name]!r}", kernel=space.kernel)
         params[t.name], sources[t.name] = t.default, "default"
+    if "cache" in sources.values():
+        memo = (space.kernel, repr(shape), repr(dtype))
+        if memo not in _JOURNALED:
+            _JOURNALED.add(memo)
+            journal.emit("tuning_resolved", kernel=space.kernel,
+                         shape=list(shape) if shape else None,
+                         dtype=cache.canon_dtype(dtype), params=params,
+                         sources=sources)
     return params, sources
 
 
