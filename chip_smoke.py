@@ -79,7 +79,10 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    each instantiation's registers, and for N-body its forces launch
    alone, every (r, s) at the default tiles and every (bi, bj) at the
    default (r, s), the SM clock under load and the issue floor it gives
-   (``issue_floor_ms``).
+   (``issue_floor_ms``). ``torch.bincount`` reads its input's max back to
+   the host, so no graph captures it: its device time (histogram, scan +
+   histogram) is the sum of the device events ``torch.profiler`` records.
+   It prints the wall of each part of the phase and of the phase.
 
 6. runs the repository's unchanged C drivers (``c/``) on the port: builds
    the port's CPython shim (``csrc/tpkt_shim.c``) and the drivers into
@@ -307,11 +310,29 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    own tuning cache must be untouched; (c) the revalidation queue's
    ``knob_sanity`` body, its fuse loop cut to ``on`` (fuse off is (a)'s
    metric): the fused scan + histogram and the ``float32`` SGEMM, each
-   a number at or under its ceiling, its kernel launched. Each kernel's
-   launches by the bench's processes come from their exit ``metrics``
-   events. It prints
-   the phase's wall and one ``{"bench": ...}`` JSON line; each kernel
-   entry gains ``bench_launches``.
+   a number at or under its ceiling, its kernel launched; (d) the
+   evidence layer on (a)'s line: the line persisted as an artifact in a
+   temporary ``TPKT_BENCH_DIR``, promoted by ``python -m
+   tpukernels_torch.promote_baseline`` into a copy of
+   ``baseline_h100.json`` without its medians, then the gate
+   (``bench.check_regression``, which ``bench --check-regression`` runs;
+   in this process, as the promotion) must give rc 0 on the line, 1 with
+   one metric at 0.8x and 2 with one metric null; the queue's ``bench``
+   step under ``TPKT_BENCH_SKIP_CAPTURED=1`` must run one ``--one`` child
+   (SGEMM), carry the six others and pass the union gate; ``obs.report
+   --check`` and ``--roofline`` over that directory print each metric's value
+   beside its H100 roofline and its ceiling; (a)'s line against the
+   committed ``baseline_h100.json`` is printed with its rc, judged and
+   never failing. Each kernel's launches by the bench's processes come
+   from their exit ``metrics`` events. It prints the walls of (d) and of
+   the phase and one ``{"bench": ...}`` JSON line; each kernel entry
+   gains ``bench_launches``.
+
+Every Python it starts shares one bytecode cache under its temporary
+directory (:func:`share_bytecode`). It is the reaper of its children's
+orphans: after each of phases 6 to 15 it logs any process still under it
+(``LEFTOVER after phase N``, on stderr), and at its end, pass or fail, it
+stops and reaps every process left under it (:func:`stop_leftovers`).
 
 It prints one JSON line of per-kernel results before the last line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed
@@ -326,6 +347,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import ctypes
+import io
 import json
 import os
 import re
@@ -405,6 +427,102 @@ def keep(src, name):
 
 def log(msg=""):
     print(msg, flush=True)
+
+
+def warn(msg):
+    print(msg, file=sys.stderr, flush=True)
+
+
+def share_bytecode(prefix):
+    """One bytecode cache for this process and every Python it starts
+    (``PYTHONPYCACHEPREFIX``; ``PYTHONDONTWRITEBYTECODE`` dropped): the
+    first start compiles torch's ~800 modules and writes them there, the
+    others read them. Where the environment forbids bytecode files and
+    site-packages cannot hold them, each of the script's Python starts
+    (children, daemons, the C hosts' embedded interpreters) would compile
+    them from source again: about 3 s a start on the H100's host."""
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+
+
+# prctl(2): orphans of this process's descendants come back to it
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def become_subreaper():
+    """Make the script the reaper of its descendants' orphans (a daemon's
+    workers, a killed supervisor's step, a process in a session of its
+    own), so that :func:`descendants` finds every process it started."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        warn(f"chip_smoke: prctl(PR_SET_CHILD_SUBREAPER) failed, errno "
+            f"{ctypes.get_errno()}: an orphan of a child may escape the "
+            "end's sweep")
+
+
+def descendants():
+    """``{pid: (state, command line)}`` of every process under this one,
+    zombies included, read from ``/proc``."""
+    parent, state = {}, {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        parent[int(d)], state[int(d)] = int(fields[1]), fields[0]
+    under, todo = {}, [os.getpid()]
+    while todo:
+        p = todo.pop()
+        for c in (c for c, pp in parent.items() if pp == p):
+            try:
+                with open(f"/proc/{c}/cmdline", "rb") as f:
+                    cmd = f.read().replace(b"\0", b" ").decode(
+                        errors="replace").strip()
+            except OSError:
+                cmd = "?"
+            under[c] = (state[c], cmd[:200])
+            todo.append(c)
+    return under
+
+
+def report_leftovers(after):
+    """Log the processes still under the script ``after`` a phase (each
+    phase stops what it starts); the list, empty when none is left."""
+    left = {p: v for p, v in descendants().items() if v[0] != "Z"}
+    if left:
+        warn(f"LEFTOVER after {after}: {len(left)} process(es) still "
+            "running: " + "; ".join(f"{p} {cmd}"
+                                    for p, (_s, cmd) in sorted(left.items())))
+    return sorted(left)
+
+
+def stop_leftovers():
+    """The end's sweep: SIGTERM to every process still under the script,
+    SIGKILL to what is left 5 s later, then every zombie child reaped, so
+    that the script leaves no process behind."""
+    left = report_leftovers("the script's end")
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for p in left:
+            with contextlib.suppress(OSError):
+                os.kill(p, sig)
+        deadline = time.monotonic() + 5
+        while time.monotonic() < deadline and any(
+                v[0] != "Z" for v in descendants().values()):
+            time.sleep(0.1)
+        left = [p for p, v in descendants().items() if v[0] != "Z"]
+    while True:  # orphans re-parented here are reaped by no one else
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                break
+        except ChildProcessError:
+            break
+    if left:
+        warn(f"chip_smoke: {len(left)} process(es) survived SIGKILL: {left}")
 
 
 def peaks_for(name):
@@ -536,6 +654,26 @@ def graph_ms(fn, calls, reps=10):
     ms = time_ms(graph.replay, reps) / calls
     del graph
     return ms
+
+
+def profiled_device_ms(fn, calls):
+    """Device time of one call of ``fn`` for a call a CUDA graph cannot
+    capture: the durations of the kernels, copies and fills
+    ``torch.profiler`` records over ``calls`` calls, summed, after one
+    call outside the window. None when the profiler saw no device
+    event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / calls / 1e3 if us else None
 
 
 def warmed_stream(fn):
@@ -2034,6 +2172,12 @@ def phase_times(torch, gen, peaks, nbody):
     _, bw, bf16, fp32 = peaks
     dev = torch.device("cuda")
     out = {}
+    walls, last = {}, [time.perf_counter()]
+
+    def lap(part):  # the wall of each part of the phase
+        now = time.perf_counter()
+        walls[part] = now - last[0]
+        last[0] = now
 
     def randn(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
@@ -2077,6 +2221,7 @@ def phase_times(torch, gen, peaks, nbody):
             row["few_blocks_device_ms"] = saxpy_few_blocks_ms(torch, V, x, y)
         out[f"saxpy n={n}"] = row
         del x, y
+    lap("saxpy")
 
     m = k = n = 1024
     a, b, c = (torch.rand(*s, device=dev, generator=gen) * 2 - 1
@@ -2108,9 +2253,12 @@ def phase_times(torch, gen, peaks, nbody):
         row["bound_ms"], row["bound_by"] = bound(
             4 * (m * k + k * n + 2 * m * n), work, rate, bw)
         out[f"sgemm[{prec}]"] = row
+    lap("sgemm 1024^3 rows")
     out.update(sgemm_times(torch, gen, peaks))
+    lap("sgemm depth/order/tile sweep")
     out.update(sgemm_prep_times(torch, gen, peaks))
     out["sgemm[float32]"]["contract_share"] = float32_by_six_bf16(torch, gen)
+    lap("sgemm prep and float32 share")
 
     h = w = 4096
     iters = 1000
@@ -2128,14 +2276,18 @@ def phase_times(torch, gen, peaks, nbody):
         8 * h * w, 5 * (h - 2) * (w - 2) * iters, fp32, bw)
     # the k-sweep pass structure moves 8 bytes per cell per launch
     row["pass_bytes_ms"] = 8 * h * w * row["launches_per_call"] / bw * 1e3
+    lap("jacobi2d row")
     # every fusion depth the kernel takes: the default is the fastest
-    row["per_k_ms"] = {k2: time_ms(lambda: J.jacobi2d(x, iters, k=k2), 3,
+    # two calls a k: phase 15a's stencil2d_mcells_s times the default k
+    # within 3 % of this row
+    row["per_k_ms"] = {k2: time_ms(lambda: J.jacobi2d(x, iters, k=k2), 2,
                                    warmup=1)
                        for k2 in range(1, J.HALO_MAX + 1)}
     out["jacobi2d"] = row
 
     canary("jacobi2d canary", J.jacobi2d, J.jacobi2d_plain, (40, 200), 4,
            kk, 5)
+    lap("jacobi2d per_k and canary")
 
     n3, iters = STENCIL3D_N, STENCIL3D_ITERS
     x = randn(n3, n3, n3)
@@ -2143,7 +2295,8 @@ def phase_times(torch, gen, peaks, nbody):
     row = {
         "shape": [n3] * 3, "iters": iters, "k": k3,
         "depth": J.resolve_depth(),
-        "ms": time_ms(lambda: J.jacobi3d(x, iters), 10),
+        # 5 calls: phase 15a's stencil3d_mcells_s agrees within 3 %
+        "ms": time_ms(lambda: J.jacobi3d(x, iters), 5),
         "plain_ms": time_ms(lambda: J.jacobi3d_plain(x, iters), 2, warmup=1),
         "library_ms": None,
         "launches_per_call": len(J.passes(iters, k3)),
@@ -2151,6 +2304,7 @@ def phase_times(torch, gen, peaks, nbody):
     row["bound_ms"], row["bound_by"] = bound(
         8 * n3 ** 3, 6 * (n3 - 2) ** 3 * iters, fp32, bw)
     row["pass_bytes_ms"] = 8 * n3 ** 3 * row["launches_per_call"] / bw * 1e3
+    lap("jacobi3d row")
     # the default k beside its neighbours, and every ring depth, three
     # calls each: the whole (k, depth) space is the tuning runner's
     # (python -m tpukernels_torch.autotune --kernel stencil3d)
@@ -2167,9 +2321,12 @@ def phase_times(torch, gen, peaks, nbody):
     del x
     canary("jacobi3d canary", J.jacobi3d, J.jacobi3d_plain, (8, 24, 132), 2,
            k3, 6)
+    lap("jacobi3d per_k, per_depth and canary")
 
     out["nbody"] = nbody_times(torch, NB, gen, peaks, nbody)
+    lap("nbody")
     out.update(scan_times(torch, gen, peaks))
+    lap("scan")
 
     for label, r in out.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -2210,6 +2367,8 @@ def phase_times(torch, gen, peaks, nbody):
                       f"flight {r['in_flight_kernel_ms']['1']:.4f} ms")
         if r.get("library_device_ms") is not None:
             extra += f", library device {r['library_device_ms']:.4f} ms"
+            if r.get("library_device_how", "graph") != "graph":
+                extra += f" ({r['library_device_how']})"
         if "few_blocks_device_ms" in r:
             extra += (", 8 blocks a SM looping "
                       f"{r['few_blocks_device_ms']:.4f} ms on the device")
@@ -2234,6 +2393,8 @@ def phase_times(torch, gen, peaks, nbody):
             f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{r['bound_ms']:.6g} ms ({r['bound_by']}), launches/call "
             f"{r['launches_per_call']}{extra}")
+    log("phase 5 part walls: " + ", ".join(f"{k} {v:.1f} s"
+                                           for k, v in walls.items()))
     return out
 
 
@@ -2243,7 +2404,7 @@ NBODY_SWEEP = {"r": (2, 4), "s": (1, 2, 4, 8), "bi": (128, 256, 512),
                "bj": (512, 1024, 2048)}
 
 
-def sm_clock_mhz(torch, fn, calls=600, samples=3):
+def sm_clock_mhz(torch, fn, calls=300, samples=3):
     """(SM clock, most SM clock) in MHz as ``nvidia-smi`` reports them
     while ``calls`` calls of ``fn`` run on the card: the median of
     ``samples`` readings."""
@@ -2277,15 +2438,17 @@ def nbody_times(torch, NB, gen, peaks, nbody):
     def forces(p):
         return lambda: NB._forces_cuda(b[0], b[1], b[2], b[6], eps2, p)
 
+    t_row = time.perf_counter()
     row = {
         "n": n, "steps": 1, "bi": bi, "bj": bj, "r": plan.r, "s": plan.s,
         "threads": plan.threads,
-        "ms": time_ms(lambda: NB.nbody_step(*b), 10),
+        # 5 calls: phase 15a's nbody_ginter_s agrees within 3 %
+        "ms": time_ms(lambda: NB.nbody_step(*b), 5),
         "plain_ms": time_ms(lambda: NB.nbody_plain(*b), 1, warmup=1),
         "library_ms": None,
         "launches_per_call": 1,
         # the forces launch alone, without the six integration ops
-        "forces_ms": time_ms(forces(plan), 10),
+        "forces_ms": time_ms(forces(plan), 5),
     }
     # 20 flops per pair, the reference's CostEstimate; 7 arrays in, 6 out
     row["bound_ms"], row["bound_by"] = bound(4 * 13 * n, 20 * n * n, fp32,
@@ -2298,17 +2461,22 @@ def nbody_times(torch, NB, gen, peaks, nbody):
                for s in NBODY_SWEEP["s"]]
     configs += [(plan.r, plan.s, bi2, bj2) for bi2 in NBODY_SWEEP["bi"]
                 for bj2 in NBODY_SWEEP["bj"]]
+    t_sweep = time.perf_counter()
     for r, s, bi2, bj2 in configs:
         p = NB.plan_forces(n, bi2, bj2, r, s)
         key = f"r={p.r} s={p.s} bi={bi2} bj={bj2}"
         if key not in sweep:
             sweep[key] = time_ms(forces(p), 5, warmup=1)
     row["per_config_ms"] = sweep
+    t_clock = time.perf_counter()
     row["registers"] = {f"r={r} s={s}": v["registers"]
                         for (r, s), v in sorted(nbody.items())}
     row["sass_per_pair"] = nbody[(plan.r, plan.s)]["mix_per_pair"]
     slots = nbody[(plan.r, plan.s)]["slots_per_pair"]
     clock, most = sm_clock_mhz(torch, forces(plan))
+    log(f"phase 5 nbody walls: row {t_sweep - t_row:.1f} s, per_config "
+        f"{t_clock - t_sweep:.1f} s, SM clock "
+        f"{time.perf_counter() - t_clock:.1f} s")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     row.update(issue_slots_per_pair=slots, sm_clock_mhz=clock,
                max_sm_clock_mhz=most, sms=sms,
@@ -2535,6 +2703,11 @@ def sgemm_prep_times(torch, gen, peaks):
     return out
 
 
+BINCOUNT_DEVICE_HOW = ("torch.profiler's device events summed: bincount "
+                       "reads its input's max back to the host, so a CUDA "
+                       "graph cannot capture it")
+
+
 def scan_times(torch, gen, peaks):
     """Phase 5 for scan, histogram and scan_histogram (fuse off and on),
     int32 in [0, 256) with 256 bins, at 2^22 (the configuration of
@@ -2559,8 +2732,9 @@ def scan_times(torch, gen, peaks):
         rows = {
             # (wrapper, plain version, one library call, launches per
             # call, bytes the function moves, int32 ops, knobs); a library
-            # call with torch.bincount in it synchronises with the host,
-            # so it cannot be captured and has no device time of its own
+            # call with torch.bincount in it reads its input's max back to
+            # the host (its output's size), so a graph cannot capture it:
+            # its device time is the profiler's sum of its device events
             "scan": (lambda: SC.inclusive_scan(x), lambda: SC.scan_plain(x),
                      lambda: torch.cumsum(x, 0, dtype=torch.int32), 1,
                      8 * n, n, {}),
@@ -2593,7 +2767,10 @@ def scan_times(torch, gen, peaks):
                     "plain_ms": time_ms(plain, plain_reps),
                     "library_ms": time_ms(lib, reps),
                     "library_device_ms": (graph_ms(lib, calls)
-                                          if name == "scan" else None),
+                                          if name == "scan" else
+                                          profiled_device_ms(lib, calls)),
+                    "library_device_how": ("graph" if name == "scan" else
+                                           BINCOUNT_DEVICE_HOW),
                     "launches_per_call": graph_nodes(fn),
                 }
                 if row["launches_per_call"] != launches:
@@ -3534,6 +3711,17 @@ def serve_drive(torch, times, rates, args, main_d, chaos_d, c_built, kept):
                 check(label, g, w, rtol, atol)
             else:
                 check_exact(label, g, w)
+        if key == "sgemm":
+            # zero padding adds exact zeros on the card too? printed, as
+            # the CPU's plain version is held to it by its tests
+            g, w = host_tensor(torch, got[0]), host_tensor(torch, want[0])
+            diff = int((g != w).sum())
+            log(f"{'PASS' if diff == 0 else 'DIFFERS'} serve sgemm at "
+                f"{'x'.join(map(str, shapes[1]))} padded to its avatar: "
+                f"{'bitwise' if diff == 0 else f'{diff} elements differ'} "
+                "the in-process call at its own shape "
+                f"(max_abs_err={max_abs_err(g, w):.3e})")
+            below["sgemm_bitwise"] = diff == 0
         (ev,) = [e for e in main_d.events("serve_request")
                  if e.get("request_id") == f"below-{key}"]
         if not ev["bucketed"] or not ev["pad_frac"] > 0:
@@ -5893,9 +6081,12 @@ def supervisor_queue(path):
             if shell == spec.shell:
                 raise AssertionError("13b: prewarm_all's body has no "
                                      "--bench all to cut")
-        steps.append({"name": name, "shell": shell,
-                      "after": [a for a in spec.after
-                                if a in SUPERVISOR_STEPS],
+        after = [a for a in spec.after if a in SUPERVISOR_STEPS]
+        if name == "obs_check" and not after:
+            # it follows the bench in production; with no bench here it
+            # follows the probe whose evidence it judges in this queue
+            after = ["slo_probe"]
+        steps.append({"name": name, "shell": shell, "after": after,
                       **{f: getattr(spec, f) for f in fields}})
     with open(path, "w") as f:
         json.dump(steps, f)
@@ -6295,6 +6486,171 @@ def knob_sanity(base, root, card):
     return {"values": values, "wall_s": round(wall, 3)}
 
 
+# 15d: the metric the gate's rc 1 case scales, and the one its rc 2 case
+# empties (neither the headline)
+EVIDENCE_SCALED, EVIDENCE_NULLED = "nbody_ginter_s", "stencil3d_mcells_s"
+
+
+def gate(line, **env):
+    """``bench.check_regression`` on ``line`` in this process (what
+    ``--check-regression`` runs, without a child's start) under ``env``:
+    ``(rc, what it printed)``."""
+    from tpukernels_torch import bench
+
+    out = io.StringIO()
+    with knobs(**env), contextlib.redirect_stdout(out):
+        rc = bench.check_regression(json.dumps(line))
+    return rc, out.getvalue().strip()
+
+
+def bench_evidence(base, root, card, line):
+    """15d: the bench's evidence layer on 15a's line (item 15 (d) of the
+    module docstring)."""
+    from tpukernels_torch import bench, revalidate
+    from tpukernels_torch.obs import trend
+    from tpukernels_torch.tuning import roofline
+
+    t0 = time.perf_counter()
+    names = [n for n, _fn in bench.BENCH_METRICS]
+    bdir = os.path.join(root, "evidence")
+    os.makedirs(bdir)
+    first = os.path.join(bdir, time.strftime("bench_%Y-%m-%d_%H%M%S.json"))
+    with open(first, "w") as f:
+        f.write(json.dumps(line) + "\n")
+    # a copy of the committed baseline without its medians, so that they
+    # cannot refuse this run's
+    from tpukernels_torch import _cachedir
+
+    with open(_cachedir.bench_baseline_path({})) as f:
+        committed = json.load(f)
+    tmp_base = os.path.join(root, "baseline_h100.json")
+    with open(tmp_base, "w") as f:
+        json.dump(dict(committed, measured={}), f)
+    env = dict(base, TPKT_BENCH_DIR=bdir, TPKT_BENCH_BASELINE=tmp_base,
+               TPKT_HEALTH_JOURNAL=os.path.join(root, "evidence.jsonl"))
+    from tpukernels_torch import promote_baseline
+
+    # in this process (no child's start): what the CLI runs
+    with knobs(TPKT_BENCH_DIR=bdir, TPKT_BENCH_BASELINE=tmp_base):
+        _measured, text = promote_baseline.promote(run="15d")
+    with open(tmp_base) as f:
+        promoted = json.load(f)["measured"]
+    want = {n: round(float(line["details"][n]), 2) for n in names}
+    if {n: promoted.get(n) for n in names} != want or \
+            promoted.get("measured_from", {}).get("artifact") != \
+            os.path.basename(first):
+        raise AssertionError(f"15d promote_baseline wrote {promoted}, not "
+                             f"15a's {want}\n{text}")
+    log(f"PASS 15d promote_baseline: 15a's artifact "
+        f"{os.path.basename(first)} into a copy of baseline_h100.json "
+        f"(seven medians, measured_from {promoted['measured_from']})")
+
+    def judged(details):
+        base_tbl = {"measured": promoted}
+        return dict(line, details=details,
+                    vs_measured=bench._ratios_vs_baseline(details, base_tbl))
+
+    cases = (("15a's line", dict(line["details"]), 0),
+             (f"{EVIDENCE_SCALED} x 0.8",
+              dict(line["details"], **{EVIDENCE_SCALED: round(
+                  line["details"][EVIDENCE_SCALED] * 0.8, 2)}), 1),
+             (f"{EVIDENCE_NULLED} null",
+              dict(line["details"], **{EVIDENCE_NULLED: None}), 2))
+    gates = {}
+    for label, details, want_rc in cases:
+        rc, out = gate(judged(details), TPKT_BENCH_DIR=bdir,
+                       TPKT_BENCH_BASELINE=tmp_base)
+        log(f"15d gate on {label}: rc {rc} (want {want_rc}): "
+            + " | ".join(out.splitlines()))
+        if rc != want_rc:
+            raise AssertionError(f"15d gate on {label}: rc {rc}, not "
+                                 f"{want_rc}\n{out}")
+        gates[label] = rc
+    log("PASS 15d the gate's exit codes: 0 on 15a's line, 1 with one metric "
+        "at 0.8x, 2 with one metric null")
+
+    # the queue's bench step, as a watch runs it: only the canary is
+    # measured, the six others carried from 15a's artifact
+    shell = {s.name: s for s in revalidate.PRODUCTION_QUEUE}["bench"].shell
+    t1 = time.perf_counter()
+    p = subprocess.run(["bash", "-c", shell], cwd=REPO, capture_output=True,
+                       text=True, timeout=900,
+                       env=dict(env, TPKT_BENCH_SKIP_CAPTURED="1"))
+    step_s = time.perf_counter() - t1
+    children = [ln.split()[2] for ln in p.stderr.splitlines()
+                if ln.startswith("# one: ") and ln.endswith(" starting")]
+    union_line = json.loads([ln for ln in p.stdout.splitlines()
+                             if ln.startswith("{")][-1])
+    carried = sorted(union_line.get("carried") or {})
+    skips = supervisor_records(env["TPKT_HEALTH_JOURNAL"], "skip_captured")
+    written = sorted(os.listdir(bdir))
+    log(f"15d bench step under TPKT_BENCH_SKIP_CAPTURED=1: rc {p.returncode}"
+        f" in {step_s:.1f} s; --one children {children}; carried {carried};"
+        f" sgemm_gflops {union_line['details'].get('sgemm_gflops')}; "
+        f"artifacts {written}; the gate: "
+        + " | ".join(ln for ln in p.stdout.splitlines()
+                     if not ln.startswith("{")))
+    if (p.returncode != 0 or children != ["sgemm_gflops"]
+            or carried != sorted(names[1:]) or len(written) != 2
+            or not skips or skips[-1]["measuring"] != ["sgemm_gflops"]
+            or "regression check OK over persisted union" not in p.stdout):
+        raise AssertionError(f"15d bench step: rc {p.returncode}\n"
+                             f"{p.stdout}\n{p.stderr[-6000:]}")
+    log("PASS 15d the union path: one --one child (sgemm_gflops), six "
+        "carried, the union gate rc 0")
+
+    reports = {}
+    for flag in ("--check", "--roofline"):
+        rc, _w, out, _e = ops_child(f"15d obs.report {flag}",
+                                    "tpukernels_torch.obs.report", [flag],
+                                    env, ok=(0, 1))
+        reports[flag] = rc
+        log(f"15d obs.report {flag}: rc {rc}")
+        for ln in out.splitlines():
+            if flag == "--roofline" or ":" in ln:
+                log(f"  15d {ln}")
+    saved = {k: os.environ.get(k) for k in ("TPKT_BENCH_BASELINE",)}
+    os.environ["TPKT_BENCH_BASELINE"] = tmp_base
+    try:
+        rows = roofline.report_rows(trend.analyze_repo(bdir))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    table = {}
+    for r in rows:
+        if r["device_kind"] != "h100" or r["achieved"] is None:
+            raise AssertionError(f"15d roofline row {r}")
+        table[r["metric"]] = {k: r[k] for k in (
+            "achieved", "peak", "frac", "bound", "ceiling", "ceiling_frac",
+            "verdict")}
+        cfrac = ("none (L2-resident)" if r["ceiling_frac"] is None
+                 else f"{r['ceiling_frac']:.1%} of ceiling {r['ceiling']}")
+        log(f"15d roofline {r['metric']}: achieved {r['achieved']}, peak "
+            f"{r['peak']:.1f} ({r['bound']}-bound), {r['frac']:.1%} of the "
+            f"roofline, {cfrac}, verdict {r['verdict']} [{card}]")
+    if reports["--roofline"] not in (0, 1) or sorted(table) != sorted(names):
+        raise AssertionError(f"15d roofline: {reports} {sorted(table)}")
+    log("PASS 15d obs.report --check and --roofline over the evidence: "
+        "seven h100 rows")
+
+    # the committed medians: judged, never failing the script
+    rc, out = gate(line, TPKT_BENCH_DIR=bdir, TPKT_BENCH_BASELINE=None)
+    log(f"15d 15a's line against the committed baseline_h100.json: rc {rc} "
+        f"(judged, never fails the script): " + " | ".join(out.splitlines()))
+    wall = time.perf_counter() - t0
+    log(f"15d wall {wall:.1f} s [{card}]")
+    return {"gates": gates, "union": {"rc": p.returncode,
+                                      "children": children,
+                                      "carried": carried,
+                                      "wall_s": round(step_s, 3)},
+            "reports": reports, "roofline": table, "committed_rc": rc,
+            "committed_ratios": line.get("vs_measured"),
+            "wall_s": round(wall, 3)}
+
+
 def phase_bench(card, times):
     """Phase 15: the suite's bench and the tuning loop on the card (item
     15 of the module docstring)."""
@@ -6308,6 +6664,8 @@ def phase_bench(card, times):
     base = {k: v for k, v in os.environ.items() if not k.startswith("TPKT_")}
     base.update(PYTHONPATH=REPO, TPKT_BENCH_PROBE_ATTEMPTS="1",
                 **_cachedir.state_dirs_under(os.path.join(root, "state")))
+    if os.environ.get("TPKT_GIT_HEAD"):  # a copy without .git: its commit
+        base["TPKT_GIT_HEAD"] = os.environ["TPKT_GIT_HEAD"]
     repo_cache = os.path.join(REPO, ".tpkt_cache", "tuning.json")
     cache_before = (os.stat(repo_cache).st_mtime_ns
                     if os.path.exists(repo_cache) else None)
@@ -6416,6 +6774,11 @@ def phase_bench(card, times):
                      os.path.join(root, "knob.jsonl")):
             for k, v in exit_launches(path).items():
                 launches[k] = launches.get(k, 0) + v
+        # (15d) the evidence layer on 15a's line
+        out["evidence"] = bench_evidence(base, root, card, line)
+        for k, v in exit_launches(os.path.join(root,
+                                               "evidence.jsonl")).items():
+            launches[k] = launches.get(k, 0) + v
         out["launches"] = launches
         out["phase_s"] = round(time.perf_counter() - t_phase, 3)
         log(f"phase 15 wall {out['phase_s']:.1f} s [{card}]")
@@ -6453,9 +6816,12 @@ def main(argv=None):
     os.environ["TPKT_AOT_DIR"] = os.path.join(state, "aot")
     os.environ["TPKT_HEALTH_JOURNAL"] = os.path.join(state, "health.jsonl")
     EVIDENCE["dir"] = os.path.join(state, "evidence")
+    share_bytecode(os.path.join(state, "pycache"))
+    become_subreaper()
     try:
         return run_all(torch, args)
     finally:
+        stop_leftovers()
         # the metrics exit flush must not write into the removed directory
         os.environ.pop("TPKT_HEALTH_JOURNAL", None)
         shutil.rmtree(state, ignore_errors=True)
@@ -6475,20 +6841,32 @@ def run_all(torch, args):
     launches, of_record = phase_main_path(torch, gen)
     guarded = phase_guarded(torch, of_record, peaks)
     del of_record
+    t5 = time.perf_counter()
     times = phase_times(torch, gen, peaks, nbody)
+    log(f"phase 5 wall {time.perf_counter() - t5:.1f} s [{card}]")
     guard_costs(guarded, times)
     c_entry = phase_c_entry(torch, times)
+    report_leftovers("phase 6")
     avatars = {}
     serve = phase_serve(torch, times, c_entry["rates"], args, avatars)
+    report_leftovers("phase 7")
     dist = phase_dist(torch, times, peaks, args)
+    report_leftovers("phase 8")
     fleet = phase_fleet(torch, serve, avatars, args)
+    report_leftovers("phase 9")
     del avatars
     phase_compile(torch, guarded)
+    report_leftovers("phase 10")
     phase_loop(torch, serve, args, card)
+    report_leftovers("phase 11")
     ops = phase_ops(card)
+    report_leftovers("phase 12")
     sup = phase_supervisor(card)
+    report_leftovers("phase 13")
     phase_tools(card)
+    report_leftovers("phase 14")
     bench = phase_bench(card, times)
+    report_leftovers("phase 15")
 
     # B3/B4, B5/B6 and B9/B10 share an entry: the dict keeps B4, B6 and
     # B10, and B3, B5 and B10 stand in also_replaces
@@ -6667,7 +7045,8 @@ def run_all(torch, args):
 
     big, rec = f"n={STREAM_N}", f"n={SCAN_N}"
     one = ("n", "ms", "device_ms", "plain_ms", "library_ms",
-           "library_device_ms", "launches_per_call", "bound_ms", "bound_by")
+           "library_device_ms", "library_device_how", "launches_per_call",
+           "bound_ms", "bound_by")
     sh = one + ("scan_hist_melem_s",)
     t = times[f"scan {rec}"]
     kernels.append(entry("scan", by_id["B8"], t, errs["scan"], n=SCAN_N,
@@ -6683,6 +7062,8 @@ def run_all(torch, args):
                          also_replaces=by_id["B10"].where, n=SCAN_N,
                          nbins=SCAN_NBINS, device_ms=t["device_ms"],
                          launches_per_call=t["launches_per_call"],
+                         library_device_ms=t["library_device_ms"],
+                         library_device_how=t["library_device_how"],
                          stream=at(f"histogram {big}", *one),
                          wide=[at(f"histogram[{WIDE_NBINS}] {size}", "nbins",
                                   *one) for size in (rec, big)]))
@@ -6691,7 +7072,8 @@ def run_all(torch, args):
         "scan_histogram", by_id["B11"], t, errs["scan_histogram"], n=SCAN_N,
         nbins=SCAN_NBINS, fuse="on",
         **{k: t[k] for k in ("scan_hist_melem_s", "device_ms",
-                             "launches_per_call", "per_tile_device_ms")},
+                             "launches_per_call", "per_tile_device_ms",
+                             "library_device_ms", "library_device_how")},
         stream=at(f"scan_histogram[on] {big}", *sh, "per_tile_device_ms"),
         off=[at(f"scan_histogram[off] {size}", *sh) for size in (rec, big)]))
     log(f"chip_smoke wall {time.perf_counter() - T0:.1f} s [{card}]")

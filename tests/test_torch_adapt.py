@@ -516,14 +516,50 @@ def test_optimize_usage(tmp_path):
     r = _tool("tpukernels_torch.serve.optimize", [], env)
     assert r.returncode == 2 and "want a verb" in r.stderr
     r = _tool("tpukernels_torch.serve.optimize",
+              ["canary", "--autotune", "slow"], env)
+    assert r.returncode == 2 and "known: off, smoke, quick" in r.stderr
+    r = _tool("tpukernels_torch.serve.optimize",
               ["canary", "--autotune", "smoke"], env)
-    assert r.returncode == 2 and "Queue A item 4" in r.stderr
+    assert r.returncode == 0 and "run propose first" in r.stdout
     r = _tool("tpukernels_torch.serve.optimize", ["canary", "--check"], env)
     assert r.returncode == 1 and "run propose first" in r.stdout
     r = _tool("tpukernels_torch.serve.optimize", ["propose"], env)
     assert r.returncode == 0 and "no proposal" in r.stdout
     r = _tool("tpukernels_torch.serve.optimize", ["show"], env)
     assert r.returncode == 0 and "no adapt.json candidate" in r.stdout
+
+
+@pytest.mark.parametrize("mode", ("smoke", "quick", "off"))
+def test_canary_autotune_retunes_the_candidates_kernels_first(
+        tmp_path, monkeypatch, capsys, mode):
+    """``--autotune smoke|quick`` re-tunes the kernels the candidate
+    table names (``runner.tune_table``, the reference's
+    ``serve_optimize``) before any daemon starts; ``off`` tunes
+    nothing."""
+    from tpukernels_torch.serve import optimize
+    from tpukernels_torch.tuning import runner
+
+    for k, v in (("TPKT_ADAPT_DIR", tmp_path / "adapt"),
+                 ("TPKT_HEALTH_JOURNAL", tmp_path / "ops.jsonl")):
+        monkeypatch.setenv(k, str(v))
+    cand = {"vector_add": _spec(512), "scan": _spec(4096)}
+    adapt.record_candidate(_result(cand), _mix_one(n=256), 0.25)
+    calls = []
+    monkeypatch.setattr(runner, "tune_table", lambda table, **kw: calls.append(
+        ("tune", sorted(table), kw["smoke"], kw["quick"])) or {})
+    monkeypatch.setattr(optimize, "_run_side", lambda name, *a: calls.append(
+        ("side", name)) or {"pad_frac": 0.5, "requests": 10, "bucketed": 10,
+                            "dropped": 0, "p99_s": 0.2})
+    assert optimize._cmd_canary(3, 10, 5.0, None, False, mode) == 0
+    sides = [("side", n) for n in ("incumbent-1", "candidate-1",
+                                   "candidate-2", "incumbent-2")]
+    if mode == "off":
+        assert calls == sides
+    else:
+        assert calls == [("tune", ["scan", "vector_add"], mode == "smoke",
+                          mode == "quick")] + sides
+        assert f"re-autotuning the candidate table's kernels ({mode})" in \
+            capsys.readouterr().out
 
 
 def test_canary_daemon_that_does_not_start_fails(tmp_path, monkeypatch):

@@ -18,6 +18,7 @@ reference's loop bodies, and the reference's bench tests on the port.
   or ``docs/logs/`` file is opened.
 """
 
+import ast
 import json
 import os
 import subprocess
@@ -513,7 +514,10 @@ sys.addaudithook(_audit)
 
 def test_bench_opens_no_tpu_evidence(monkeypatch, capsys):
     """The suite and a smoke metric open no BENCH_*.json, BASELINE.json or
-    docs/logs/ file: the line carries only this run's numbers."""
+    docs/logs/ file: the line carries only this run's numbers, judged
+    against the port's own H100 baseline (``vs_measured``); no string of
+    the code names a TPU artifact (its prose may, to say it is never
+    read)."""
     _fake_suite(monkeypatch, lambda name, t: ({"value": 1.0, "host": 1.0},
                                               "ok"))
     monkeypatch.setenv("TPKT_BENCH_SMOKE", "1")
@@ -530,6 +534,12 @@ def test_bench_opens_no_tpu_evidence(monkeypatch, capsys):
            or os.path.basename(p) == "BASELINE.json"
            or "docs/logs" in p.replace(os.sep, "/")]
     assert not bad, bad
-    src = (ROOT / "tpukernels_torch" / "bench.py").read_text()
-    for name in ("BASELINE", "BENCH_r", "docs/logs", "vs_measured"):
-        assert name not in src, name
+    tree = ast.parse((ROOT / "tpukernels_torch" / "bench.py").read_text())
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.FunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)}
+    code = [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+    for name in ("BASELINE.json", "BENCH_r", "docs/logs"):
+        assert not [c for c in code if name in c], name

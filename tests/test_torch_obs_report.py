@@ -185,7 +185,8 @@ def state(tmp_path, monkeypatch):
            "TPKT_SCALING_DIR": tmp_path / "scaling",
            "TPKT_ROLLUP_DIR": tmp_path / "roll",
            "TPKT_INTEGRITY_DIR": tmp_path / "integrity",
-           "TPKT_ADAPT_DIR": tmp_path / "adapt"}
+           "TPKT_ADAPT_DIR": tmp_path / "adapt",
+           "TPKT_BENCH_DIR": tmp_path / "bench"}
     for k in [k for k in os.environ if k.startswith(("TPKT_", "TPK_"))]:
         monkeypatch.delenv(k)
     for k, v in env.items():
@@ -212,7 +213,7 @@ def _run(*args, journal_events=None, tmp=None):
 def test_clean_root_is_rc0(state):
     r = _run("--check")
     assert r.returncode == 0, r.stdout + r.stderr
-    assert report.BENCH_WAITS in r.stdout
+    assert "0 bench failing, 0 bench ok" in r.stdout
     assert "0 confirmed output-integrity failure(s)" in r.stdout
     r = _run()
     assert r.returncode == 0, r.stdout + r.stderr
@@ -358,7 +359,8 @@ def test_p99_creep_prints_and_never_gates(state):
 def test_the_tpu_evidence_is_never_read(state, monkeypatch, capsys):
     """A root holding a regressed ``BENCH_r01.json``, ``BASELINE.json``
     and a ``docs/logs/`` journal with a confirmed corruption: rc 0, the
-    wait line, and no file of those opened or listed."""
+    bench sections over the H100 lines alone, and no file of those
+    opened or listed."""
     root = state / "root"
     logs = root / "docs" / "logs"
     logs.mkdir(parents=True)
@@ -388,7 +390,8 @@ def test_the_tpu_evidence_is_never_read(state, monkeypatch, capsys):
     for argv in (["--check", "--root", str(root)], ["--root", str(root)]):
         assert report.main(argv) == 0
         out = capsys.readouterr().out
-        assert report.BENCH_WAITS in out
+        assert ("0 bench failing" if argv[0] == "--check"
+                else "== bench trend (H100 lines in") in out
     assert not [p for p in seen
                 if "docs/logs" in p or "BENCH_" in p or "BASELINE" in p], seen
     # --root moved the unredirected state dirs under it, and put them back
@@ -440,11 +443,14 @@ def test_root_moves_every_state_dir(state, monkeypatch):
     assert not any(k in os.environ for k in _cachedir.STATE_DIRS)
 
 
-@pytest.mark.parametrize("argv", [["--roofline"], ["--eps", "0.05"],
+@pytest.mark.parametrize("argv", [["--roofline", "--bogus"],
+                                  ["--eps", "abc"],
                                   ["--check", "--eps"], ["--bogus"],
                                   ["--journal"], ["--root"]])
 def test_usage_errors_are_rc2(state, argv):
     r = _run(*argv)
     assert r.returncode == 2, r.stdout + r.stderr
-    if argv[0] in ("--roofline", "--eps") or argv[-1] == "--eps":
-        assert "wait for the port bench" in r.stderr
+    if argv[0] == "--eps":
+        assert "needs a numeric value" in r.stderr
+    if argv[-1] == "--eps":
+        assert "requires a value" in r.stderr

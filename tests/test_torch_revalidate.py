@@ -1,13 +1,12 @@
 """``python -m tpukernels_torch.revalidate`` on the CPU: its production
 queue against the reference's, its exit codes, its lock and its probe.
 
-- :data:`PRODUCTION_QUEUE` plus :data:`WAITING` name exactly the steps
-  of the reference's ``tools/revalidate.py``; each ported step keeps the
-  reference's name, gating, stamp policy, timeout, cost, value,
-  ``needs_chip``, attempts a day and dependencies (``obs_check`` waits
-  for the three probes instead of the bench it judges in the reference),
-  every ``after`` edge resolves, every body parses, and no body names the
-  reference (``tools/``, ``bench.py``, ``tpukernels.``) or JAX.
+- :data:`PRODUCTION_QUEUE` plus :data:`WAITING` (now empty) name exactly
+  the steps of the reference's ``tools/revalidate.py``; each ported step
+  keeps the reference's name, gating, stamp policy, timeout, cost, value,
+  ``needs_chip``, attempts a day and dependencies, every ``after`` edge
+  resolves, every body parses, and no body names the reference
+  (``tools/``, ``bench.py``, ``tpukernels.``) or JAX.
 - The exit-code contract: 0 green, 2 incomplete, 124 wedge, a gating
   step's rc, 3 lock held, 64 usage; ``--whos-holding``; step children
   inherit the lock fd 9, probe children do not.
@@ -101,9 +100,7 @@ def test_each_step_keeps_the_references_schedule(name):
                  "needs_chip", "max_attempts_per_day", "quarantine_after",
                  "cost_from"):
         assert getattr(port, attr) == getattr(ref, attr), attr
-    want_after = (("slo_probe", "serve_probe", "fleet_probe")
-                  if name == "obs_check" else ref.after)
-    assert port.after == want_after
+    assert port.after == ref.after
     known = {s.name for s in revalidate.PRODUCTION_QUEUE}
     assert set(port.after) <= known
     # the body parses, runs the port and names no part of the reference
@@ -123,8 +120,8 @@ def test_production_queue_loads_as_a_queue_file(tmp_path):
     """The production specs round-trip through the queue-file loader
     (unique names, known dependencies, no cycle), and the planner's
     order on a fresh window is the reference's with its waiting steps
-    taken out: the prewarm first, then the probes, the sanitizers
-    last."""
+    taken out (none now): the prewarm first, then the bench and the
+    probes, the sanitizers last."""
     fields = ("name", "shell", "gating", "timeout_s", "cost_min", "value",
               "max_attempts_per_day", "quarantine_after", "stamp",
               "needs_chip", "inputs", "after", "cost_from")
@@ -149,12 +146,10 @@ def test_production_queue_loads_as_a_queue_file(tmp_path):
     got = order(supervisor, revalidate.PRODUCTION_QUEUE, tmp_path / "p.jsonl")
     want = order(ref_sup, ref_cli.PRODUCTION_QUEUE, tmp_path / "r.jsonl")
     assert len(got) == len(revalidate.PRODUCTION_QUEUE)
-    # obs_check follows the probes here, the bench there
-    assert [n for n in got if n != "obs_check"] == [
-        n for n in want if n not in revalidate.WAITING and n != "obs_check"]
-    assert got[:8] == ["prewarm_all", "slo_probe", "serve_probe",
-                       "busbw_sweep", "c_gate", "fleet_probe", "obs_check",
-                       "c_scan_timing"]
+    assert got == [n for n in want if n not in revalidate.WAITING]
+    assert got[:8] == ["prewarm_all", "bench", "slo_probe", "serve_probe",
+                       "obs_check", "roofline_report", "busbw_sweep",
+                       "c_gate"]
     assert got[-2:] == ["san_asan", "san_ubsan"]
 
 
@@ -232,12 +227,26 @@ def test_plan_prints_the_production_queue(tmp_path):
 
 
 def test_only_the_bench_gate_and_the_roofline_wait():
-    """The bench and the tuning runner are ported: ``knob_sanity`` and
-    ``autotune_smoke`` run the port's commands, ``prewarm_all`` warms the
-    bench's chains, and only the steps of the bench's regression gate and
-    the roofline still wait."""
-    assert sorted(revalidate.WAITING) == ["bench", "roofline_report"]
+    """Nothing waits any more: the bench's regression gate and the
+    roofline are steps (``bench`` persists its line and pipes it to the
+    gate, ``--union-persisted`` under skip-captured; ``roofline_report``
+    prints the table), ``knob_sanity`` and ``autotune_smoke`` run the
+    port's commands, ``prewarm_all`` warms the bench's chains and the
+    adaptive canary re-tunes its candidate (``--autotune quick``)."""
+    assert revalidate.WAITING == {}
     q = _by_name(revalidate.PRODUCTION_QUEUE)
+    bench = q["bench"].shell
+    assert "bench_out=$(timeout 5400 python3 -m tpukernels_torch.bench)" \
+        in bench
+    assert '"$bench_dir/bench_$(date +%Y-%m-%d_%H%M%S).json"' in bench
+    assert "python3 -m tpukernels_torch.bench --check-regression " \
+        "$union_flag" in bench
+    assert 'union_flag="--union-persisted"' in bench
+    assert "TPKT_BENCH_SKIP_CAPTURED" in bench
+    assert "python3 -m tpukernels_torch.obs.report --roofline" in \
+        q["roofline_report"].shell
+    assert q["obs_check"].after == q["roofline_report"].after == ("bench",)
+    assert "--autotune quick" in q["adapt_canary"].shell
     knob = q["knob_sanity"].shell
     assert "for fuse in off on" in knob
     assert "TPKT_SCANHIST_FUSE=$fuse" in knob

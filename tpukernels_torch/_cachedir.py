@@ -7,7 +7,8 @@ artifact's path and the adaptive bucket optimizer's paths in
 ``tpukernels/_cachedir.py``, of ``scaling_dir`` in
 ``tpukernels/obs/scaling.py``, of ``rollup_dir`` in
 ``tpukernels/obs/rollup.py`` and of the revalidation supervisor's
-checkpoint and stamp directory in ``tpukernels/resilience/supervisor.py``.
+checkpoint and stamp directory in ``tpukernels/resilience/supervisor.py``,
+and the bench's artifact directory (the reference's ``docs/logs``).
 The state lives in the repository's ``.tpkt_cache/`` (gitignored) unless
 an env var redirects it; the env is read on every call, so a test's
 redirect takes effect at once.
@@ -28,7 +29,7 @@ STATE_DIRS = {"TPKT_TUNING_CACHE_DIR": "", "TPKT_AOT_DIR": "",
               "TPKT_INTEGRITY_DIR": "", "TPKT_SLO_DIR": "",
               "TPKT_ADAPT_DIR": "", "TPKT_SCALING_DIR": "scaling",
               "TPKT_ROLLUP_DIR": "rollup",
-              "TPKT_SUPERVISOR_DIR": "supervisor"}
+              "TPKT_SUPERVISOR_DIR": "supervisor", "TPKT_BENCH_DIR": "bench"}
 
 
 def _under(base: str, var: str) -> str:
@@ -143,6 +144,27 @@ def supervisor_dir(env: dict | None = None) -> str:
     alone. The reference keeps all three under ``docs/logs``, which
     holds its TPU evidence, so the port never writes there."""
     return _state_dir("TPKT_SUPERVISOR_DIR", env)
+
+
+def bench_dir(env: dict | None = None) -> str:
+    """Where the bench's persisted lines go, one
+    ``bench_%Y-%m-%d_%H%M%S.json`` a run (the queue's ``bench`` step
+    writes them; ``bench.check_regression --union-persisted``,
+    ``promote_baseline`` and ``obs/trend.py`` read them):
+    ``$TPKT_BENCH_DIR``, else ``<repo>/.tpkt_cache/bench``. The reference
+    keeps its lines in ``docs/logs``, which holds its TPU evidence, so the
+    port never writes there."""
+    return _state_dir("TPKT_BENCH_DIR", env)
+
+
+def bench_baseline_path(env: dict | None = None) -> str:
+    """The port's H100 medians the bench's gate and trend judge against,
+    and ``promote_baseline`` writes: ``$TPKT_BENCH_BASELINE``, else
+    ``tpukernels_torch/baseline_h100.json`` (committed). Never
+    ``BASELINE.json``, the reference's TPU figures."""
+    target = os.environ if env is None else env
+    return target.get("TPKT_BENCH_BASELINE") or os.path.join(
+        _REPO, "tpukernels_torch", "baseline_h100.json")
 
 
 def serve_socket_path(env: dict | None = None) -> str:

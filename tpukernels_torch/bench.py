@@ -4,6 +4,8 @@ line.
     python -m tpukernels_torch.bench                  # the suite
     python -m tpukernels_torch.bench --one METRIC     # one metric (a child)
     python -m tpukernels_torch.bench --prewarm METRIC # build, plan, warm
+    python -m tpukernels_torch.bench --check-regression [--union-persisted]
+                                                      # the gate, line on stdin
 
 The port's copy of the reference's ``bench.py``. Each metric runs a chain
 of R dependent calls of the port's kernel wrapper (never
@@ -48,16 +50,35 @@ iteration) by more than 1 % is invalidated. The line:
 
     {"metric": "sgemm_gflops_per_chip", "value": ..., "unit": "GFLOPS",
      "vs_baseline": null, "details": {metric: v, metric_host: v, ...},
-     "device": "h100", "name": ..., "power_limit_w": ..., "git_head": ...,
-     "ceilings": {...}, ...}
+     "vs_measured": {metric: v / median, ...}, "device": "h100",
+     "name": ..., "power_limit_w": ..., "git_head": ..., "ceilings": {...},
+     ...}
 
-It reads no artifact and writes none. With no card, ``--one`` and
-``--prewarm`` refuse (rc 2, no number) and ``main`` prints the line with
-every metric null and its reason. ``TPKT_BENCH_SMOKE=1`` with ``--device
-cpu`` runs a child on the CPU's plain versions with the repeat counts
-collapsed to 1 and 2 and no timing: its value is meaningless, marked
-``"smoke": true``, the pipeline proof of the tests and of ``python -m
-tpukernels_torch.autotune --smoke``.
+With no card, ``--one`` and ``--prewarm`` refuse (rc 2, no number) and
+``main`` prints the line with every metric null and its reason, and a
+pointer to the newest persisted evidence (``last_persisted_artifact``).
+``TPKT_BENCH_SMOKE=1`` with ``--device cpu`` runs a child on the CPU's
+plain versions with the repeat counts collapsed to 1 and 2 and no timing:
+its value is meaningless, marked ``"smoke": true``, the pipeline proof of
+the tests and of ``python -m tpukernels_torch.autotune --smoke``.
+
+The evidence layer (the reference's): the suite writes no file; the
+queue's ``bench`` step persists its line as
+``$TPKT_BENCH_DIR/bench_%Y-%m-%d_%H%M%S.json`` (``_cachedir.bench_dir``).
+:func:`check_regression` judges a line against the port's own H100
+medians, ``baseline_h100.json`` (``TPKT_BENCH_BASELINE`` moves it;
+``python -m tpukernels_torch.promote_baseline`` writes it): rc 0 within
+15 %, 1 a regression, 2 missing coverage. ``--union-persisted`` judges
+the union of the persisted lines under 24 h whose stamp postdates the last
+commit to the metric's sources (:func:`_metric_evidence_epochs`); under
+``TPKT_BENCH_SKIP_CAPTURED=1`` the suite measures only what that union
+lacks, SGEMM always. Where the port differs from the reference by design:
+only a line with ``device: "h100"`` and no ``"smoke": true`` is evidence
+(no TPU figure, ``BENCH_r*.json``, ``docs/logs/`` or ``BASELINE.json`` is
+read); the gate judges the seven metrics and never their ``_host`` twins,
+which move with the host; the ceilings are computed
+(``tuning/roofline.py:ceilings``), not stored; ``vs_baseline`` stays null,
+as no H100 figure is published.
 
 Each metric's kernel resolves its knobs env > tuning cache > default, so
 a ``--one`` child is also the tuning runner's measurement
@@ -81,7 +102,10 @@ from tpukernels_torch import aot
 from tpukernels_torch.obs import metrics as obs_metrics
 from tpukernels_torch.obs import scaling as obs_scaling
 from tpukernels_torch.obs import trace
+from tpukernels_torch.obs.trend import _is_measurement
+from tpukernels_torch.obs.trend import is_evidence as _is_evidence
 from tpukernels_torch.resilience import faults, integrity, journal, watchdog
+from tpukernels_torch.tuning.roofline import ceilings
 
 # per-metric watchdog of a child (SIGALRM inside it, the parent's kill
 # outside)
@@ -93,14 +117,13 @@ _DEADLINE_FLOOR_S = max(180, _CHILD_GRACE_S + 60)
 # a capture may pass its ceiling by this much before it is invalidated
 _CEILING_EPS = 0.01
 
+# a metric more than this far under its baseline median fails the gate
+# (check_regression); a carried value already that far under is
+# re-measured, never carried (TPKT_BENCH_SKIP_CAPTURED)
+_REGRESSION_TOL = 0.15
+# evidence older than this does not count (the union gate, skip-captured)
+_EVIDENCE_MAX_AGE_H = 24.0
 _Timeout = watchdog.Timeout
-
-# published dense peaks of the H100 SXM (NVIDIA's data sheet): bytes/s of
-# device memory, bf16 tensor-core flop/s, fp32 flop/s; int32 at half fp32
-_BW, _BF16, _FP32 = 3.35e12, 989e12, 67e12
-_INT32 = _FP32 / 2
-# bf16 products an SGEMM of each precision makes (kernels/sgemm.py)
-_PRODUCTS = {"high": 3, "float32": 6, "default": 1}
 
 # the guard's registry key of each bench function
 _SLOPE_GUARD_KERNELS = {
@@ -557,38 +580,326 @@ BENCH_METRICS = (
 L2_RESIDENT = ("saxpy_gb_s",)
 
 
-def ceilings(precision=None) -> dict:
-    """Each metric's ceiling on the H100: its work over the least time of
-    one iteration, the larger of the bytes it must move over 3.35 TB/s
-    and its operations over the peak rate of their type (bf16 989 TFLOP/s,
-    fp32 67, int32 half of fp32). SGEMM 1024^3 counts the bf16 products
-    of ``precision`` (``TPKT_SGEMM_PRECISION``, default ``high``: 3);
-    scan + histogram 2^22 reads x and writes the scan and the next x, 12
-    B an element; N-body 20 flops a pair; the stencils take the bound of
-    the call of record (2-D 4096^2 x 1000 sweeps, 3-D 384^3 x 8) a sweep;
-    SAXPY 2^26 12 B an element. ``saxpy_gb_s`` (2^20, L2-resident) has
-    none."""
-    if precision is None:
-        precision = os.environ.get("TPKT_SGEMM_PRECISION") or "high"
-    products = _PRODUCTS.get(precision, 1)
+# ------------------------------------------------------------------ #
+# the evidence layer: persisted lines, their epochs, the baseline and  #
+# the regression gate                                                 #
+# ------------------------------------------------------------------ #
 
-    def bound(nbytes, ops, rate):
-        return max(nbytes / _BW, ops / rate)
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_STAMP_FORMAT = "bench_%Y-%m-%d_%H%M%S.json"
 
-    m, n2, n3, nb, ns, nh = 1024, 4096, 384, 65536, 1 << 26, 1 << 22
-    t = {
-        "sgemm_gflops": (2.0 * m**3 / 1e9,
-                         bound(16 * m * m, products * 2 * m**3, _BF16)),
-        "scan_hist_melem_s": (nh / 1e6, bound(12 * nh, 3 * nh, _INT32)),
-        "nbody_ginter_s": (nb * nb / 1e9,
-                           bound(4 * 13 * nb, 20 * nb * nb, _FP32)),
-        "stencil2d_mcells_s": (n2 * n2 / 1e6, bound(
-            8 * n2 * n2, 5 * (n2 - 2) ** 2 * 1000, _FP32) / 1000),
-        "saxpy_stream_gb_s": (12 * ns / 1e9, bound(12 * ns, 2 * ns, _FP32)),
-        "stencil3d_mcells_s": (n3**3 / 1e6, bound(
-            8 * n3**3, 6 * (n3 - 2) ** 3 * 8, _FP32) / 8),
-    }
-    return {k: round(work / secs, 1) for k, (work, secs) in t.items()}
+# each metric's sources, relative to the repository: the wrapper, the
+# CUDA sources its kernels are built from and the headers they include,
+# and this file (the chain and the timing live here). A commit to any of
+# them after an artifact was written makes that artifact's value of the
+# metric stale (_metric_evidence_epochs); tests/test_torch_bench_evidence.py
+# holds every BENCH_METRICS name to an entry and every include to its list
+_HERE = ("tpukernels_torch/bench.py",)
+_CSRC = "tpukernels_torch/csrc/"
+_KERNELS = "tpukernels_torch/kernels/"
+_SAXPY = (_KERNELS + "vector_add.py", _CSRC + "saxpy.cu",
+          _CSRC + "common.cuh") + _HERE
+_METRIC_KERNEL_SOURCES = {
+    "sgemm_gflops": (_KERNELS + "sgemm.py", _CSRC + "sgemm.cu",
+                     _CSRC + "sgemm_pipelined.cu", _CSRC + "sgemm_prep.cu",
+                     _CSRC + "sgemm_ring.cuh", _CSRC + "hopper.cuh",
+                     _CSRC + "common.cuh") + _HERE,
+    "saxpy_gb_s": _SAXPY,
+    "saxpy_stream_gb_s": _SAXPY,
+    "scan_hist_melem_s": (_KERNELS + "scan.py", _KERNELS + "histogram.py",
+                          _KERNELS + "scan_histogram.py", _CSRC + "scan.cu",
+                          _CSRC + "histogram.cu",
+                          _CSRC + "scan_histogram.cu", _CSRC + "scan.cuh",
+                          _CSRC + "bins.cuh", _CSRC + "common.cuh") + _HERE,
+    "nbody_ginter_s": (_KERNELS + "nbody.py", _CSRC + "nbody.cu",
+                       _CSRC + "common.cuh") + _HERE,
+    "stencil2d_mcells_s": (_KERNELS + "stencil.py", _CSRC + "jacobi2d.cu",
+                           _CSRC + "common.cuh") + _HERE,
+    "stencil3d_mcells_s": (_KERNELS + "stencil.py", _CSRC + "jacobi3d.cu",
+                           _CSRC + "common.cuh") + _HERE,
+}
+
+
+def _gated(details) -> dict:
+    """The seven metrics' measured values in ``details``: the gate's
+    view. The ``<metric>_host`` twins move with the host, so they stay in
+    the line and are never judged."""
+    return {n: details[n] for n, _fn in BENCH_METRICS
+            if _is_measurement((details or {}).get(n))}
+
+
+def _iter_bench_artifacts(bench_dir=None):
+    """``(path, line)`` for each evidence line (:func:`_is_evidence`) in
+    ``bench_dir`` (default ``_cachedir.bench_dir()``), newest first by
+    the stamp in the file's name: the one ordering that survives copies
+    and checkouts. Unparseable files and lines that are not evidence are
+    skipped. The one scanner of the pointer, the union gate, the
+    skip-captured decision and ``promote_baseline``."""
+    import glob
+
+    from tpukernels_torch import _cachedir
+
+    bench_dir = bench_dir or _cachedir.bench_dir()
+    for p in sorted(glob.glob(os.path.join(bench_dir, "bench_*.json")),
+                    key=os.path.basename, reverse=True):
+        try:
+            with open(p) as f:
+                rec = json.loads(f.read().strip() or "null")
+        except (OSError, ValueError):
+            continue
+        if _is_evidence(rec):
+            yield p, rec
+
+
+def _artifact_stamp(path):
+    """The Unix time in an artifact's name (``bench_%Y-%m-%d_%H%M%S.json``,
+    local time), or None when the name carries none."""
+    import datetime
+
+    if not isinstance(path, str):
+        return None
+    try:
+        return datetime.datetime.strptime(os.path.basename(path),
+                                          _STAMP_FORMAT).timestamp()
+    except ValueError:
+        return None
+
+
+def _latest_persisted_artifact(bench_dir=None):
+    """The newest evidence line holding at least one measured metric, as
+    ``{"path": <name in the bench dir>, "line": {...}}``, or None. Only
+    the unreachable line carries it: a pointer to earlier evidence, never
+    this run's measurement."""
+    for p, rec in _iter_bench_artifacts(bench_dir):
+        if _is_measurement(rec.get("value")) or _gated(rec.get("details")):
+            return {"path": os.path.basename(p), "line": rec}
+    return None
+
+
+def _last_commit_ts(root, paths):
+    """Committer time (Unix) of the newest commit touching any of
+    ``paths`` in the repository at ``root``, or None where git or the
+    history is not there (a checkout without ``.git``: the wall-clock
+    window alone then applies)."""
+    try:
+        r = subprocess.run(["git", "-C", root, "log", "-1", "--format=%ct",
+                            "--", *paths], capture_output=True, text=True,
+                           timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    out = r.stdout.strip()
+    if r.returncode != 0 or not out:
+        return None
+    try:
+        return int(out.splitlines()[-1])
+    except ValueError:
+        return None
+
+
+def _metric_evidence_epochs(root=None):
+    """``{metric: unix_ts or None}``: the committer time of the newest
+    commit touching the metric's sources (:data:`_METRIC_KERNEL_SOURCES`).
+    An artifact stamped before it was measured on older code and does not
+    count for that metric. Commit a kernel or bench change before
+    capturing evidence: a commit that bundles artifacts with such a change
+    rejects them (a visible rc 2 at the union gate, never a silent pass on
+    stale evidence)."""
+    root = root or _REPO
+    cache, out = {}, {}
+    for name, _fn in BENCH_METRICS:
+        paths = _METRIC_KERNEL_SOURCES[name]
+        if paths not in cache:
+            cache[paths] = _last_commit_ts(root, paths)
+        out[name] = cache[paths]
+    return out
+
+
+def _reject(name, artifact, epoch, rejected, **extra):
+    """An artifact's value predates a commit to the metric's sources:
+    one stderr line, one ``epoch_rejected`` event, and a note in
+    ``rejected`` (the gate then says why the metric is missing)."""
+    print(f"# epoch-rejected: {name} from {artifact} (the artifact predates "
+          f"commit ts {epoch} touching its sources)", file=sys.stderr)
+    journal.emit("epoch_rejected", metric=name, artifact=artifact,
+                 blocking_commit_ts=epoch, **extra)
+    if rejected is not None and name not in rejected:
+        rejected[name] = (artifact, epoch)
+
+
+def _recent_captured_metrics(bench_dir=None, root=None,
+                             max_age_h=_EVIDENCE_MAX_AGE_H, rejected=None,
+                             epochs=None):
+    """``{metric: (value, artifact)}``: the union of the seven metrics'
+    measured values over the evidence lines whose stamp is within
+    ``max_age_h`` of now, the newest artifact winning a metric. Git-aware:
+    a value whose artifact predates the metric's epoch
+    (:func:`_metric_evidence_epochs` of ``root``) is rejected loudly
+    (:func:`_reject`). ``epochs`` lets a caller that already holds the
+    table pass it in."""
+    now = time.time()
+    if epochs is None:
+        epochs = _metric_evidence_epochs(root)
+    out = {}
+    for p, rec in _iter_bench_artifacts(bench_dir):
+        stamp = _artifact_stamp(p)
+        if stamp is None or not 0 <= (now - stamp) / 3600.0 <= max_age_h:
+            continue  # undated, aged out, or stamped in the future
+        name_in_dir = os.path.basename(p)
+        for name, value in _gated(rec.get("details")).items():
+            if name in out:
+                continue
+            epoch = epochs.get(name)
+            if epoch is not None and stamp < epoch:
+                _reject(name, name_in_dir, epoch, rejected)
+                continue
+            out[name] = (value, name_in_dir)
+    return out
+
+
+def _load_baseline() -> dict:
+    """The port's H100 baseline (``_cachedir.bench_baseline_path``); {}
+    when it is missing or torn."""
+    from tpukernels_torch import _cachedir
+
+    try:
+        with open(_cachedir.bench_baseline_path()) as f:
+            data = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    return data if isinstance(data, dict) else {}
+
+
+def _ratios_vs_baseline(results: dict, baseline: dict) -> dict:
+    """``{metric: measured / baseline median}`` for each of the seven
+    metrics measured in ``results`` whose median the baseline's
+    ``measured`` block holds (``vs_measured``). A metric that measured 0
+    enters as 0.0, so the gate fails it instead of losing it."""
+    base = baseline.get("measured") or {}
+    return {name: round(v / base[name], 3)
+            for name, v in _gated(results).items()
+            if _is_measurement(base.get(name)) and base[name]}
+
+
+def _union(rec, bench_dir, root, rejected):
+    """The union gate's evidence: the persisted lines' values, the line's
+    own ``carried`` block (pinned at the skip decision, so evidence cannot
+    age out while the fresh metrics are measured; the epoch filter is
+    applied again, so a commit since the decision still rejects it), then
+    the line's own fresh values over both. ``(merged, fresh)``."""
+    epochs = _metric_evidence_epochs(root)
+    merged = {n: v for n, (v, _p) in _recent_captured_metrics(
+        bench_dir, root, rejected=rejected, epochs=epochs).items()}
+    for n, vp in (rec.get("carried") or {}).items():
+        if n not in _METRIC_KERNEL_SOURCES or not isinstance(vp, (list,
+                                                                 tuple)):
+            continue
+        v, p = (list(vp) + [None, None])[:2]
+        if not _is_measurement(v):
+            continue
+        epoch, stamp = epochs.get(n), _artifact_stamp(p)
+        if epoch is not None and stamp is not None and stamp < epoch:
+            _reject(n, p, epoch, rejected, carried=True)
+            continue
+        merged.setdefault(n, v)
+    fresh = _gated(rec.get("details"))
+    merged.update(fresh)
+    return merged, fresh
+
+
+def check_regression(json_line: str, tolerance: float = _REGRESSION_TOL,
+                     union_persisted: bool = False, bench_dir=None,
+                     root=None) -> int:
+    """Judge a bench line against the port's H100 baseline (the
+    reference's gate; ``python -m tpukernels_torch.bench
+    --check-regression [--union-persisted]`` with the line on stdin).
+
+    Exit codes:
+      0 — the seven metrics covered and none more than ``tolerance``
+          under its median;
+      1 — a metric regressed, or a line with a ``carried`` block was
+          judged without the union: retrying without a change is useless;
+      2 — coverage is missing (a metric has no value, the headline is
+          null or, in the union, not measured by this run; the line is not
+          an H100 line): another run can fix it.
+    Both kinds of failure give 1.
+
+    ``union_persisted`` judges the union of the persisted lines under 24 h
+    (:func:`_recent_captured_metrics`), the line's ``carried`` block and
+    the line's own values; the headline must be this run's. Only the
+    seven metrics are judged, never their ``_host`` twins; only a line of
+    the card (``device: "h100"``, not smoke) is evidence."""
+    rec = json.loads(json_line)
+    if not _is_evidence(rec):
+        print(f"REGRESSION: not an H100 bench line (device "
+              f"{rec.get('device')!r}, smoke {bool(rec.get('smoke'))}): "
+              "no evidence to judge")
+        return 2
+    if rec.get("carried") and not union_persisted:
+        print("REGRESSION: line has carried metrics - judge it with "
+              "--union-persisted, not the single-run gate")
+        return 1
+    names = [n for n, _fn in BENCH_METRICS]
+    regressed, missing = [], []
+    if union_persisted:
+        rejected = {}
+        merged, fresh = _union(rec, bench_dir, root, rejected)
+        ratios = _ratios_vs_baseline(merged, _load_baseline())
+        if "sgemm_gflops" not in fresh:
+            missing.append("sgemm_gflops: FAILED (headline not measured by "
+                           "THIS run; the union may not carry the canary)")
+        for name in names:
+            if merged.get(name) is None:
+                if name in rejected:
+                    art, ts = rejected[name]
+                    missing.append(
+                        f"{name}: FAILED (epoch-rejected: {art} predates "
+                        f"commit ts {ts} touching its sources - re-measure "
+                        "on current code)")
+                else:
+                    missing.append(f"{name}: FAILED (no value in any "
+                                   "artifact <24h)")
+            elif name in ratios and ratios[name] < 1.0 - tolerance:
+                regressed.append(f"{name}: {ratios[name]:.3f}x of measured "
+                                 "baseline")
+        head = f"REGRESSION over persisted union (tolerance {tolerance:.0%}):"
+        ok = f"regression check OK over persisted union: {ratios}"
+    else:
+        if rec.get("value") is None:
+            print("REGRESSION: headline value is null (bench did not run)")
+            return 2
+        ratios = {n: r for n, r in (rec.get("vs_measured") or {}).items()
+                  if n in names}
+        for name, ratio in ratios.items():
+            if ratio < 1.0 - tolerance:
+                regressed.append(f"{name}: {ratio:.3f}x of measured "
+                                 "baseline")
+        details = rec.get("details") or {}
+        missing = [f"{n}: FAILED (no value)" for n in names
+                   if not _is_measurement(details.get(n))]
+        head = f"REGRESSION vs the H100 baseline (tolerance {tolerance:.0%}):"
+        ok = f"regression check OK: {ratios}"
+    if regressed or missing:
+        print(head)
+        for b in regressed + missing:
+            print("  " + b)
+        return 1 if regressed else 2
+    print(ok)
+    return 0
+
+
+def _skip_captured(metrics, baseline):
+    """``TPKT_BENCH_SKIP_CAPTURED=1``: the metrics whose evidence under
+    24 h lets this run leave them out, ``{metric: (value, artifact)}``.
+    Never the headline (a fresh canary every run) and never a value
+    already more than the tolerance under its median (carrying it would
+    fail every retry on the one metric it refuses to re-run)."""
+    prior = _recent_captured_metrics()
+    ratios = _ratios_vs_baseline({n: v for n, (v, _p) in prior.items()},
+                                 baseline)
+    wanted = dict(metrics)
+    return {n: vp for n, vp in prior.items()
+            if n in wanted and n != "sgemm_gflops"
+            and ratios.get(n, 1.0) >= 1.0 - _REGRESSION_TOL}
 
 
 # ------------------------------------------------------------------ #
@@ -705,9 +1016,11 @@ def _line(details, reasons, extra=None) -> dict:
         "metric": "sgemm_gflops_per_chip",
         "value": headline,
         "unit": "GFLOPS",
-        # no H100 baseline exists: null, never a placeholder ratio
+        # no published H100 figure exists: null, never a placeholder
         "vs_baseline": None,
         "details": details,
+        # each metric against the port's own H100 medians
+        "vs_measured": _ratios_vs_baseline(details, _load_baseline()),
         "device": "h100",
         **_card_identity(),
         "git_head": journal.git_head(),
@@ -745,9 +1058,23 @@ def main():
         details = {}
         for n, _f in metrics:
             details[n] = details[f"{n}_host"] = None
-        print(json.dumps(_line(details, {n: reason for n in details},
-                               {"error": reason})))
+        reasons = {n: reason for n in details}
+        prior = _latest_persisted_artifact()
+        if prior is not None:
+            # a pointer to earlier evidence, never this run's measurement
+            details["last_persisted_artifact"] = prior
+        print(json.dumps(_line(details, reasons, {"error": reason})))
         return
+    carried = {}
+    if os.environ.get("TPKT_BENCH_SKIP_CAPTURED") == "1":
+        carried = _skip_captured(metrics, _load_baseline())
+        if carried:
+            metrics = [(n, f) for n, f in metrics if n not in carried]
+            print(f"# skip-captured: {sorted(carried)} have persisted "
+                  f"evidence <24h old; measuring {[n for n, _ in metrics]}",
+                  file=sys.stderr)
+            journal.emit("skip_captured", carried=sorted(carried),
+                         measuring=[n for n, _f in metrics])
     deadline = t0 + deadline_s
     lim = ceilings()
     details, reasons, invalidated, timing, captures = {}, {}, {}, {}, {}
@@ -811,12 +1138,22 @@ def main():
     extra = {"timing": timing, "captures": captures}
     if invalidated:
         extra["invalidated"] = invalidated
+    if carried:
+        # earlier runs' evidence (value, artifact), not this run's: the
+        # details above hold only what this run measured
+        extra["carried"] = {n: list(v) for n, v in carried.items()}
     failed = [n for n, _f in metrics if details.get(n) is None]
+    if failed:
+        prior = {n: list(v) for n, v in _recent_captured_metrics().items()
+                 if n in failed}
+        if prior:
+            extra["prior_evidence"] = prior
     journal.emit("run_end", outcome="wedged_partial" if wedged
                  else "complete",
                  measured=sorted(n for n, _f in metrics
                                  if details.get(n) is not None),
-                 failed=failed, invalidated=sorted(invalidated))
+                 failed=failed, invalidated=sorted(invalidated),
+                 carried=sorted(carried))
     print(json.dumps(_line(details, reasons, extra)))
 
 
@@ -842,6 +1179,16 @@ def cli(argv=None):
         os.makedirs(d, exist_ok=True)
         os.environ["TPKT_HEALTH_JOURNAL"] = d
     mode = argv[0] if argv else None
+    if mode == "--check-regression":
+        if device or any(a != "--union-persisted" for a in argv[1:]):
+            # 64, never 2: rc 2 means "retry when there is evidence"
+            print("usage: python -m tpukernels_torch.bench "
+                  "--check-regression [--union-persisted] < LINE",
+                  file=sys.stderr)
+            sys.exit(64)
+        sys.exit(check_regression(
+            sys.stdin.read().strip(),
+            union_persisted="--union-persisted" in argv[1:]))
     if mode not in (None, "--one", "--prewarm") or (mode is None and
                                                     device == "cpu"):
         print("usage: python -m tpukernels_torch.bench [--one|--prewarm "

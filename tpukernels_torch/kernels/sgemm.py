@@ -58,6 +58,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
+import threading
 
 import torch
 
@@ -419,23 +420,65 @@ def _launch(alpha, ptrs, kp, beta, c, out, precision, p):
     return out
 
 
-def sgemm_plain(alpha, a, b, beta, c, precision="high"):
-    """The kernels' arithmetic in plain PyTorch: the same bf16 split,
-    pieces or rounding, products taken in float32. On the card this
-    relies on
+# one CPU sum at a time may drop the process to one intra-op thread
+_ORDERED = threading.Lock()
+
+
+def _sum_products(pairs):
+    """Σ x @ y over ``pairs`` of (m, k) and (k, n) matrices whose
+    elementwise products are exact in float64 (bf16 values times values
+    of at most 24 significant bits), rounded to float32 once.
+
+    On the CPU the sum is taken in one fixed order in float64: for each
+    pair in turn, for each k, ``acc += x[:, k] ⊗ y[k, :]``, one rounding a
+    step. Every element's bits then depend only on its own row, column
+    and the nonzero k: zero rows, columns or k appended to the operands
+    (the serving daemon pads a request up to its bucket) change none of
+    them. A BLAS ``@`` gives no such promise: its k order follows the
+    shape and the thread count. The steps run on one intra-op thread:
+    thousands of small parallel regions stall when other processes hold
+    the cores. On the card the sum is one ``@`` a pair, which relies on
     ``torch.backends.cuda.matmul.allow_tf32`` being False (PyTorch's
     default)."""
+    x0, y0 = pairs[0]
+    if x0.device.type != "cpu":
+        return sum(x @ y for x, y in pairs)
+    x = torch.cat([x for x, _ in pairs], dim=1).double()
+    y = torch.cat([y for _, y in pairs], dim=0).double()
+    acc = x.new_zeros((x0.shape[0], y0.shape[1]))
+    with _ORDERED:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            for j in range(x.shape[1]):
+                acc.addcmul_(x[:, j:j + 1], y[j:j + 1])
+        finally:
+            torch.set_num_threads(threads)
+    return acc.float()
+
+
+def sgemm_plain(alpha, a, b, beta, c, precision="high"):
+    """The kernels' arithmetic in plain PyTorch: the same bf16 split,
+    pieces or rounding, and the same products, grouped so that each is
+    exact (``high``: ah·(bh + bl) + al·bh; ``float32``: a1·(b1 + b2 + b3)
+    + a2·(b1 + b2) + a3·b1) and summed by :func:`_sum_products`, so that
+    on the CPU zero padding of the operands leaves the result's bits
+    alone."""
     precision = _resolve_precision(precision)
+    # the pieces' sums are exact in float64 (in float32 too but for
+    # b1 + b2 + b3, which may need 25 bits); the card sums in float32
+    wide = torch.float64 if a.device.type == "cpu" else torch.float32
     if precision == "high":
-        ah, al = (t.float() for t in _split_bf16(a))
-        bh, bl = (t.float() for t in _split_bf16(b))
-        acc = ah @ bh + ah @ bl + al @ bh
+        ah, al = (t.to(wide) for t in _split_bf16(a))
+        bh, bl = (t.to(wide) for t in _split_bf16(b))
+        acc = _sum_products([(ah, bh + bl), (al, bh)])
     elif precision == "default":
-        acc = a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+        acc = _sum_products([(a.to(torch.bfloat16).to(wide),
+                              b.to(torch.bfloat16).to(wide))])
     else:
-        a1, a2, a3 = _pieces_bf16(a).float()
-        b1, b2, b3 = _pieces_bf16(b).float()
-        acc = a3 @ b1 + a1 @ b3 + a2 @ b2 + a2 @ b1 + a1 @ b2 + a1 @ b1
+        a1, a2, a3 = _pieces_bf16(a).to(wide)
+        b1, b2, b3 = _pieces_bf16(b).to(wide)
+        acc = _sum_products([(a1, b1 + b2 + b3), (a2, b1 + b2), (a3, b1)])
     return alpha * acc + beta * c
 
 

@@ -1,7 +1,7 @@
 """Observability report of the port: spans, metrics and the gating verdicts.
 
-    python -m tpukernels_torch.obs.report [--check] [--root DIR]
-                                          [--journal FILE]
+    python -m tpukernels_torch.obs.report [--check | --roofline] [--root DIR]
+                                          [--journal FILE] [--eps F]
 
 The port's copy of ``tools/obs_report.py``, over the port's own evidence:
 the journal, and the state directories of ``_cachedir`` (``--root DIR``
@@ -12,10 +12,13 @@ those are the reference's TPU figures.
 
 Sections:
 
-1. **Bench trend** and 2. **roofline** — one line each: they wait for the
-   port bench and its roofline (ROADMAP Queue A items 1 and 4).
-   ``--roofline`` and ``--eps`` (the reference's roofline view and trend
-   band) exit 2 with that line.
+1. **Bench trend** — ``trend.analyze_repo`` over the H100 bench lines
+   in ``_cachedir.bench_dir()``: each metric's points, latest, best and
+   H100 median (``baseline_h100.json``) and its verdict. ``--eps`` moves
+   the trend band (default ``trend.CEILING_EPS``).
+2. **Roofline** — ``tuning/roofline.py``'s table: each metric's latest
+   value against its roofline peak on the evidence kind (``h100``) and
+   against its bench ceiling. ``--roofline`` prints this section alone.
 3. **Span breakdown** — wall time a span name (``TPKT_TRACE=1`` runs).
 4. **Supervisor steps** — ``step/<name>`` spans and the ``step_done``
    and ``step_quarantined`` events of the revalidation supervisor
@@ -47,7 +50,8 @@ journal sections are empty. It is never the newest file under
 ``docs/logs/``, which the reference reads by default.
 
 Exit codes (the reference's ``--check`` contract):
-    0 — nothing gating: no confirmed ``output_integrity_failed`` event,
+    0 — nothing gating: no bench ``regression`` or ``impossible``, no
+        confirmed ``output_integrity_failed`` event,
         no validated non-simulated ``slo_breach``, no validated
         (non-fake) scaling ``regression`` or ``impossible``, no
         ``copy_regression``, ``pad_waste_regression`` or
@@ -56,8 +60,10 @@ Exit codes (the reference's ``--check`` contract):
         byte on the zero-copy lane, a promoted table that stopped
         delivering, an inconsistent timeline all gate alike);
     2 — usage error (never 1: rc 1 is reserved for real findings).
-``below_scaling_efficiency``, ``overlap_low``, ``trace_coverage`` and
-``p99_creep`` print as information and never gate.
+``below_roofline``, ``below_scaling_efficiency``, ``overlap_low``,
+``trace_coverage`` and ``p99_creep`` print as information and never gate;
+``no_data`` is retryable, never a failure. ``--roofline`` exits 1 on a
+bench ``regression`` or ``impossible``, as the reference's.
 
 ``--check`` prints only the non-ok verdict lines and a summary; the
 default prints the whole report. Standard library only: no torch.
@@ -78,10 +84,10 @@ from tpukernels_torch.obs import scaling as _scaling
 from tpukernels_torch.obs import slo as _slo
 from tpukernels_torch.obs import trace, trend
 from tpukernels_torch.resilience import journal as _journal
+from tpukernels_torch.tuning import roofline as _roofline
 
-BENCH_WAITS = ("bench trend and roofline: wait for the port bench "
-               "(ROADMAP Queue A items 1 and 4); no BENCH_r*.json, "
-               "BASELINE.json or docs/logs/ file is read")
+# the bench verdicts that gate
+BENCH_GATING = ("regression", "impossible")
 
 def _fmt_val(v):
     if v is None:
@@ -108,9 +114,44 @@ def state_root(root):
             os.environ.pop(k, None)
 
 
-def bench_section(out):
-    out.append("== bench trend / roofline ==")
-    out.append(BENCH_WAITS)
+def trend_section(verdicts, out):
+    out.append(f"== bench trend (H100 lines in {_cachedir.bench_dir()}) ==")
+    hdr = (f"{'metric':<22} {'pts':>3} {'latest':>15} {'best':>15} "
+           f"{'baseline':>15}  verdict")
+    out.append(hdr)
+    out.append("-" * len(hdr))
+    for name, v in verdicts.items():
+        out.append(f"{name:<22} {v['valid_points']:>3} "
+                   f"{_fmt_val(v['latest']):>15} {_fmt_val(v['best']):>15} "
+                   f"{_fmt_val(v['baseline']):>15}  {v['verdict']}")
+        for flag in v["flags"]:
+            out.append(f"    {flag}")
+
+
+def roofline_section(verdicts, out):
+    """Each metric's latest value against its roofline peak and against
+    its bench ceiling: two yardsticks (``tuning/roofline.py``)."""
+    rows = _roofline.report_rows(verdicts)
+    out.append("")
+    kind = rows[0]["device_kind"] if rows else "?"
+    basis = rows[0]["basis"] if rows else "?"
+    out.append(f"== roofline ({kind} peaks, {basis}; threshold "
+               f"{_roofline.min_frac():.0%}) ==")
+    hdr = (f"{'metric':<22} {'achieved':>15} {'roofline peak':>15} "
+           f"{'% roofline':>10} {'bound':>9} {'ceiling':>15} "
+           f"{'% ceiling':>9}  verdict")
+    out.append(hdr)
+    out.append("-" * len(hdr))
+    for r in rows:
+        frac = f"{r['frac']:.1%}" if r["frac"] is not None else "-"
+        cfrac = (f"{r['ceiling_frac']:.1%}" if r["ceiling_frac"] is not None
+                 else "-")
+        out.append(f"{r['metric']:<22} {_fmt_val(r['achieved']):>15} "
+                   f"{r['peak']:>15,.1f} {frac:>10} {r['bound']:>9} "
+                   f"{_fmt_val(r['ceiling']):>15} {cfrac:>9}  "
+                   f"{r['verdict'] or '-'}")
+        if r["note"]:
+            out.append(f"    {r['note']}")
 
 
 def span_section(events, out):
@@ -626,9 +667,19 @@ def _bad(verdicts: dict, verdict: str) -> dict:
     return {n: v for n, v in verdicts.items() if v["verdict"] == verdict}
 
 
-def check(events) -> int:
+def check(events, eps=trend.CEILING_EPS) -> int:
     """``--check``: the non-ok verdict lines and a summary; rc 0 or 1."""
-    print(BENCH_WAITS)
+    verdicts = trend.analyze_repo(eps=eps)
+    bad = {n: v for n, v in verdicts.items()
+           if v["verdict"] in BENCH_GATING}
+    for name, v in bad.items():
+        print(f"{name}: {v['verdict']}")
+        for flag in v["flags"]:
+            print(f"  {flag}")
+    below = _bad(verdicts, "below_roofline")
+    for name in below:
+        # headroom to earn, never a regression to gate on
+        print(f"{name}: below_roofline (non-gating)")
     # a confirmed corruption gates: a wrong answer is worse than a slow one
     corrupt = [e for e in events
                if e.get("kind") == "output_integrity_failed"]
@@ -692,6 +743,8 @@ def check(events) -> int:
         print(f"{name}: p99_creep (non-gating)")
         for flag in v["flags"]:
             print(f"  {flag}")
+    ok = sum(1 for v in verdicts.values() if v["verdict"] == "ok")
+    nodata = len(_bad(verdicts, "no_data"))
     print(
         f"obs.report --check: {len(corrupt)} confirmed output-integrity "
         f"failure(s), {len(breaches)} confirmed SLO breach(es), "
@@ -702,22 +755,28 @@ def check(events) -> int:
         f"{len(trace_low)} trace-coverage (non-gating), "
         f"{len(below_eff)} below-scaling-efficiency (non-gating), "
         f"{len(overlap_low)} overlap-low (non-gating), "
-        f"{len(creeping)} p99-creep (non-gating)"
+        f"{len(creeping)} p99-creep (non-gating), {len(bad)} bench "
+        f"failing, {ok} bench ok, {len(below)} below-roofline (non-gating), "
+        f"{nodata} bench no-data (retryable, not a failure)"
     )
-    return 1 if (corrupt or breaches or scaling_bad or copy_bad or pad_bad
-                 or trace_bad) else 0
+    return 1 if (bad or corrupt or breaches or scaling_bad or copy_bad
+                 or pad_bad or trace_bad) else 0
 
 
-def report(events, paths) -> int:
-    """The whole report; rc 1 on a gating scaling, copy, pad-waste or
-    trace finding, as the reference's full mode."""
+def report(events, paths, eps=trend.CEILING_EPS) -> int:
+    """The whole report; rc 1 on a gating bench, scaling, copy, pad-waste
+    or trace finding, as the reference's full mode."""
     out = []
+    verdicts = trend.analyze_repo(eps=eps)
     analysis = _scaling.analyze_repo()
-    bad = {**_scaling.gating_findings(analysis),
+    bad = {**{n: v for n, v in verdicts.items()
+              if v["verdict"] in BENCH_GATING},
+           **_scaling.gating_findings(analysis),
            **_bad(trend.analyze_copy_budget(events), "copy_regression"),
            **_bad(trend.analyze_pad_waste(events), "pad_waste_regression"),
            **_bad(trend.analyze_trace_budget(events), "trace_inconsistent")}
-    bench_section(out)
+    trend_section(verdicts, out)
+    roofline_section(verdicts, out)
     span_section(events, out)
     step_section(events, out)
     aot_section(events, out)
@@ -736,8 +795,8 @@ def report(events, paths) -> int:
         out.append("VERDICT: " + "; ".join(f"{n} {v['verdict']}"
                                            for n, v in bad.items()))
     else:
-        out.append("VERDICT: clean (no scaling, copy, pad-waste or trace "
-                   "finding; the bench trend waits for the port bench)")
+        out.append("VERDICT: clean (no bench, scaling, copy, pad-waste or "
+                   "trace finding)")
     if paths:
         out.append("journal: " + ", ".join(os.path.relpath(p)
                                            for p in paths))
@@ -748,7 +807,8 @@ def report(events, paths) -> int:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     want_check = "--check" in argv
-    root, paths = None, None
+    roofline_only = "--roofline" in argv
+    root, paths, eps = None, None, trend.CEILING_EPS
     it = iter(argv)
     try:
         for a in it:
@@ -756,10 +816,9 @@ def main(argv=None) -> int:
                 root = next(it)
             elif a == "--journal":
                 paths = [next(it)]
-            elif a in ("--roofline", "--eps"):
-                print(f"obs.report: {a}: {BENCH_WAITS}", file=sys.stderr)
-                return 2
-            elif a != "--check":
+            elif a == "--eps":
+                eps = float(next(it))
+            elif a not in ("--check", "--roofline"):
                 print(__doc__, file=sys.stderr)
                 print(f"obs.report: unknown argument {a!r}",
                       file=sys.stderr)
@@ -769,10 +828,22 @@ def main(argv=None) -> int:
         # rc 1 reserved for a real finding
         print(f"obs.report: {a} requires a value", file=sys.stderr)
         return 2
+    except ValueError:
+        print(f"obs.report: {a} needs a numeric value", file=sys.stderr)
+        return 2
     paths = _journal.reader_paths(paths)
     events, _bad_lines = _journal.load_events(paths)
     with state_root(root):
-        return check(events) if want_check else report(events, paths)
+        if want_check:
+            return check(events, eps)
+        if roofline_only:
+            verdicts = trend.analyze_repo(eps=eps)
+            out = []
+            roofline_section(verdicts, out)
+            print("\n".join(line for line in out if line))
+            return 1 if any(v["verdict"] in BENCH_GATING
+                            for v in verdicts.values()) else 0
+        return report(events, paths, eps)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,36 @@
-"""Verdicts over the serving journal and the daily rollups.
+"""Verdicts over the bench's persisted lines, the serving journal and the
+daily rollups.
 
-The port's copy of the journal half of ``tpukernels/obs/trend.py``: the
-analyzers ``python -m tpukernels_torch.obs.report --check`` reads.
+The port's copy of ``tpukernels/obs/trend.py``: the analyzers ``python -m
+tpukernels_torch.obs.report --check`` reads.
+
+The bench half (:func:`load_series`, :func:`analyze`,
+:func:`analyze_repo`): the H100 bench lines in ``$TPKT_BENCH_DIR``
+(``_cachedir.bench_dir``), one a file, ordered by the stamp in the file's
+name. Only a line with ``device: "h100"`` and no ``"smoke": true`` counts,
+and never a ``<metric>_host`` twin (it moves with the host);
+``BENCH_r*.json``, ``docs/logs/`` and ``BASELINE.json`` (the reference's
+TPU figures) are never read. An unreachable line's
+``details.last_persisted_artifact`` joins the series at its own
+artifact's place, once; string details are never evidence;
+``invalidated`` raws feed the ceiling check alone. Verdicts a metric:
+
+- ``impossible`` — a raw value over its ceiling (``bench.ceilings()``,
+  computed) beyond the 1 % band and never invalidated; it dominates;
+- ``regression`` — the newest valid value more than the band under the
+  best earlier one or under the H100 median (``baseline_h100.json``);
+  tighter than the gate's 15 % on purpose: this is a report;
+- ``no_data`` — no valid measurement anywhere: retryable, never a failure;
+- ``below_roofline`` — trend-``ok`` but under ``TPKT_ROOFLINE_MIN_FRAC``
+  (default 0.5) of the metric's roofline (``tuning/roofline.py``); never
+  gates, and only ever replaces ``ok``; the L2-resident SAXPY gets none;
+- ``ok`` — otherwise.
+
+:data:`CEILING_EPS` and :data:`REGRESSION_TOL` equal the bench's own
+constants (a test holds them so; importing ``bench`` here would import
+torch).
+
+The journal half:
 
 - :func:`analyze_copy_budget` — the latest ``serve_copy_budget`` event a
   (socket, lane): payload bytes copied on a fully negotiated shm run are
@@ -16,16 +45,15 @@ analyzers ``python -m tpukernels_torch.obs.report --check`` reads.
 - :func:`analyze_p99_creep` — a kernel's daily p99 over the rollups
   (``obs/rollup.py``): ``p99_creep`` (never gates).
 
-The bench half of the reference's module (``load_series``, ``analyze``,
-the roofline check, ``analyze_repo``, the bench bands ``CEILING_EPS``
-and ``REGRESSION_TOL``) reads ``BENCH_r*.json``, ``docs/logs/bench_*.json``
-and ``BASELINE.json``, which are TPU figures, and waits for the port's
-own bench (ROADMAP Queue A items 1 and 4). Standard library only.
+Standard library only.
 """
 
 from __future__ import annotations
 
+import json
 import os
+
+from tpukernels_torch.tuning import roofline
 
 
 def _is_measurement(v) -> bool:
@@ -285,3 +313,221 @@ def analyze_p99_creep(series) -> dict:
             "flags": flags,
         }
     return verdicts
+
+
+# ------------------------------------------------------------------ #
+# the bench half: persisted H100 lines, their series and verdicts     #
+# ------------------------------------------------------------------ #
+
+CEILING_EPS = 0.01     # == bench._CEILING_EPS (a test holds them equal)
+REGRESSION_TOL = 0.15  # == bench._REGRESSION_TOL (the same)
+# a metric's host-issued twin in the line's details: not a series
+HOST_SUFFIX = "_host"
+
+def is_evidence(rec) -> bool:
+    """Whether a bench line may count as evidence: a line of the card
+    (``device: "h100"``) that is not a CPU smoke line. A TPU figure, a
+    smoke line or anything else never counts (``bench``'s scanners and
+    this module's series alike)."""
+    return (isinstance(rec, dict) and rec.get("device") == "h100"
+            and not rec.get("smoke"))
+
+
+def load_baseline() -> dict:
+    """The port's H100 baseline (``_cachedir.bench_baseline_path``, the
+    file ``bench`` judges against), with ``ceilings`` computed
+    (``roofline.ceilings``, what ``bench.ceilings`` returns); {} plus the
+    ceilings when it is missing or torn."""
+    from tpukernels_torch import _cachedir
+
+    try:
+        with open(_cachedir.bench_baseline_path()) as f:
+            data = json.load(f)
+    except (OSError, ValueError):
+        data = {}
+    if not isinstance(data, dict):
+        data = {}
+    return dict(data, ceilings=roofline.ceilings())
+
+
+def _numeric_table(d) -> dict:
+    """The numeric entries of a baseline block (no notes, no dates)."""
+    return {k: v for k, v in (d or {}).items() if _is_measurement(v)}
+
+
+def _bench_line(rec):
+    """``rec`` when it is a bench line with a ``details`` dict that counts
+    as evidence (:func:`is_evidence`), else None."""
+    if is_evidence(rec) and isinstance(rec.get("details"), dict):
+        return rec
+    return None
+
+
+def _points_from_line(line, source, order, out):
+    """Append the line's evidence to the series ``out``: measured details
+    as valid points, invalidated raw values as points for the ceiling
+    check alone; never a ``<metric>_host`` twin, which moves with the
+    host (``bench`` never gates on one either). Returns the nested
+    ``last_persisted_artifact`` (or None) for the caller, which holds the
+    dedupe state."""
+    details = line.get("details") or {}
+    for name, v in details.items():
+        if _is_measurement(v) and not name.endswith(HOST_SUFFIX):
+            out.setdefault(name, []).append(
+                {"value": v, "raw": v, "source": source, "order": order,
+                 "invalidated": None})
+    for name, iv in (line.get("invalidated") or {}).items():
+        raw = iv[0] if isinstance(iv, (list, tuple)) and iv else None
+        if _is_measurement(raw):
+            out.setdefault(name, []).append(
+                {"value": None, "raw": raw, "source": source, "order": order,
+                 "invalidated": str(iv[1]) if len(iv) > 1 else "?"})
+    nested = details.get("last_persisted_artifact")
+    return nested if isinstance(nested, dict) else None
+
+
+def load_series(bench_dir=None) -> dict:
+    """``{metric: [point, ...]}`` over the evidence lines in ``bench_dir``
+    (default ``_cachedir.bench_dir()``), each series oldest to newest by
+    the stamp in the file's name. A line's nested
+    ``last_persisted_artifact`` joins the series at its own artifact's
+    place, once however many lines point at it. Unparseable files are
+    skipped."""
+    import glob
+
+    from tpukernels_torch import _cachedir
+
+    bench_dir = bench_dir or _cachedir.bench_dir()
+    out: dict = {}
+    seen: set = set()
+
+    def _nested(nest):
+        name = nest.get("path")
+        line = _bench_line(nest.get("line"))
+        if not isinstance(name, str) or line is None:
+            return
+        key = os.path.basename(os.path.normpath(name))
+        if key in seen:
+            return
+        seen.add(key)
+        deeper = _points_from_line(line, key, key, out)
+        if deeper is not None:
+            _nested(deeper)
+
+    for p in sorted(glob.glob(os.path.join(bench_dir, "bench_*.json")),
+                    key=os.path.basename):
+        try:
+            with open(p) as f:
+                line = _bench_line(json.loads(f.read().strip() or "null"))
+        except (OSError, ValueError):
+            continue
+        if line is None:
+            continue
+        name = os.path.basename(p)
+        seen.add(name)
+        nest = _points_from_line(line, name, name, out)
+        if nest is not None:
+            _nested(nest)
+    for pts in out.values():
+        pts.sort(key=lambda pt: pt["order"])
+    return out
+
+
+def analyze(series, baseline=None, eps=CEILING_EPS) -> dict:
+    """Verdicts a metric over :func:`load_series`' output (the module
+    docstring has the rules); ``flags`` holds one line a finding. A
+    metric the baseline knows and the series lacks is ``no_data``."""
+    baseline = baseline or {}
+    ceilings = _numeric_table(baseline.get("ceilings"))
+    measured = _numeric_table(baseline.get("measured"))
+    verdicts = {}
+    for metric in sorted(set(series) | set(measured)):
+        pts = series.get(metric, [])
+        ceiling = ceilings.get(metric)
+        flags, valid = [], []
+        impossible = False
+        for pt in pts:
+            raw = pt["raw"]
+            if ceiling is not None and raw is not None and \
+                    raw > ceiling * (1.0 + eps):
+                if pt["invalidated"]:
+                    flags.append(f"{raw} from {pt['source']} exceeds ceiling "
+                                 f"{ceiling} - already invalidated at source "
+                                 f"({pt['invalidated']})")
+                else:
+                    impossible = True
+                    flags.append(f"IMPOSSIBLE: {raw} from {pt['source']} "
+                                 f"exceeds the ceiling {ceiling} (+{eps:.0%})"
+                                 " and was never invalidated")
+                continue
+            if pt["value"] is not None:
+                valid.append(pt)
+        base = measured.get(metric)
+        info = {
+            "valid_points": len(valid),
+            "latest": valid[-1]["value"] if valid else None,
+            "latest_source": valid[-1]["source"] if valid else None,
+            "best": max((p["value"] for p in valid), default=None),
+            "baseline": base,
+            "flags": flags,
+        }
+        if impossible:
+            info["verdict"] = "impossible"
+        elif not valid:
+            info["verdict"] = "no_data"
+            flags.append("no valid measurement in any artifact (a null is "
+                         "no data, not a regression)")
+        else:
+            latest = info["latest"]
+            regressed = False
+            prior_best = max((p["value"] for p in valid[:-1]), default=None)
+            if prior_best and latest < prior_best * (1.0 - eps):
+                regressed = True
+                flags.append(f"REGRESSION: latest {latest} "
+                             f"({info['latest_source']}) is "
+                             f"{latest / prior_best:.3f}x of prior best "
+                             f"{prior_best} (band {eps:.0%})")
+            if base and latest < base * (1.0 - eps):
+                regressed = True
+                flags.append(f"REGRESSION: latest {latest} is "
+                             f"{latest / base:.3f}x of the H100 median "
+                             f"{base} (band {eps:.0%}; the gate fails below "
+                             f"{1.0 - REGRESSION_TOL:.2f}x)")
+            info["verdict"] = "regression" if regressed else "ok"
+            if info["verdict"] == "ok":
+                # only an ok verdict is judged against the roofline:
+                # below_roofline never hides a regression, an impossible
+                # value or a hole in the data
+                roof = _roofline_check(metric, latest)
+                if roof is not None:
+                    info["roofline"] = roof
+                    if roof["below"]:
+                        info["verdict"] = "below_roofline"
+                        flags.append(
+                            f"BELOW ROOFLINE: latest {latest} is "
+                            f"{roof['frac']:.1%} of the {roof['bound']}-bound "
+                            f"peak {roof['peak']:,.0f} on "
+                            f"{roof['device_kind']} (threshold "
+                            f"{roof['min_frac']:.0%}, TPKT_ROOFLINE_MIN_FRAC;"
+                            " non-gating headroom signal)")
+        verdicts[metric] = info
+    return verdicts
+
+
+def _roofline_check(metric, latest):
+    """``{peak, frac, bound, device_kind, min_frac, below}`` for a metric
+    with a roofline model, else None; ``below`` is False for an
+    L2-resident configuration whatever its fraction."""
+    if metric not in roofline.MODELS:
+        return None
+    p = roofline.peak(metric)
+    frac = latest / p["peak"]
+    mf = roofline.min_frac()
+    return {"peak": p["peak"], "frac": frac, "bound": p["bound"],
+            "device_kind": p["device_kind"], "min_frac": mf,
+            "below": (not p["artifact"]) and frac < mf}
+
+
+def analyze_repo(bench_dir=None, eps=CEILING_EPS) -> dict:
+    """The series, the baseline and the verdicts in one call."""
+    return analyze(load_series(bench_dir), load_baseline(), eps=eps)

@@ -38,8 +38,11 @@ _HEAD_CACHE: list = []  # [sha or None] once resolved (per process)
 
 def git_head(root=None):
     """HEAD sha of ``root`` (default: this repository), or None outside
-    a git checkout or without git; never raises. Cached per process for
-    the default root: the journal stamps every event."""
+    a git checkout or without git; never raises. For the default root, a
+    copy of the repository without ``.git`` takes ``TPKT_GIT_HEAD``
+    instead (the commit its caller copied it from), so its bench lines
+    and events still name their code. Cached per process for the default
+    root: the journal stamps every event."""
     if root is None and _HEAD_CACHE:
         return _HEAD_CACHE[0]
     try:
@@ -48,6 +51,8 @@ def git_head(root=None):
         sha = r.stdout.strip() if r.returncode == 0 else ""
     except (OSError, subprocess.SubprocessError):
         sha = ""
+    if not sha and root is None:
+        sha = os.environ.get("TPKT_GIT_HEAD", "").strip()
     sha = sha or None
     if root is None:
         _HEAD_CACHE.append(sha)

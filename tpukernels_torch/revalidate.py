@@ -11,9 +11,12 @@ The port's copy of ``tools/revalidate.py``. :data:`PRODUCTION_QUEUE` is
 the reference's queue with the port's bodies: each step keeps its name,
 gating, stamp policy, timeout, device-minute cost, value, dependencies,
 ``needs_chip`` and attempts a day; only its shell body and its
-``inputs`` change. The steps that wait for a module the port does not
-have yet are in :data:`WAITING`, each with the ROADMAP Queue A item it
-waits for; the two together name every step of the reference's queue.
+``inputs`` change (and ``obs_check``'s dependencies, as the bench's).
+:data:`WAITING` would name a step that waits for a module the port does
+not have yet, with the ROADMAP Queue A item it waits for; it is empty,
+so the queue names every step of the reference's. After the first green
+queue of a ``--wait``, the production queue's harvest runs one
+best-effort SGEMM sweep (:func:`_harvest`), as the reference's does.
 The queue logic (stamps, checkpoint resume, quarantine, admission,
 backoff) is ``resilience/supervisor.py``; this process never imports
 torch, and only its step and probe children touch the card.
@@ -241,13 +244,44 @@ fi
       after=("prewarm_all",),
       inputs=("tpukernels_torch/parallel",
               "tpukernels_torch/obs/scaling.py")),
-    # the gate over the day's journal and state, non-gating; CPU only.
-    # The reference runs it after its bench; the port's runs after the
-    # three probes whose evidence it judges
+    # the seven metrics and the 15 % gate against the port's H100
+    # medians; the line is persisted as $TPKT_BENCH_DIR/bench_<stamp>.json,
+    # so an unattended run leaves its evidence. Never stamped: its
+    # skip-captured logic keeps it cheap and the SGEMM canary runs every
+    # attempt. Under TPKT_BENCH_SKIP_CAPTURED=1 (the watch's mode) it
+    # measures only what the persisted union lacks and judges the union
+    S("bench", f"""
+set -e -o pipefail
+union_flag=""
+if [ "${{TPKT_BENCH_SKIP_CAPTURED:-}}" = "1" ]; then
+  union_flag="--union-persisted"
+fi
+bench_dir=$(python3 -c "from tpukernels_torch import _cachedir
+print(_cachedir.bench_dir())")
+mkdir -p "$bench_dir"
+bench_out=$(timeout 5400 python3 -m tpukernels_torch.bench)
+printf '%s\\n' "$bench_out"
+printf '%s\\n' "$bench_out" | tail -1 \\
+  > "$bench_dir/bench_$(date +%Y-%m-%d_%H%M%S).json"
+printf '%s\\n' "$bench_out" | tail -1 \\
+  | python3 -m tpukernels_torch.bench --check-regression $union_flag
+""", stamp="never", timeout_s=5460, cost_min=15, value=100,
+      after=("prewarm_all",), inputs=("tpukernels_torch",)),
+    # the trend tripwire over the bench's lines and the day's journal and
+    # state, non-gating (the 15 % gate above is the authority); CPU only
     S("obs_check", """
 python3 -m tpukernels_torch.obs.report --check && echo "obs check: OK"
 """, gating=False, stamp="never", timeout_s=300, cost_min=1, value=5,
-      needs_chip=False, after=("slo_probe", "serve_probe", "fleet_probe")),
+      needs_chip=False, after=("bench",)),
+    # the roofline table over the persisted lines: each metric's latest
+    # value against its H100 roofline and its ceiling, below_roofline
+    # flagged non-gating. CPU only, daily
+    S("roofline_report", """
+python3 -m tpukernels_torch.obs.report --roofline && echo "roofline report: OK"
+""", gating=False, stamp="daily", timeout_s=300, cost_min=1, value=4,
+      needs_chip=False, after=("bench",),
+      inputs=("tpukernels_torch/tuning/roofline.py",
+              "tpukernels_torch/obs/report.py")),
     # the C acceptance gate: test_shim_abi and c/run_all.sh's rows at
     # serial, omp and the port through its shim
     S("c_gate", """
@@ -410,16 +444,15 @@ fi
 """, gating=False, stamp="daily", timeout_s=300, cost_min=1, value=2,
       needs_chip=False, after=("serve_probe", "rollup_daily"),
       inputs=("tpukernels_torch/serve",)),
-    # the proposal's canary on the card (incumbent and candidate daemons,
-    # the frozen mix at one seed); the reference re-tunes the candidate
-    # first (`--autotune quick`), which is rc 2 on the port until the
-    # tuning runner (ROADMAP Queue A item 4), so the body leaves it out
+    # the proposal's canary on the card: the candidate table's kernels
+    # re-tuned (`--autotune quick`, the 3 % margin), then incumbent and
+    # candidate daemons on the frozen mix at one seed
     S("adapt_canary", f"""
 set -o pipefail
 mkdir -p {_LOGS}
 adapt_log={_LOGS}/"adapt_canary_$(date +%Y-%m-%d_%H%M%S).log"
 if timeout -k 10 900 python3 -m tpukernels_torch.serve.optimize canary \\
-    >"$adapt_log" 2>&1; then
+    --autotune quick >"$adapt_log" 2>&1; then
   tail -2 "$adapt_log"
 else
   echo "WARN: adapt canary failed rc=$? (non-gating) - $adapt_log"
@@ -441,13 +474,35 @@ timeout 1800 env TPKT_CAPI_DEVICE=cpu python3 -m tpukernels_torch.cgate \\
         inputs=("c", "tpukernels_torch")))
 
 # the reference's steps the port cannot run yet -> the ROADMAP Queue A
-# item each waits for. The reference's post-green harvest (a best-effort
-# SGEMM tile sweep after the first green queue of a watch) is no step;
-# it waits for the bench's regression gate, Queue A item 1, too
-WAITING = {
-    "bench": "Queue A item 1 (the bench's regression gate and artifacts)",
-    "roofline_report": "Queue A item 4 (tuning/roofline.py)",
-}
+# item each waits for: none
+WAITING: dict = {}
+
+# the harvest's sweep may take this long before it is killed
+_HARVEST_TIMEOUT_S = 3600
+
+
+def _harvest():
+    """After the first green queue of a watch: one best-effort SGEMM sweep
+    (``python -m tpukernels_torch.sgemm_tune --quick``), its log under the
+    supervisor's ``logs/``. It never gates: a wedge in the sweep must not
+    turn a green queue into a failure."""
+    import datetime
+    import subprocess
+
+    logs = os.path.join(_cachedir.supervisor_dir(), "logs")
+    os.makedirs(logs, exist_ok=True)
+    stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H%M%S")
+    log = os.path.join(logs, f"sgemm_tune_{stamp}.log")
+    with open(log, "w") as f:
+        try:
+            rc = subprocess.run(
+                [sys.executable, "-m", "tpukernels_torch.sgemm_tune",
+                 "--quick"], stdout=f, stderr=subprocess.STDOUT, cwd=_REPO,
+                timeout=_HARVEST_TIMEOUT_S).returncode
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+    print(f"supervisor: harvest sgemm_tune --quick rc={rc} (non-gating) - "
+          f"{log}")
 
 
 def lock_wait_s(wait: bool) -> float:
@@ -683,8 +738,14 @@ def main(argv=None):
         print("  python -m tpukernels_torch.revalidate --whos-holding")
         return 3
     if wait:
+        # a watch spends a short window only on the metrics the persisted
+        # union lacks, and probes no longer inside the queue (it has just
+        # probed the card healthy)
+        os.environ["TPKT_BENCH_SKIP_CAPTURED"] = "1"
+        os.environ["TPKT_BENCH_PROBE_ATTEMPTS"] = "1"
         return supervisor.watch(
-            lambda: supervisor.Supervisor(specs, repo=_REPO), max_hours)
+            lambda: supervisor.Supervisor(specs, repo=_REPO), max_hours,
+            harvest=None if queue_file else _harvest)
     return supervisor.Supervisor(specs, repo=_REPO).run_queue()
 
 

@@ -3,7 +3,8 @@
     python -m tpukernels_torch.serve.optimize propose [--journal PATH ...]
                                                       [--target F]
     python -m tpukernels_torch.serve.optimize canary [--seed N]
-        [--requests N] [--rate R] [--margin F] [--autotune off] [--check]
+        [--requests N] [--rate R] [--margin F]
+        [--autotune off|smoke|quick] [--check]
     python -m tpukernels_torch.serve.optimize show
 
 The port's copy of ``tools/serve_optimize.py``, over ``serve/adapt.py``.
@@ -36,9 +37,12 @@ daemon whose ``TPKT_SERVE_BUCKETS`` names it re-reads on ``undrain``; a
 loss records ``adapt_rejected`` and touches no table file. Either way
 the verdict lands in ``adapt.json`` and an ``adapt_canary`` event. The
 daemons run where the caller's environment puts them: on the card, or
-on the CPU under ``TPKT_SERVE_DEVICE=cpu``. ``--autotune`` other than
-``off`` is refused: re-tuning the candidate's kernels needs the port's
-tuning runner, which waits for the port bench (ROADMAP Queue A item 4).
+on the CPU under ``TPKT_SERVE_DEVICE=cpu``. ``--autotune smoke|quick``
+first re-tunes the kernels the candidate table names
+(``tuning/runner.py:tune_table``: a ``bench --one`` child a candidate,
+promotion into the tuning cache over the 3 % margin; ``smoke`` is the
+CPU pipeline proof, ``quick`` the reduced sweep on the card), so the
+candidate daemons start on tuned knobs.
 
 With no ``TPKT_HEALTH_JOURNAL`` the journal is a dated file in the adapt
 dir; ``propose`` mines ``--journal`` files, else that journal.
@@ -263,7 +267,7 @@ def _pooled(a, b):
     }
 
 
-def _cmd_canary(seed, requests, rate, margin, check):
+def _cmd_canary(seed, requests, rate, margin, check, autotune="off"):
     cand = adapt.load()
     if cand is None:
         print("optimize: no valid adapt.json candidate - run propose first "
@@ -282,6 +286,12 @@ def _cmd_canary(seed, requests, rate, margin, check):
 
     tables = {"incumbent": bucketing.bucket_configs(),
               "candidate": cand["table"]}
+    if autotune != "off":
+        from tpukernels_torch.tuning import runner
+
+        print(f"# re-autotuning the candidate table's kernels ({autotune})")
+        runner.tune_table(cand["table"], smoke=autotune == "smoke",
+                          quick=autotune == "quick", echo=print)
     tmp = tempfile.mkdtemp(prefix="tpkt_adapt_canary_")
     runs = {}
     try:
@@ -401,11 +411,9 @@ def main(argv=None):
     except ValueError as e:
         print(f"optimize: bad value for {a}: {e}", file=sys.stderr)
         return 2
-    if autotune != "off":
-        print(f"optimize: --autotune {autotune!r}: re-tuning the "
-              "candidate's kernels needs the port's tuning runner, which "
-              "waits for the port bench (ROADMAP Queue A item 4); only "
-              "'off' runs", file=sys.stderr)
+    if autotune not in ("off", "smoke", "quick"):
+        print(f"optimize: --autotune {autotune!r} (known: off, smoke, "
+              "quick)", file=sys.stderr)
         return 2
     if target is not None and not 0.0 < target <= 1.0:
         print(f"optimize: --target {target} must be in (0, 1]",
@@ -421,7 +429,8 @@ def main(argv=None):
         if verb == "propose":
             return _cmd_propose(journals, target)
         if verb == "canary":
-            return _cmd_canary(seed, requests, rate, margin, check)
+            return _cmd_canary(seed, requests, rate, margin, check,
+                               autotune)
         return _cmd_show()
     except (RuntimeError, ValueError) as e:
         print(f"optimize: {e}", file=sys.stderr)
