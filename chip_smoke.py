@@ -124,8 +124,24 @@ Builds the port's CUDA kernels from ``tpukernels_torch/csrc`` (into
    through the port's shim with ``TPKT_SERVE_SOCKET`` (served by the
    daemon, under its pid); SIGTERM (rc 0, socket and pidfile gone,
    ``serve_stop``); and that neither daemon built a library. The
-   daemon's ``device_inventory`` stamp is read back from its journal. It
-   prints one ``{"serve": ...}`` JSON line.
+   daemon's ``device_inventory`` stamp is read back from its journal.
+   First of all (step 9) it drives a third daemon, started with the
+   other two, at ``TPKT_SERVE_MESH=2``: the mesh tier, the daemon and
+   one follower rank on the card over host-staged gloo. Three requests
+   over their avatars (scan 2^24 and stencil2d 8192^2 x 8 bit for bit,
+   N-body 2^17 within rtol 5e-4 / atol 5e-5 of the single-device
+   dispatch in this process, whose answers it makes while the daemon
+   starts), their journal fields (``mesh_shape [2]``, a ``|mesh2``
+   bucket, ``bucketed`` false, a ``dispatch/<key>`` span with ``mesh``);
+   then the follower SIGKILLed while a histogram over its avatar is in
+   flight: that request's error reply, an in-avatar scan answered
+   meanwhile, the rebuilt group and the next mesh request right; then
+   its clean stop with no follower left. It prints each request's
+   client wall and spans beside the single-device ms, the bytes
+   broadcast and host-staged, the follower's start, the rebuild's
+   seconds and the tier's wall (start to stop, against 30 s), none of
+   them judged. It prints one ``{"serve": ...}`` JSON line (with
+   ``tier``); each kernel entry gains ``serve_tier_launches``.
 
 8. runs the distributed layer (``tpukernels_torch.parallel``): (a) one
    rank on NCCL (a group of one: NCCL takes one rank a card), the
@@ -3279,6 +3295,25 @@ SERVE_BURST_N, SERVE_RATE = 120, 40.0
 # phase 5's wrapper row of each burst kernel's configuration
 SERVE_P5 = {"vector_add": f"saxpy n={1 << 20}", "scan": f"scan n={SCAN_N}",
             "sgemm": "sgemm[high]"}
+# the mesh tier (step 9): a third daemon keeps TIER_RANKS ranks, itself
+# and a follower process on the one card (gloo, host-staged); three
+# requests over their avatars (aot.BENCH_CONFIGS: 2^22, 4096^2, 65 536),
+# each against the single-device dispatch in this process. N-body within
+# tests/test_torch_dispatch_mesh.py's band of the mesh twin
+TIER_RANKS = 2
+TIER_REQUESTS = (
+    ("scan", ((1 << 24,),), {}),
+    ("stencil2d", ((8192, 8192),), {"iters": 8}),
+    ("nbody", ((1 << 17,),) * 7, {"dt": 1e-3, "eps": 1e-2, "steps": 1}),
+)
+TIER_NBODY_BAND = (5e-4, 5e-5)
+# the request in flight when the follower is killed: a histogram over its
+# avatar whose rank 0 sleeps TIER_SLOW_S in its dispatch's fault point
+# (after the order went out), and the in-avatar request answered meanwhile
+TIER_DOOMED = ("histogram", ((1 << 23,),), {"nbins": 256})
+TIER_SLOW_S = 1.0
+TIER_MEANWHILE = ("scan", ((1 << 22,),), {})
+TIER_WALL_LIMIT_S = 30.0
 # one request under its avatar: operand shapes (padded up, cut back)
 SERVE_BELOW = {"vector_add": ((), (1_000_000,), (1_000_000,)),
                "scan": ((4_000_000,),),
@@ -3571,14 +3606,22 @@ def phase_serve(torch, times, rates, args, kept):
     shim, cbin = _build.build_shim(), _build.build_c_drivers()  # phase 6's
     libs = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
     plan = json.dumps({"wedge_dispatch": {"kernel": "scan", "times": 1}})
+    # the three daemons start together (the tier's follower too)
+    tier_d = ServeDaemon(root, "tier", TPKT_SERVE_MESH=str(TIER_RANKS),
+                         TPKT_FAULT_PLAN=json.dumps({"slow_dispatch": {
+                             "kernel": TIER_DOOMED[0],
+                             "delay_s": TIER_SLOW_S}}))
     main_d = ServeDaemon(root, "main")
     chaos_d = ServeDaemon(root, "chaos", TPKT_FAULT_PLAN=plan,
                           TPKT_SERVE_REQUEST_TIMEOUT_S="2")
     try:
         with knobs(TPKT_TUNING_CACHE_DIR=os.path.join(root, "tuning"),
                    TPKT_SERVE_SHM=None, TPKT_SERVE_SHM_MIN_BYTES=None):
+            # 9. the mesh tier first, so that its wall is its own
+            tier = serve_tier(torch, tier_d, args)
             out = serve_drive(torch, times, rates, args, main_d, chaos_d,
                               (shim, cbin), kept)
+        out["tier"] = tier
         # 8. clean stop
         for d in (main_d, chaos_d):
             stop = d.stop()
@@ -3586,22 +3629,22 @@ def phase_serve(torch, times, rates, args, kept):
                 f"socket and pidfile gone, serve_stop (served "
                 f"{stop['served']}, requeued {stop['requeued']}, uptime "
                 f"{stop['uptime_s']} s), stdout empty")
-        # 5. the daemons built nothing
+        # 5. the daemons (and the tier's followers) built nothing
         after = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
         if after != libs or any("nvcc" in d.stderr()
-                                for d in (main_d, chaos_d)):
+                                for d in (main_d, chaos_d, tier_d)):
             raise AssertionError(f"a serve daemon built a library: {libs} "
                                  f"-> {after}")
         log(f"PASS serve daemons built nothing ({len(libs)} libraries)")
-        for d in (main_d, chaos_d):
+        for d in (main_d, chaos_d, tier_d):
             keep_journal(d.journal)
         out["phase_s"] = round(time.perf_counter() - t_phase, 3)
         log(f"phase 7 wall {out['phase_s']:.1f} s")
         print(json.dumps({"serve": out}), flush=True)
         return out
     finally:
-        main_d.kill()
-        chaos_d.kill()
+        for d in (tier_d, main_d, chaos_d):
+            d.kill()
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -3625,6 +3668,201 @@ def serve_first_vs_warm(main_d, burst):
         log(f"PASS serve warm {key}: first dispatch {first:.3f} ms (its "
             f"library loaded, its plan made), warm p50 {rest:.3f} ms")
     return warm
+
+
+def tier_request(torch, tier_d, key, ops, statics, rid):
+    """One request to the tier's daemon; ``(outputs, client wall ms)``."""
+    from tpukernels_torch.serve import client as serve_client
+
+    with serve_client.ServeClient(tier_d.sock, timeout_s=300) as c:
+        c.next_request_id = rid
+        s0 = time.perf_counter()
+        got = as_tuple(c.dispatch(key, *ops, **statics))
+        return got, (time.perf_counter() - s0) * 1e3
+
+
+def tier_events(tier_d, rid):
+    """The tier daemon's ``serve_request`` of ``rid`` and its spans by
+    name (ms)."""
+    (ev,) = [e for e in tier_d.events("serve_request")
+             if e.get("request_id") == rid]
+    spans = {e["name"]: e for e in tier_d.events("span")
+             if e.get("request_id") == rid}
+    return ev, spans
+
+
+def tier_check(torch, label, key, got, want):
+    """The tier's answer against the single-device one: N-body within
+    TIER_NBODY_BAND, the others bit for bit."""
+    if key != "nbody":
+        serve_same(torch, label, got, want)
+        return
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(f"{label} [{i}]", host_tensor(torch, g), host_tensor(torch, w),
+              *TIER_NBODY_BAND)
+
+
+def serve_tier(torch, tier_d, args):
+    """Step 9 of phase 7: the mesh tier (``TPKT_SERVE_MESH``), a daemon
+    that keeps a follower rank beside it on the one card. While it and
+    its follower start, this process makes the operands and the
+    single-device answers (and times that dispatch); then three requests
+    over their avatars against them, the journal's fields, the follower
+    killed while a request is in flight (one error reply, an in-avatar
+    request answered meanwhile, the group rebuilt, the next mesh request
+    right) and the daemon stopped. Walls, spans, bytes and seconds are
+    printed, never judged."""
+    import numpy as np
+
+    from tpukernels_torch import registry
+    from tpukernels_torch.serve import client as serve_client
+
+    rng = np.random.default_rng(args.seed + 24)
+    cases = []
+    for key, shapes, statics in TIER_REQUESTS:
+        ops = serve_operands(rng, key, shapes, statics)
+        want, targs = serve_in_process(torch, key, ops, statics)
+        single = time_ms(lambda: registry.dispatch(key, *targs, **statics),
+                         3)
+        cases.append((key, shapes, statics, ops, want, single))
+        del targs
+    dkey, dshapes, dstatics = TIER_DOOMED
+    doomed = serve_operands(rng, dkey, dshapes, dstatics)
+    mkey, mshapes, mstatics = TIER_MEANWHILE
+    mops = serve_operands(rng, mkey, mshapes, mstatics)
+    mwant, _ = serve_in_process(torch, mkey, mops, mstatics)
+    torch.cuda.empty_cache()
+
+    pong = tier_d.wait_ready()
+    mt = pong["mesh_tier"]
+    if (not mt or mt["ranks"] != TIER_RANKS or mt["backend"] != "gloo"
+            or not mt["up"] or len(mt["followers"]) != TIER_RANKS - 1
+            or not mt["device"].startswith("cuda")):
+        raise AssertionError(f"serve tier: {pong}")
+    log(f"PASS serve tier start: {mt['ranks']} ranks ({mt['backend']} on "
+        f"{mt['device']}), follower pid(s) {mt['followers']}, the "
+        f"follower's start {mt['start_s']:.3f} s, ping after "
+        f"{tier_d.ready_s:.2f} s")
+    rows = {}
+    for key, shapes, statics, ops, want, single in cases:
+        rid = f"tier-{key}"
+        got, wall = tier_request(torch, tier_d, key, ops, statics, rid)
+        tier_check(torch, f"serve tier {key} "
+                   f"{'x'.join(map(str, shapes[0]))} over its avatar vs "
+                   "in-process dispatch", key, got, want)
+        ev, spans = tier_events(tier_d, rid)
+        disp = spans.get(f"serve/{key}/dispatch/{key}", {})
+        if (ev["mesh_shape"] != [TIER_RANKS] or ev["bucketed"]
+                or not ev["ok"]
+                or not ev["bucket"].endswith(f"|mesh{TIER_RANKS}")
+                or disp.get("mesh") != str(TIER_RANKS)):
+            raise AssertionError(f"serve tier {key}: {ev}; span {disp}")
+        rows[key] = r = {
+            "shape": list(shapes[0]), "client_ms": wall,
+            "dispatch_span_ms": disp["wall_s"] * 1e3,
+            "serve_span_ms": spans[f"serve/{key}"]["wall_s"] * 1e3,
+            "broadcast_span_ms":
+                spans[f"serve/{key}/mesh/broadcast"]["wall_s"] * 1e3,
+            "single_device_ms": single, "mesh_bytes": ev["mesh_bytes"],
+            "bucket": ev["bucket"]}
+        log(f"serve tier {key} {'x'.join(map(str, shapes[0]))}: client "
+            f"wall {wall:.3f} ms, serve/{key} {r['serve_span_ms']:.3f} ms, "
+            f"broadcast {r['broadcast_span_ms']:.3f} ms, dispatch/{key} "
+            f"(mesh {TIER_RANKS}) {r['dispatch_span_ms']:.3f} ms; the "
+            f"single-device dispatch {single:.4f} ms; bytes broadcast "
+            f"{ev['mesh_bytes']['broadcast']}, host-staged "
+            f"{ev['mesh_bytes']['host_staged']}")
+    log(f"PASS serve tier journal: {len(rows)} serve_request with "
+        f"mesh_shape [{TIER_RANKS}], bucketed false, buckets "
+        f"{[r['bucket'] for r in rows.values()]}, dispatch spans mesh "
+        f"{TIER_RANKS!r}")
+
+    # the follower killed while the doomed request is in flight
+    res = {}
+
+    def send():
+        try:
+            tier_request(torch, tier_d, dkey, doomed, dstatics,
+                         "tier-doomed")
+        except serve_client.ServeError as e:
+            res["error"] = str(e)
+        else:
+            res["error"] = None
+
+    before = tier_d.stats()["mesh_tier"]
+    thread = threading.Thread(target=send)
+    thread.start()
+    deadline = time.monotonic() + 60
+    while not tier_d.events("fault_injected"):
+        if time.monotonic() > deadline:
+            raise AssertionError("serve tier: the doomed request's fault "
+                                 "point was never reached")
+        time.sleep(0.02)
+    os.kill(before["followers"][0], signal.SIGKILL)
+    mgot, mwall = tier_request(torch, tier_d, mkey, mops, mstatics,
+                               "tier-meanwhile")
+    serve_same(torch, "serve tier in-avatar scan answered while the group "
+               "is broken vs in-process dispatch", mgot, mwant)
+    thread.join(120)
+    if thread.is_alive() or "mesh tier" not in (res.get("error") or ""):
+        raise AssertionError(f"serve tier: the doomed request got {res}")
+    # the next mesh request waits for the new group: the smallest of the
+    # three, N-body
+    key, shapes, statics, ops, want, _ = cases[-1]
+    got, after_ms = tier_request(torch, tier_d, key, ops, statics,
+                                 "tier-after")
+    tier_check(torch, f"serve tier {key} after the rebuild vs in-process "
+               "dispatch", key, got, want)
+    del cases
+    now = tier_d.stats()["mesh_tier"]
+    failed = [e.get("request_id") for e in tier_d.events("serve_request")
+              if not e["ok"]]
+    broken = tier_d.events("serve_mesh_broken")
+    ups = tier_d.events("serve_mesh_up")
+    meanwhile, _ = tier_events(tier_d, "tier-meanwhile")
+    if (failed != ["tier-doomed"] or len(broken) != 1
+            or broken[0]["exited"] != [{"pid": before["followers"][0],
+                                        "rc": -signal.SIGKILL}]
+            or [e["generation"] for e in ups] != [1, 2]
+            or now["generation"] != 2 or not now["up"]
+            or tier_d.events("serve_request_requeued")
+            or meanwhile["mesh_shape"] is not None
+            or not meanwhile["bucketed"]):
+        raise AssertionError(f"serve tier kill: failed {failed}, broken "
+                             f"{broken}, up {ups}, now {now}")
+    log(f"PASS serve tier kill follower pid {before['followers'][0]}: one "
+        f"error reply ({res['error'][:80]}...), the in-avatar scan "
+        f"answered meanwhile in {mwall:.3f} ms, generation 2 up (follower "
+        f"{now['followers']}, rebuild {now['rebuild_s']:.3f} s, its "
+        f"follower's start {now['start_s']:.3f} s), the next {key} right "
+        f"{after_ms:.3f} ms after it was sent, nothing requeued")
+    launches = {k: v for k, v in tier_d.stats()["launches"].items() if v}
+    stop = tier_d.stop()
+    wall = time.perf_counter() - tier_d.t0
+    followers = before["followers"] + now["followers"]
+    deadline = time.monotonic() + 10
+    while True:
+        under = descendants()
+        alive = [p for p in followers if under.get(p, ("Z",))[0] != "Z"]
+        if not alive or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    if alive:
+        raise AssertionError(f"serve tier: followers {alive} outlived "
+                             "their daemon")
+    log(f"PASS serve tier clean stop: rc 0, served {stop['served']}, no "
+        "follower left")
+    log(f"serve tier wall {wall:.1f} s from its daemon's start to its stop "
+        f"(limit {TIER_WALL_LIMIT_S:.0f} s: "
+        f"{'held' if wall <= TIER_WALL_LIMIT_S else 'missed'}); follower "
+        f"start {mt['start_s']:.3f} s, rebuild {now['rebuild_s']:.3f} s")
+    return {"ranks": TIER_RANKS, "backend": mt["backend"],
+            "ready_s": round(tier_d.ready_s, 3), "wall_s": round(wall, 3),
+            "follower_start_s": mt["start_s"],
+            "rebuild_s": now["rebuild_s"],
+            "rebuild_follower_start_s": now["start_s"],
+            "requests": rows, "meanwhile_ms": mwall, "after_ms": after_ms,
+            "launches": launches}
 
 
 def serve_drive(torch, times, rates, args, main_d, chaos_d, c_built, kept):
@@ -6882,6 +7120,8 @@ def run_all(torch, args):
         return {"name": name, "route": "cuda", "source": row.port_source,
                 "replaces": row.where, "launches": launches[name],
                 "serve_launches": serve["launches"].get(name, 0),
+                "serve_tier_launches":
+                    serve["tier"]["launches"].get(name, 0),
                 "fleet_launches": fleet["launches"].get(name, 0),
                 "chaos_launches": ops["launches"].get(name, 0),
                 "supervisor_launches": sup["launches"].get(name, 0),
@@ -6981,6 +7221,8 @@ def run_all(torch, args):
         "replaces": HELPER_KERNELS["sgemm_prep"].replaces,
         "launches": launches["sgemm_prep"],
         "serve_launches": serve["launches"].get("sgemm_prep", 0),
+        "serve_tier_launches":
+            serve["tier"]["launches"].get("sgemm_prep", 0),
         "fleet_launches": fleet["launches"].get("sgemm_prep", 0),
         "chaos_launches": ops["launches"].get("sgemm_prep", 0),
         "supervisor_launches": sup["launches"].get("sgemm_prep", 0),
@@ -7026,6 +7268,8 @@ def run_all(torch, args):
         "replaces": nb.where,
         "launches": dist["nccl"]["launches"]["nbody_forces_ij"],
         "serve_launches": serve["launches"].get("nbody_forces_ij", 0),
+        "serve_tier_launches":
+            serve["tier"]["launches"].get("nbody_forces_ij", 0),
         "fleet_launches": fleet["launches"].get("nbody_forces_ij", 0),
         "chaos_launches": ops["launches"].get("nbody_forces_ij", 0),
         "supervisor_launches": sup["launches"].get("nbody_forces_ij", 0),

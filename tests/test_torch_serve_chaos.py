@@ -173,7 +173,7 @@ def test_copy_accounting_of_the_lanes(tmp_path, monkeypatch):
     nbytes = x.nbytes
     monkeypatch.setenv("TPKT_SERVE_SHM_MIN_BYTES", "1024")  # as the daemon
     with _daemon(tmp_path) as d:
-        def delta(shm):
+        def delta(shm, want):
             if shm:
                 monkeypatch.delenv("TPKT_SERVE_SHM", raising=False)
             else:
@@ -184,12 +184,20 @@ def test_copy_accounting_of_the_lanes(tmp_path, monkeypatch):
                 np.testing.assert_array_equal(out,
                                               np.cumsum(x, dtype=np.int32))
                 assert c.staged_payloads == (1 if shm else 0)
-                return c.ping()["bytes_copied"] - before
+                # the daemon counts a reply's bytes after it sends them
+                # (the reference's order), so a ping at once may come
+                # before the count: read until it is there or a deadline
+                deadline = time.monotonic() + 5.0
+                while True:
+                    got = c.ping()["bytes_copied"] - before
+                    if got == want or time.monotonic() > deadline:
+                        return got
+                    time.sleep(0.01)
 
         # inline: the request's bytes in, the CPU copy, the result out
-        assert delta(shm=False) == 3 * nbytes
+        assert delta(False, 3 * nbytes) == 3 * nbytes
         # shm: only the CPU copy (the result rides a segment)
-        assert delta(shm=True) == nbytes
+        assert delta(True, nbytes) == nbytes
         lanes = d.events("serve_lane_negotiated")
         assert lanes and lanes[0]["lane"] == "shm"
 

@@ -106,6 +106,13 @@ HELPER_KERNELS = {
         "outside the TPU kernels)"),
 }
 
+# registry keys with a distributed twin in parallel/collectives.py, which
+# ``registry.dispatch_mesh`` runs (the reference's tuple). Here, not in
+# the registry, so that the serving daemon's admission
+# (``serve/bucketing.mesh_tier_for``) reads it without loading torch
+MESH_KERNELS = ("histogram", "nbody", "scan", "scan_exclusive",
+                "stencil2d", "stencil3d")
+
 LAUNCHES = {
     "saxpy": 0,
     "sgemm_prep": 0,

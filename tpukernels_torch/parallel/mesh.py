@@ -47,6 +47,7 @@ import torch
 from tpukernels_torch.utils import pick_device
 
 _MESHES: dict = {}  # (axes, shape, device, group) -> Mesh
+_LEAVE_AT_EXIT: list = []  # [True] once leave() is registered at exit
 
 
 def P(*axes) -> tuple:
@@ -118,18 +119,34 @@ def maybe_distributed_init(device=None) -> bool:
     if not 0 <= rank < world:
         raise ValueError(f"TPKT_PROCESS_ID={rank} out of range for "
                          f"TPKT_NUM_PROCESSES={world}")
+    timeout = os.environ.get("TPKT_COORDINATOR_TIMEOUT_S")
+    init_group(addr, world, rank, device,
+               timeout_s=float(timeout) if timeout is not None else None)
+    return True
+
+
+def init_group(addr: str, world: int, rank: int, device=None,
+               backend=None, timeout_s=None) -> str:
+    """Join the group of ``world`` ranks at the rendezvous ``addr`` (see
+    :func:`init_method`) as ``rank``, on ``device`` (:func:`local_device`)
+    with ``backend`` (default :func:`backend_for`); ``timeout_s`` bounds
+    the rendezvous and every collective (torch's default when None). The
+    process leaves it at exit (:func:`leave`), or earlier by calling
+    :func:`leave`, after which it may join another. Returns the
+    backend."""
     dev = local_device(device)
-    backend = backend_for(dev)
+    backend = backend or backend_for(dev)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     kw = {}
-    timeout = os.environ.get("TPKT_COORDINATOR_TIMEOUT_S")
-    if timeout is not None:
-        kw["timeout"] = datetime.timedelta(seconds=float(timeout))
-    dist.init_process_group(backend, init_method=init_method(addr),
-                            world_size=world, rank=rank, **kw)
-    atexit.register(leave)
-    return True
+    if timeout_s is not None:
+        kw["timeout"] = datetime.timedelta(seconds=float(timeout_s))
+    _dist().init_process_group(backend, init_method=init_method(addr),
+                               world_size=world, rank=rank, **kw)
+    if not _LEAVE_AT_EXIT:
+        _LEAVE_AT_EXIT.append(True)
+        atexit.register(leave)
+    return backend
 
 
 def leave() -> None:

@@ -19,6 +19,10 @@ import time as _time
 from typing import Callable, Dict
 
 from tpukernels_torch import aot as _aot
+# keys with a distributed twin in parallel/collectives.py, which
+# :func:`dispatch_mesh` runs (the reference's tuple; it lives beside the
+# kernel table, which loads no torch)
+from tpukernels_torch.kernels import MESH_KERNELS  # noqa: F401
 from tpukernels_torch.obs import metrics as _metrics
 from tpukernels_torch.obs import trace as _trace
 from tpukernels_torch.resilience import faults as _faults
@@ -32,11 +36,6 @@ PENDING: Dict[str, str] = {}
 # keys that ride a base kernel's TUNABLES, as in the reference:
 # scan_exclusive is a one-element shift of scan's result
 DERIVED_KERNELS = {"scan_exclusive": "scan"}
-
-# keys with a distributed twin in parallel/collectives.py, which
-# :func:`dispatch_mesh` runs (the reference's tuple)
-MESH_KERNELS = ("histogram", "nbody", "scan", "scan_exclusive",
-                "stencil2d", "stencil3d")
 
 _REGISTRY: Dict[str, Callable] = {}
 _TUNABLES: Dict[str, "_space.SearchSpace"] = {}
@@ -213,6 +212,47 @@ def _mesh_callable(name: str, n: int, device) -> Callable:
     return nbody
 
 
+def _mesh_size(mesh_shape) -> int:
+    """The ring's size of ``mesh_shape``; ValueError unless it is a
+    non-empty tuple whose product is at least 2."""
+    if not isinstance(mesh_shape, (tuple, list)) or not mesh_shape:
+        raise ValueError(
+            f"mesh_shape={mesh_shape!r}: expected a non-empty tuple")
+    n = 1
+    for d in mesh_shape:
+        n *= int(d)
+    if n < 2:
+        raise ValueError(
+            f"mesh_shape={mesh_shape!r}: a mesh tier needs >= 2 devices")
+    return n
+
+
+def _mesh_sources(name: str) -> tuple:
+    """The sources that date a mesh twin's compile row."""
+    return (("tpukernels_torch/parallel/collectives.py",)
+            + tuple(_aot.KERNEL_SOURCES.get(name, ())))
+
+
+def check_mesh(name: str, *args, mesh_shape=None, **statics) -> None:
+    """Refuse, on this rank alone and before any byte moves, a call that
+    :func:`dispatch_mesh` would refuse on every rank: a bad
+    ``mesh_shape`` (ValueError), a key outside :data:`MESH_KERNELS`
+    (KeyError), and, with the compile discipline on, a call the key's
+    wrapper would not take (ValueError): its row is ensured here, so the
+    call's own lookup is then the memo's. The serving daemon's mesh tier
+    runs it on rank 0 before it sends an order."""
+    n = _mesh_size(mesh_shape)
+    if name not in MESH_KERNELS:
+        raise KeyError(f"kernel {name!r} has no mesh-tier twin; mesh "
+                       f"kernels: {sorted(MESH_KERNELS)}")
+    if _aot.enabled():
+        try:
+            _aot.ensure(f"{name}@mesh{n}", args, statics,
+                        _mesh_sources(name))
+        except _aot._Unroutable as e:
+            raise ValueError(f"{name}@mesh{n}: {e}") from None
+
+
 def dispatch_mesh(name: str, *args, mesh_shape=None, **statics):
     """Run one call of ``name`` on its distributed twin over the process
     group: the reference's ``registry.dispatch_mesh`` in the port's SPMD
@@ -232,25 +272,15 @@ def dispatch_mesh(name: str, *args, mesh_shape=None, **statics):
     integrity guard under the key, and the ``dispatch.calls.<key>``,
     ``dispatch.mesh.<key>`` counters and the ``dispatch.wall_s.<key>``
     histogram."""
-    if not isinstance(mesh_shape, (tuple, list)) or not mesh_shape:
-        raise ValueError(
-            f"mesh_shape={mesh_shape!r}: expected a non-empty tuple")
-    n = 1
-    for d in mesh_shape:
-        n *= int(d)
-    if n < 2:
-        raise ValueError(
-            f"mesh_shape={mesh_shape!r}: a mesh tier needs >= 2 devices")
+    n = _mesh_size(mesh_shape)
     t0 = _time.perf_counter()
     with _trace.span(f"dispatch/{name}",
                      mesh="x".join(str(int(d)) for d in mesh_shape)):
         _faults.dispatch_fault(name)
         fn = _mesh_callable(name, n, _aot._device_of(args))
         if _aot.enabled():
-            out = _aot.run_cached(
-                f"{name}@mesh{n}", fn, args, statics,
-                sources=("tpukernels_torch/parallel/collectives.py",)
-                + tuple(_aot.KERNEL_SOURCES.get(name, ())))
+            out = _aot.run_cached(f"{name}@mesh{n}", fn, args, statics,
+                                  sources=_mesh_sources(name))
         else:
             out = fn(*args, **statics)
         out = _integrity.guard("registry", name, out, statics=statics)

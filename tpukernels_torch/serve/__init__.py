@@ -25,10 +25,10 @@ fleet's operations: ``top.py`` (``ctl top``, the live dashboard over the
 ``stats`` op) and ``chaos.py`` (``python -m
 tpukernels_torch.serve.chaos``, the seeded chaos campaign, which ends
 with ``python -m tpukernels_torch.obs.report --check`` over its own
-journal). What of the reference's serving still waits (ROADMAP.md Queue
-A item 7): the mesh tier (``bucketing.mesh_tier_for`` stays None:
-``registry.dispatch_mesh`` is collective, and the one-process daemon has
-no group of follower ranks to call it with).
+journal). The mesh tier is ``mesh_tier.py``: with ``TPKT_SERVE_MESH=n``
+a daemon keeps n - 1 follower ranks beside it, and an over-avatar
+request that ``bucketing.mesh_tier_for`` admits runs on
+``registry.dispatch_mesh`` over them.
 
 Standard library and numpy at import; torch loads with ``server.py``, in
 the daemons only: the router, health manager, guardian, ctl, top and the

@@ -43,6 +43,8 @@ import os
 import numpy as np
 
 from tpukernels_torch import aot
+from tpukernels_torch.kernels import MESH_KERNELS
+from tpukernels_torch.serve.proc import int_knob
 
 DEFAULT_MAX_PAD_FRAC = 0.5
 
@@ -378,12 +380,42 @@ def bucket_id(kernel: str, spec, statics: dict, arrays=None) -> str:
     return f"{kernel}|{shapes}|{stat or '-'}"
 
 
+def mesh_ranks() -> int:
+    """``TPKT_SERVE_MESH``: the ranks of the daemon's standing group,
+    itself and its followers (``serve/mesh_tier.py``); default 1, no
+    tier. A value that does not parse or lies under 1 raises
+    ValueError."""
+    return int_knob("TPKT_SERVE_MESH", 1)
+
+
 def mesh_tier_for(kernel: str, arrays, statics: dict):
-    """The mesh shape an over-avatar request could run on, or None. The
-    port has ``registry.dispatch_mesh``, but it is collective: every rank
-    of a process group calls it, one rank a process, and the daemon is
-    one process. A tier of two or more ranks needs a standing group of
-    follower ranks beside the daemon (ROADMAP.md Queue A item 7), so
-    this is always None: the reference's answer on a host with one
-    device, and an over-avatar request dispatches at its own shape."""
-    return None
+    """Mesh shape tuple ``(n,)`` when an over-avatar request can route
+    to the mesh tier (``registry.dispatch_mesh`` over the daemon's
+    standing group, ``serve/mesh_tier.py``), else ``None``. The server
+    consults it ONLY after :func:`bucket_for` came back ``(None,
+    "over-avatar")``, so a request that merely mismatched layout or
+    statics never lands here.
+
+    The reference's rules: the kernel has a mesh twin
+    (``MESH_KERNELS``), n > 1, and the sharded leading dim divides the
+    ring (every distributed kernel's ``N % P == 0`` contract); N-body
+    also needs its seven arrays on one ``(N,)``, anything else would
+    fail inside the kernel. One divergence by design: n is
+    :func:`mesh_ranks`, the ranks of the daemon's group (one process a
+    rank, as ``TPKT_MESH`` counts them), where the reference counts
+    devices. Admission reads the env only and loads no torch (the
+    router imports this module)."""
+    if kernel not in MESH_KERNELS:
+        return None
+    n = mesh_ranks()
+    if n <= 1:
+        return None
+    shapes = [tuple(np.asarray(a).shape) for a in arrays]
+    lead = next((s[0] for s in shapes if s), None)
+    if not lead or lead % n:
+        return None
+    if kernel == "nbody" and (
+        len(shapes) != 7 or any(s != (lead,) for s in shapes)
+    ):
+        return None
+    return (n,)

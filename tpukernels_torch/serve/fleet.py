@@ -26,7 +26,8 @@ fleet. ``TPKT_SERVE_SOCKET`` is scrubbed from every child: it is the
 client's routing switch, and a fleet member resolving its own socket
 through it would dispatch into itself. ``TPKT_SERVE_DEVICE`` passes
 through unchanged, so the workers serve on the card unless the caller
-asks for the CPU. A child whose caller chose no journal
+asks for the CPU, and so does ``TPKT_SERVE_MESH``: each worker then
+keeps its own mesh tier of follower ranks (``serve/mesh_tier.py``). A child whose caller chose no journal
 (``TPKT_HEALTH_JOURNAL`` unset) journals into the caller's serve
 directory, so the router and every worker write one dated file
 (the reference's members all default to its one dated repo file).

@@ -69,10 +69,12 @@ library, numpy and the bucket table): it computes bucket keys from the
 header's arg specs alone (``bucketing.spec_stubs``; it never reads a
 payload byte) and relays inline payloads verbatim. On the shm lane it
 relays only segment descriptors (``serve.bytes_copied.<kernel>`` counts
-what still crosses it inline). The port has no mesh tier
-(``bucketing.mesh_tier_for``), so an over-avatar request is routed on
-its own shape's bucket and dispatched at that shape. Clean-path stdout
-is empty (notes to stderr, evidence to the journal).
+what still crosses it inline). It routes an over-avatar request on
+its own shape's bucket, as the reference's router does: the worker that
+takes it adds the mesh tier's ``|mesh<n>`` suffix when its own tier
+admits it (``bucketing.mesh_tier_for``; each worker keeps its own
+follower ranks, ``serve/mesh_tier.py``). Clean-path stdout is empty
+(notes to stderr, evidence to the journal).
 
 Run it: ``python -m tpukernels_torch.serve.router --socket FRONT --worker
 W0.sock --worker W1.sock ...``, or let ``python -m

@@ -40,6 +40,14 @@ Everything above the dispatch is the reference's logic:
   its grace doubled once, a wedged worker is abandoned and replaced, and
   its request is requeued once (``serve_request_requeued``) before it
   fails loudly.
+- **The mesh tier**: an over-avatar request of a ``MESH_KERNELS`` key
+  whose leading dim divides the tier's ranks
+  (``bucketing.mesh_tier_for``, ``TPKT_SERVE_MESH`` > 1) runs on the
+  kernel's distributed twin, ``registry.dispatch_mesh``, over a standing
+  group of follower ranks the daemon keeps beside it
+  (``serve/mesh_tier.py``), under its own bucket (``...|mesh<n>``); it
+  never falls back to one device, and a broken group fails it with an
+  error reply and is rebuilt.
 - **Replay memo** (the port's own): a successful answer of a request that
   carries a request_id is kept (``REPLAY_MEMO_*``: small answers, for a
   while), and a replay of that request_id (``replay`` > 0, from a fleet
@@ -155,11 +163,13 @@ class _Request:
                  "spec", "pad_frac", "bucket", "conn", "t_enq",
                  "t_start", "requeues", "patience", "done", "lock",
                  "worker_ident", "tenant", "shm_ok", "request_id",
-                 "shapes", "dtypes", "replayed", "deadline_at")
+                 "shapes", "dtypes", "replayed", "deadline_at",
+                 "mesh_shape", "mesh_bytes")
 
     def __init__(self, serial, rid, kernel, statics, arrays, spec,
                  pad_frac, bucket, conn, tenant=None, shm_ok=False,
-                 request_id=None, replayed=None, deadline_at=None):
+                 request_id=None, replayed=None, deadline_at=None,
+                 mesh_shape=None):
         self.serial = serial  # server-side key: client ids can collide
         self.rid = rid
         # the client-minted causal id (docs/OBSERVABILITY.md §request
@@ -188,6 +198,10 @@ class _Request:
         # time ever crosses the wire, so clock skew cannot expire (or
         # resurrect) a request; None means no deadline
         self.deadline_at = deadline_at
+        # the admission-time mesh-tier decision (bucketing.mesh_tier_for):
+        # a non-None shape runs this over-avatar request on the tier
+        self.mesh_shape = tuple(mesh_shape) if mesh_shape else None
+        self.mesh_bytes = None     # the tier's wire bytes, once it ran
         self.shm_ok = shm_ok       # client negotiated the shm lane
         self.t_enq = time.perf_counter()
         self.t_start = None
@@ -280,6 +294,10 @@ class _BoundedQueue:
             return len(self._d)
 
 
+class _MeshExpired(Exception):
+    """A mesh request's deadline passed before its order went out."""
+
+
 def serve_device(requested=None) -> torch.device:
     """The device the daemon serves on: ``requested``, else
     ``TPKT_SERVE_DEVICE``, else the card (``pick_device``: raises when
@@ -365,10 +383,32 @@ class Server:
         # as a per-request "bad request" to every client — which capi
         # treats as authoritative and never falls back from
         bucketing.bucket_configs()
+        # the mesh tier's ranks (a bad TPKT_SERVE_MESH refuses to start);
+        # the group itself forms in start_tier, before the daemon listens
+        self.mesh_ranks = bucketing.mesh_ranks()
+        self._tier = None
 
     # -------------------------------------------------------------- #
     # lifecycle                                                      #
     # -------------------------------------------------------------- #
+
+    def start_tier(self, tier=None):
+        """Form the mesh tier's group when ``TPKT_SERVE_MESH`` > 1,
+        joining the followers of ``tier`` (``mesh_tier.spawn_early``'s)
+        or spawning them from this thread (which must live as long as
+        the daemon); raises when it cannot form, and the daemon then
+        does not start (``mesh_tier.group_timeout_s`` bounds the
+        group)."""
+        if self.mesh_ranks <= 1:
+            return
+        from tpukernels_torch.serve import mesh_tier
+
+        if tier is None:
+            tier = mesh_tier.MeshTier(
+                self.mesh_ranks, self.device, mesh_tier.tier_root(),
+                mesh_tier.group_timeout_s())
+        tier.start(self.device)
+        self._tier = tier
 
     def serve_forever(self):
         d = os.path.dirname(self.socket_path)
@@ -393,6 +433,7 @@ class Server:
             batch_adapt=self.batch_adapt,
             request_timeout_s=self.request_timeout_s,
             lanes=self._lanes(), shm_swept=swept,
+            mesh=self._tier.stats() if self._tier is not None else None,
         )
         for _ in range(self.workers):
             self._spawn_worker()
@@ -432,6 +473,8 @@ class Server:
                 os.unlink(self.socket_path)
             except OSError:
                 pass
+            if self._tier is not None:
+                self._tier.stop()
             journal.emit(
                 "serve_stop", served=self._served,
                 rejected=self._rejected, requeued=self._requeued,
@@ -559,6 +602,10 @@ class Server:
             # None when TPKT_METRICS_FLUSH_S is off; a value growing
             # past the flush interval means the flusher thread died
             "last_snapshot_age_s": obs_metrics.last_flush_age_s(),
+            # the port's own: the mesh tier's ranks, backend, generation
+            # and followers' pids (None without a tier)
+            "mesh_tier": (self._tier.stats() if self._tier is not None
+                          else None),
         }
 
     def _stats_full(self) -> dict:
@@ -637,9 +684,21 @@ class Server:
             )
             spec, how = bucketing.bucket_for(kernel, arrays, statics)
             pad_frac = how if spec is not None else 0.0
-            # an over-avatar request dispatches at its own shape: the
-            # port has no mesh tier yet (bucketing.mesh_tier_for)
+            # the over-avatar escape hatch: a request too big for every
+            # avatar may run on the kernel's distributed twin over the
+            # tier's group. Only the over-avatar reason consults the
+            # tier; every other native reason keeps the single-device
+            # dispatch at its own shape
+            mesh_shape = (
+                bucketing.mesh_tier_for(kernel, arrays, statics)
+                if spec is None and how == "over-avatar" else None
+            )
             bucket = bucketing.bucket_id(kernel, spec, statics, arrays)
+            if mesh_shape is not None:
+                # its own coalescing and locking key: the mesh program
+                # is another executable than the same shapes on one
+                # device
+                bucket += "|mesh" + "x".join(str(d) for d in mesh_shape)
         except (KeyError, ValueError, TypeError, AttributeError,
                 protocol.ProtocolError) as e:
             # TypeError/AttributeError cover structurally malformed
@@ -675,7 +734,8 @@ class Server:
                                  and not isinstance(replay, bool)
                                  and replay > 0 else None),
                        deadline_at=protocol.deadline_from_header(
-                           header))
+                           header),
+                       mesh_shape=mesh_shape)
         try:
             self._q.put_nowait(req)
         except _queue_mod.Full:
@@ -1084,9 +1144,12 @@ class Server:
             # dispatch/<key> is the request's copies
             with trace.span(f"serve/{req.kernel}", bucket=req.bucket,
                             device=str(self.device)):
-                out = registry.dispatch(req.kernel,
-                                        *self._upload(req.kernel, args),
-                                        **req.statics)
+                if req.mesh_shape is not None:
+                    out = self._run_mesh(req)
+                else:
+                    out = registry.dispatch(req.kernel,
+                                            *self._upload(req.kernel, args),
+                                            **req.statics)
                 outs = tuple(
                     o.cpu().numpy()
                     for o in (out if isinstance(out, (tuple, list))
@@ -1094,6 +1157,9 @@ class Server:
                 )
             if meta is not None:
                 outs = bucketing.unpad_outputs(req.kernel, meta, outs)
+        except _MeshExpired:
+            self._expire(req, where="mesh", queue_wait=queue_wait)
+            return
         except Exception as e:  # noqa: BLE001 — reported to the client
             if req.claim_done():
                 self._finish(req, None, error=repr(e),
@@ -1122,6 +1188,48 @@ class Server:
                          batch_size=batch_size, wall=wall)
         # else: the watchdog already answered for this request (the
         # wedge finally unwound, or the requeue raced us) — discard
+
+    def _run_mesh(self, req: _Request):
+        """One request on the mesh tier (``serve/mesh_tier.py``): the
+        refusals on this rank before any order (``registry.check_mesh``,
+        the deadline), a wait for the tier lock with the group up (at
+        most half the request timeout, and never past the deadline),
+        then the order. Its outputs are rank 0's, on the device."""
+        from tpukernels_torch import registry
+        from tpukernels_torch.serve.mesh_tier import MeshTierUnavailable
+
+        tier = self._tier
+        dev_args = self._upload(req.kernel, req.arrays)
+        registry.check_mesh(req.kernel, *dev_args,
+                            mesh_shape=req.mesh_shape, **req.statics)
+        wait = self.request_timeout_s * 0.5
+        if req.deadline_at is not None:
+            wait = min(wait, req.deadline_at - time.monotonic())
+        w0 = time.perf_counter()
+        if not tier.acquire(wait):
+            if (req.deadline_at is not None
+                    and time.monotonic() >= req.deadline_at):
+                raise _MeshExpired
+            raise MeshTierUnavailable(
+                f"mesh tier: no group of {tier.n} ranks within {wait:.1f} "
+                f"s (generation {tier.generation})")
+        try:
+            trace.emit_span("mesh/wait", time.perf_counter() - w0,
+                            bucket=req.bucket)
+            if (req.deadline_at is not None
+                    and time.monotonic() >= req.deadline_at):
+                raise _MeshExpired
+            try:
+                out, req.mesh_bytes = tier.run(req.kernel, req.arrays,
+                                               dev_args, req.statics)
+            except Exception as e:
+                raise RuntimeError(
+                    f"mesh tier: generation {tier.generation} broke during "
+                    f"the request ({e!r}); it is rebuilt and the request "
+                    "is not run again") from e
+        finally:
+            tier.release()
+        return out
 
     def _finish(self, req: _Request, outs, error=None,
                 queue_wait=None, batch_size=None, wall=None,
@@ -1182,8 +1290,11 @@ class Server:
             tenant=req.tenant,
             bucket=req.bucket, pad_frac=round(req.pad_frac, 6),
             bucketed=req.spec is not None,
-            # the reference's field: None, the port has no mesh tier
-            mesh_shape=None,
+            # non-None iff the request ran on the mesh tier
+            mesh_shape=(list(req.mesh_shape)
+                        if req.mesh_shape is not None else None),
+            # the port's own: the tier's broadcast and host-staged bytes
+            mesh_bytes=req.mesh_bytes,
             # the per-request shape-mix record (requested, PRE-pad
             # shapes/dtypes): the input the reference's bucket-table
             # optimizer (serve/adapt.py) mines
@@ -1289,10 +1400,58 @@ class Server:
             for req in overdue:
                 self._handle_wedge(req)
 
+    def _abandon(self, req: _Request):
+        """Abandon the worker thread of ``req`` (it retires when it
+        unwinds), start its replacement and requeue the batch members it
+        had not started."""
+        if req.worker_ident is None:
+            return
+        with self._lock:
+            self._abandoned.add(req.worker_ident)
+            # rescue batch members coalesced behind the wedge: they were
+            # never started (not in _inflight) and the abandoned thread
+            # will never reach its hand-back — drain under the lock so a
+            # late-unwinding worker cannot pop a request we requeue
+            pend = self._worker_pending.pop(req.worker_ident, None)
+            stranded = list(pend) if pend else []
+            if pend:
+                pend.clear()
+        self._spawn_worker()
+        for rest in stranded:
+            # forced: already admitted, must not bounce off backpressure
+            # on the rescue
+            self._q.put_nowait(rest, force=True)
+
+    def _handle_mesh_wedge(self, req: _Request):
+        """A mesh request past its grace: no second grace and no requeue
+        (its group is suspect). The group is broken at once, so an order
+        stuck in a collective raises and the keeper rebuilds; the worker
+        is abandoned and the request answered with an error."""
+        with self._lock:
+            if self._inflight.pop(req.serial, None) is None:
+                return
+        obs_metrics.inc("watchdog.kills")
+        journal.emit(
+            "watchdog_fire", mechanism="serve-mesh-break", site="serve",
+            timeout_s=self.request_timeout_s, kernel=req.kernel,
+            request=req.rid,
+        )
+        self._tier.break_group(f"request {req.rid} past its grace")
+        self._abandon(req)
+        if req.claim_done():
+            self._finish(
+                req, None,
+                error=(f"mesh tier: request past its grace (> "
+                       f"{self.request_timeout_s * 1.5:.1f}s); the group "
+                       "is rebuilt and the request not run again"))
+
     def _handle_wedge(self, req: _Request):
         with self._lock:
             if self._inflight.get(req.serial) is not req:
                 return
+        if req.mesh_shape is not None:
+            self._handle_mesh_wedge(req)
+            return
         # classify BEFORE abandoning: a live device means this may be
         # a legitimately slow attempt — a first request that builds a
         # library can outlast any fixed grace — and abandoning it would
@@ -1321,23 +1480,7 @@ class Server:
             timeout_s=self.request_timeout_s, kernel=req.kernel,
             request=req.rid,
         )
-        if req.worker_ident is not None:
-            with self._lock:
-                self._abandoned.add(req.worker_ident)
-                # rescue batch members coalesced behind the wedge:
-                # they were never started (not in _inflight) and the
-                # abandoned thread will never reach its hand-back —
-                # drain under the lock so a late-unwinding worker
-                # cannot pop a request we are about to requeue
-                pend = self._worker_pending.pop(req.worker_ident, None)
-                stranded = list(pend) if pend else []
-                if pend:
-                    pend.clear()
-            self._spawn_worker()
-            for rest in stranded:
-                # forced: already admitted, must not bounce off
-                # backpressure on the rescue
-                self._q.put_nowait(rest, force=True)
+        self._abandon(req)
         if req.requeues < 1:
             req.requeues += 1
             req.t_start = None
@@ -1373,7 +1516,9 @@ class Server:
 # CLI entry (python -m tpukernels_torch.serve)                       #
 # ------------------------------------------------------------------ #
 
-def main(argv=None):
+def main(argv=None, tier=None):
+    """The daemon's command line; ``tier`` a ``mesh_tier.MeshTier`` whose
+    followers were started before torch loaded (``__main__.py``)."""
     import signal
 
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -1431,6 +1576,14 @@ def main(argv=None):
         print(f"serve: {e}", file=sys.stderr)
         return 3
 
+    try:
+        server.start_tier(tier)
+    except Exception as e:  # noqa: BLE001 — no tier, no daemon
+        print(f"serve: the mesh tier of {server.mesh_ranks} ranks "
+              f"(TPKT_SERVE_MESH) did not form: {e!r}", file=sys.stderr)
+        pidfile.close()
+        os.unlink(_cachedir.serve_pidfile_path())
+        return 1
     from tpukernels_torch.obs import scaling as obs_scaling
 
     obs_scaling.emit_inventory("serve")
@@ -1439,8 +1592,8 @@ def main(argv=None):
     signal.signal(signal.SIGINT, server.stop)
     print(f"# serve: listening on {server.socket_path} "
           f"(pid {os.getpid()}, {server.device}, workers "
-          f"{server.workers}, queue max {server.queue_max})",
-          file=sys.stderr)
+          f"{server.workers}, queue max {server.queue_max}, mesh tier "
+          f"{server.mesh_ranks} rank(s))", file=sys.stderr)
     try:
         server.serve_forever()
     except OSError as e:
