@@ -3313,7 +3313,15 @@ TIER_NBODY_BAND = (5e-4, 5e-5)
 TIER_DOOMED = ("histogram", ((1 << 23,),), {"nbins": 256})
 TIER_SLOW_S = 1.0
 TIER_MEANWHILE = ("scan", ((1 << 22,),), {})
-TIER_WALL_LIMIT_S = 30.0
+# the wedge, first: the tier's first scan dispatch (TIER_REQUESTS[0]'s)
+# hangs on rank 0; its grace is 1.5 request timeouts, doubled once while
+# the card and the follower answer (3 x TIER_TIMEOUT_S = 7.5 s), well
+# over every tier request's serve span (at most 1.4 s in AP2/APR), so
+# the case costs the grace, the rebuild and the scan: about 15 s. The
+# group keeps the 60 s timeout it had at the daemon's default
+TIER_TIMEOUT_S = 2.5
+TIER_GROUP_TIMEOUT_S = 60
+TIER_WALL_LIMIT_S = 45.0
 # one request under its avatar: operand shapes (padded up, cut back)
 SERVE_BELOW = {"vector_add": ((), (1_000_000,), (1_000_000,)),
                "scan": ((4_000_000,),),
@@ -3608,9 +3616,14 @@ def phase_serve(torch, times, rates, args, kept):
     plan = json.dumps({"wedge_dispatch": {"kernel": "scan", "times": 1}})
     # the three daemons start together (the tier's follower too)
     tier_d = ServeDaemon(root, "tier", TPKT_SERVE_MESH=str(TIER_RANKS),
-                         TPKT_FAULT_PLAN=json.dumps({"slow_dispatch": {
-                             "kernel": TIER_DOOMED[0],
-                             "delay_s": TIER_SLOW_S}}))
+                         TPKT_SERVE_REQUEST_TIMEOUT_S=str(TIER_TIMEOUT_S),
+                         TPKT_COORDINATOR_TIMEOUT_S=str(TIER_GROUP_TIMEOUT_S),
+                         TPKT_FAULT_PLAN=json.dumps({
+                             "slow_dispatch": {"kernel": TIER_DOOMED[0],
+                                               "delay_s": TIER_SLOW_S},
+                             "wedge_dispatch": {
+                                 "kernel": TIER_REQUESTS[0][0],
+                                 "times": 1}}))
     main_d = ServeDaemon(root, "main")
     chaos_d = ServeDaemon(root, "chaos", TPKT_FAULT_PLAN=plan,
                           TPKT_SERVE_REQUEST_TIMEOUT_S="2")
@@ -3702,16 +3715,85 @@ def tier_check(torch, label, key, got, want):
               *TIER_NBODY_BAND)
 
 
+def tier_wedge(torch, tier_d, case, mcase):
+    """Step 9's wedge: the first scan over its avatar hangs on rank 0
+    (``wedge_dispatch``, times 1); the watchdog gives it one more grace
+    (the card and the follower answer), then breaks generation 1,
+    abandons the worker and requeues the request once, and generation 2
+    answers it bit for bit while an in-avatar scan is answered
+    meanwhile. Returns the walls."""
+    from tpukernels_torch.serve import client as serve_client
+
+    key, shapes, statics, ops, want, _ = case
+    mkey, mops, mstatics, mwant = mcase
+    res = {}
+
+    def send():
+        try:
+            res["got"], res["ms"] = tier_request(torch, tier_d, key, ops,
+                                                 statics, "tier-wedged")
+        except serve_client.ServeError as e:
+            res["error"] = str(e)
+
+    thread = threading.Thread(target=send)
+    thread.start()
+    deadline = time.monotonic() + 60
+    while not [e for e in tier_d.events("fault_injected")
+               if e.get("fault") == "wedge_dispatch"]:
+        if time.monotonic() > deadline:
+            raise AssertionError("serve tier: the wedged request's fault "
+                                 "point was never reached")
+        time.sleep(0.02)
+    mgot, mwall = tier_request(torch, tier_d, mkey, mops, mstatics,
+                               "tier-wedge-meanwhile")
+    serve_same(torch, "serve tier in-avatar scan answered while a mesh "
+               "order is wedged vs in-process dispatch", mgot, mwant)
+    thread.join(120)
+    if thread.is_alive() or "got" not in res:
+        raise AssertionError(f"serve tier: the wedged request got {res}")
+    tier_check(torch, f"serve tier {key} wedged, requeued and answered by "
+               "generation 2 vs in-process dispatch", key, res["got"], want)
+    now = tier_d.stats()["mesh_tier"]
+    (wedge,) = [e for e in tier_d.events("fault_injected")
+                if e.get("fault") == "wedge_dispatch"]
+    fires = tier_d.events("watchdog_fire")
+    requeued = tier_d.events("serve_request_requeued")
+    verdicts = [e["verdict"] for e in tier_d.events("wedge_classification")]
+    ups = tier_d.events("serve_mesh_up")
+    ev, _ = tier_events(tier_d, "tier-wedged")
+    if (len(fires) != 1 or fires[0]["mechanism"] != "serve-abandon"
+            or len(requeued) != 1 or not verdicts
+            or [e["generation"] for e in ups] != [1, 2]
+            or len(tier_d.events("serve_mesh_broken")) != 1
+            or now["generation"] != 2 or not now["up"]
+            or not ev["ok"] or ev["requeues"] != 1
+            or ev["mesh_shape"] != [TIER_RANKS]):
+        raise AssertionError(f"serve tier wedge: fires {fires}, requeued "
+                             f"{requeued}, verdicts {verdicts}, up {ups}, "
+                             f"now {now}, served {ev}")
+    grace = fires[0]["t"] - wedge["t"]
+    log(f"PASS serve tier wedge: the {key} order wedged on rank 0, judged "
+        f"{' then '.join(verdicts)}, its grace {grace:.3f} s (the fault to "
+        f"the watchdog's fire), requeued once, generation 2 up after "
+        f"{now['rebuild_s']:.3f} s (its follower's start "
+        f"{now['start_s']:.3f} s), the client's wall {res['ms']:.3f} ms; "
+        f"the in-avatar scan answered meanwhile in {mwall:.3f} ms")
+    return {"grace_s": round(grace, 3), "rebuild_s": now["rebuild_s"],
+            "client_ms": res["ms"], "meanwhile_ms": mwall}
+
+
 def serve_tier(torch, tier_d, args):
     """Step 9 of phase 7: the mesh tier (``TPKT_SERVE_MESH``), a daemon
     that keeps a follower rank beside it on the one card. While it and
     its follower start, this process makes the operands and the
-    single-device answers (and times that dispatch); then three requests
-    over their avatars against them, the journal's fields, the follower
-    killed while a request is in flight (one error reply, an in-avatar
-    request answered meanwhile, the group rebuilt, the next mesh request
-    right) and the daemon stopped. Walls, spans, bytes and seconds are
-    printed, never judged."""
+    single-device answers (and times that dispatch); then a scan over its
+    avatar wedged on rank 0 (requeued once and answered by the next
+    generation, an in-avatar scan answered meanwhile), three requests
+    over their avatars against the single-device answers, the journal's
+    fields, the follower killed while a request is in flight (one error
+    reply, an in-avatar request answered meanwhile, the group rebuilt,
+    the next mesh request right) and the daemon stopped. Walls, spans,
+    bytes and seconds are printed, never judged."""
     import numpy as np
 
     from tpukernels_torch import registry
@@ -3743,6 +3825,7 @@ def serve_tier(torch, tier_d, args):
         f"{mt['device']}), follower pid(s) {mt['followers']}, the "
         f"follower's start {mt['start_s']:.3f} s, ping after "
         f"{tier_d.ready_s:.2f} s")
+    wedge = tier_wedge(torch, tier_d, cases[0], (mkey, mops, mstatics, mwant))
     rows = {}
     for key, shapes, statics, ops, want, single in cases:
         rid = f"tier-{key}"
@@ -3793,7 +3876,8 @@ def serve_tier(torch, tier_d, args):
     thread = threading.Thread(target=send)
     thread.start()
     deadline = time.monotonic() + 60
-    while not tier_d.events("fault_injected"):
+    while not [e for e in tier_d.events("fault_injected")
+               if e.get("fault") == "slow_dispatch"]:
         if time.monotonic() > deadline:
             raise AssertionError("serve tier: the doomed request's fault "
                                  "point was never reached")
@@ -3820,26 +3904,30 @@ def serve_tier(torch, tier_d, args):
     broken = tier_d.events("serve_mesh_broken")
     ups = tier_d.events("serve_mesh_up")
     meanwhile, _ = tier_events(tier_d, "tier-meanwhile")
-    if (failed != ["tier-doomed"] or len(broken) != 1
-            or broken[0]["exited"] != [{"pid": before["followers"][0],
+    # generation 1 went with the wedge, generation 2 with the kill
+    if (failed != ["tier-doomed"] or len(broken) != 2
+            or broken[1]["exited"] != [{"pid": before["followers"][0],
                                         "rc": -signal.SIGKILL}]
-            or [e["generation"] for e in ups] != [1, 2]
-            or now["generation"] != 2 or not now["up"]
-            or tier_d.events("serve_request_requeued")
+            or before["generation"] != 2
+            or [e["generation"] for e in ups] != [1, 2, 3]
+            or now["generation"] != 3 or not now["up"]
+            or len(tier_d.events("serve_request_requeued")) != 1
+            or tier_d.events("serve_mesh_stale_order")
             or meanwhile["mesh_shape"] is not None
             or not meanwhile["bucketed"]):
         raise AssertionError(f"serve tier kill: failed {failed}, broken "
                              f"{broken}, up {ups}, now {now}")
     log(f"PASS serve tier kill follower pid {before['followers'][0]}: one "
         f"error reply ({res['error'][:80]}...), the in-avatar scan "
-        f"answered meanwhile in {mwall:.3f} ms, generation 2 up (follower "
+        f"answered meanwhile in {mwall:.3f} ms, generation 3 up (follower "
         f"{now['followers']}, rebuild {now['rebuild_s']:.3f} s, its "
         f"follower's start {now['start_s']:.3f} s), the next {key} right "
-        f"{after_ms:.3f} ms after it was sent, nothing requeued")
+        f"{after_ms:.3f} ms after it was sent, nothing requeued but the "
+        "wedge")
     launches = {k: v for k, v in tier_d.stats()["launches"].items() if v}
     stop = tier_d.stop()
     wall = time.perf_counter() - tier_d.t0
-    followers = before["followers"] + now["followers"]
+    followers = mt["followers"] + before["followers"] + now["followers"]
     deadline = time.monotonic() + 10
     while True:
         under = descendants()
@@ -3862,7 +3950,7 @@ def serve_tier(torch, tier_d, args):
             "rebuild_s": now["rebuild_s"],
             "rebuild_follower_start_s": now["start_s"],
             "requests": rows, "meanwhile_ms": mwall, "after_ms": after_ms,
-            "launches": launches}
+            "wedge": wedge, "launches": launches}
 
 
 def serve_drive(torch, times, rates, args, main_d, chaos_d, c_built, kept):
@@ -6153,6 +6241,16 @@ def phase_ops(card):
             "12a chaos", "tpukernels_torch.serve.chaos", OPS_CAMPAIGN, env,
             timeout=600)
         used1 = card_memory_used()
+        # a worker's context is freed a moment after its process is gone,
+        # which the campaign's teardown may not wait for: the card gets
+        # up to 15 s to free it (a process left running holds it for good)
+        settle_s, t_used = 15.0, time.monotonic()
+        while (used0 is not None and used1 is not None
+               and used1 > used0 + 256
+               and time.monotonic() - t_used < settle_s):
+            time.sleep(0.5)
+            used1 = card_memory_used()
+        settled_s = time.monotonic() - t_used
         line = next(ln for ln in err.splitlines()
                     if ln.startswith("# chaos: seed "))
         schedule = line.split("schedule: ", 1)[1].split(", ")
@@ -6195,13 +6293,16 @@ def phase_ops(card):
                         ("slo_breach", "copy_regression", "trace_",
                          "pad_waste", "overlap_low", "p99_creep")):
                 log(f"12a chaos report: {ln}")
-        log(f"12a chaos: the card's memory.used {used0} -> {used1} MiB; "
-            f"tpkserve-* segments left {left}; campaign wall {wall:.1f} s")
+        log(f"12a chaos: the card's memory.used {used0} -> {used1} MiB "
+            f"({settled_s:.1f} s after the campaign); tpkserve-* segments "
+            f"left {left}; campaign wall {wall:.1f} s")
         # the workers' contexts went with them (a CUDA context holds
         # hundreds of MiB)
         if used0 is not None and used1 is not None and used1 > used0 + 256:
             raise AssertionError(f"12a chaos: the card's memory.used "
-                                 f"{used0} -> {used1} MiB after teardown")
+                                 f"{used0} -> {used1} MiB {settle_s:.0f} s "
+                                 f"after teardown; compute apps "
+                                 f"{compute_apps()}")
         log(f"PASS 12a chaos campaign on the card: rc 0, "
             f"{len(marks)} chaos_event markers, the workers launched scan "
             f"{launches['scan']} times")

@@ -355,10 +355,13 @@ LEAVE_AT_SHUTDOWN = """
 import torch.distributed as dist
 from tpukernels_torch import capi
 from tpukernels_torch.parallel import make_mesh
+from tpukernels_torch.parallel import mesh as M
 mesh = make_mesh(device="cpu")
 assert dist.is_initialized() and mesh.size == 1 and mesh.group is not None
 assert capi.shutdown_from_c() == 0
-assert not dist.is_initialized() and mesh.group is None
+# the mesh let go of its group: marked left, never None (None is the
+# default group, which a later join would make another one)
+assert not dist.is_initialized() and mesh.group is M.LEFT
 assert capi.shutdown_from_c() == 0  # nothing left to leave
 print("left")
 """

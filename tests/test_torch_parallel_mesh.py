@@ -7,7 +7,9 @@ shapes and their errors, and the blocks ``host_to_global`` cuts. The
 group itself is joined in child processes only (two gloo ranks through
 a ``file://`` rendezvous in ``tmp_path``): a 1-D ring, a 1 × 2 mesh and
 its sub-groups, the meshes each process keeps, the errors of a mesh
-that does not span the group, and the ``collective/<name>`` spans.
+that does not span the group, and the ``collective/<name>`` spans; two
+generations of a group, where a mesh of the left one, pinned, raises
+for every mesh key and leaves the next generation paired.
 """
 
 import json
@@ -266,3 +268,103 @@ def test_a_two_rank_group(tmp_path):
         assert ("collective/ring_shift", "gloo") in names
         assert ("collective/all_gather", "gloo") in names
         assert all(s["ok"] for s in spans)
+
+
+def test_a_pinned_mesh_is_the_one_make_mesh_gives(alone):
+    with M.pinned(alone) as m:
+        assert m is alone
+        assert M.make_mesh(device="cpu") is alone
+        assert M.make_mesh(1, device="cpu") is alone
+        with pytest.raises(ValueError, match="is pinned"):
+            M.make_mesh((1, 1), device="cpu")
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+        M.make_mesh(2, device="cpu")
+    # a mesh whose group was left: make_mesh under its pin and any use of
+    # the group raise, and the group is never None (a collective given
+    # None runs on the group current then)
+    left = M.Mesh(("x",), {"x": 2}, 0, torch.device("cpu"), "gloo", M.LEFT,
+                  {"x": M.Axis(2, 0, (0, 1), M.LEFT)})
+    with M.pinned(left), pytest.raises(M.GroupLeft):
+        M.make_mesh(2, device="cpu")
+    with pytest.raises(M.GroupLeft):
+        M.LEFT.allreduce
+    assert M.LEFT is not None and bool(M.LEFT)
+
+
+# two generations of a two-rank group, as the serving daemon's mesh tier
+# makes them: rank 0 keeps generation 1's mesh past leave() and runs every
+# mesh key on it, pinned, after generation 2 is up; then both ranks run
+# generation 2
+LEFT_GROUP = """
+import json, sys
+import torch
+from tpukernels_torch import registry
+from tpukernels_torch.parallel import collectives as C
+from tpukernels_torch.parallel import mesh as M
+
+rank, base = int(sys.argv[1]), sys.argv[2]
+M.init_group(f"file://{base}/g1", 2, rank, "cpu", backend="gloo",
+             timeout_s=60)
+m1 = M.make_mesh(2, device="cpu")
+M.leave()
+M.init_group(f"file://{base}/g2", 2, rank, "cpu", backend="gloo",
+             timeout_s=60)
+x = torch.arange(64, dtype=torch.int32)
+out = {"left": repr(m1.group)}
+if rank == 0:
+    g = torch.ones(16, 8)
+    cases = {"scan": (x,), "scan_exclusive": (x,), "histogram": (x,),
+             "stencil2d": (g,), "stencil3d": (torch.ones(8, 4, 4),),
+             "nbody": tuple(torch.rand(16) for _ in range(7))}
+    for key, args in cases.items():
+        with M.pinned(m1):
+            try:
+                registry.dispatch_mesh(key, *args, mesh_shape=(2,))
+                out[key] = "ran"
+            except M.GroupLeft:
+                out[key] = "GroupLeft"
+    for name, fn in (("all_gather", lambda: C.all_gather_rows(
+            torch.ones(4), m1, ("x",))), ("allreduce", lambda: C.allreduce_sum(
+            torch.ones(1, 4), m1))):
+        try:
+            fn()
+            out[name] = "ran"
+        except M.GroupLeft:
+            out[name] = "raised"
+        except ValueError as e:  # torch's refusal of a group it lacks
+            out[name] = "raised" if "left process group" in str(e) else repr(e)
+out["gen2"] = registry.dispatch_mesh("scan", x, mesh_shape=(2,)).tolist()
+M.leave()
+print(json.dumps(out))
+"""
+
+
+def test_a_mesh_of_a_left_group_reaches_no_later_group(tmp_path):
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPK_", "TPKT_"))}
+    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1", TPKT_AOT_CACHE="0",
+               TPKT_INTEGRITY="0", TPKT_HEALTH_JOURNAL="off")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(LEFT_GROUP), str(r),
+         str(tmp_path)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (o, e) in zip(procs, outs):
+        assert p.returncode == 0, e
+    want = np.cumsum(np.arange(64)).tolist()
+    for r, (o, _) in enumerate(outs):
+        got = json.loads(o.strip().splitlines()[-1])
+        assert got.pop("left") == "<left process group>"
+        # generation 2 stayed paired: rank 0's stale calls sent nothing
+        assert got.pop("gen2") == want
+        if r == 0:
+            assert got == {"scan": "GroupLeft", "scan_exclusive": "GroupLeft",
+                           "histogram": "GroupLeft", "stencil2d": "GroupLeft",
+                           "stencil3d": "GroupLeft", "nbody": "GroupLeft",
+                           "all_gather": "raised", "allreduce": "raised"}, got

@@ -25,10 +25,19 @@ keeps beside it (``tpukernels_torch/serve/mesh_tier.py``,
   ``tests/test_fleet.py``'s ``test_fleet_mesh_tier_oversized_request``,
   with one ``aot_miss`` for the mesh bucket across the fleet;
 - recovery: a follower SIGKILLed while a mesh request is in flight
-  gives exactly that request an error reply, an in-avatar request is
-  answered meanwhile, the rebuild is journaled and the next mesh
-  request is right; a mesh request past its grace is broken, answered
-  with an error and never requeued;
+  gives exactly that request an error reply and no requeue (the
+  reference has no followers: a divergence by design), an in-avatar
+  request is answered meanwhile, the rebuild is journaled and the next
+  mesh request is right;
+- the watchdog, on the reference's terms: a wedged mesh order is
+  requeued once onto the next generation and answered, or answered
+  ``wedged`` when it wedges twice, with the reference daemon's answer,
+  requeue and watchdog counts under the same plan (4 fake devices
+  there); a follower that dies under a wedged order makes it wedged at
+  once, and the wedged order's tier lock is retired so the group is
+  rebuilt without it; an abandoned order that wakes after the rebuild
+  raises on its own, left group and generation 2 stays whole; a fleet
+  fails a twice-wedged mesh bucket over to the sibling's tier;
 - lifetime: no follower is left after a clean stop or after the daemon
   is SIGKILLed, and a daemon whose group cannot form exits non-zero
   before it listens.
@@ -36,6 +45,7 @@ keeps beside it (``tpukernels_torch/serve/mesh_tier.py``,
 Every state path lies in a temporary directory.
 """
 
+import contextlib
 import json
 import os
 import signal
@@ -48,8 +58,9 @@ import time
 import numpy as np
 import pytest
 
-from test_torch_serve import ROOT, _daemon, _env
+from test_torch_serve import ROOT, _daemon, _env, _wait_ping
 from test_torch_serve_fleet import _ctl, _events
+from test_torch_serve_protocol import SMALL
 from tpukernels_torch.serve import client
 
 # ------------------------------------------------------------- admission
@@ -378,37 +389,264 @@ def test_a_follower_killed_in_flight_fails_one_request(tmp_path):
     assert _served(d, "mesh-after")["mesh_shape"] == [4]
 
 
+def _raw(sock, kernel, arrays, timeout_s=120.0, **statics):
+    """One dispatch over the wire: ``("ok", outputs)`` or ``(kind,
+    error)`` of the reply, as the daemon gave them (the client's
+    ``dispatch`` keeps no kind)."""
+    from tpukernels_torch.serve import protocol
+
+    specs, payloads = protocol.pack_arrays(arrays)
+    req = {"v": protocol.VERSION, "op": "dispatch", "id": 1,
+           "kernel": kernel, "statics": statics, "args": specs}
+    with client.ServeClient(sock, timeout_s=timeout_s) as c:
+        header, outs, _ = c._roundtrip(req, payloads)
+    if not header.get("ok"):
+        return header.get("kind"), header.get("error")
+    return "ok", protocol.unpack_arrays(header["outputs"], outs)
+
+
+def _until(pred, what, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        assert time.monotonic() < deadline, what
+        time.sleep(0.05)
+
+
 def test_a_mesh_request_past_its_grace_is_broken_not_requeued(tmp_path):
-    # the grace is 1.5 request timeouts: 3 s, well over a scan's time
-    # under load and well under the 6 s the fault holds the order
-    plan = {"slow_dispatch": {"kernel": "histogram", "delay_s": 6.0}}
+    """Past its grace, a mesh request is the watchdog's as any request
+    is, on the reference's terms: its group is broken and it is
+    requeued once onto the next generation, which answers it. Here the
+    order wedges on rank 0 and a follower is SIGKILLed meanwhile, so the
+    watchdog finds its generation broken and calls it wedged at once (no
+    second grace); the wedged order's tier lock is retired, so the
+    keeper, which waited for it, forms generation 2 without it."""
+    plan = {"wedge_dispatch": {"kernel": "histogram", "times": 1}}
     with _daemon(tmp_path, TPKT_FAULT_PLAN=json.dumps(plan),
                  TPKT_SERVE_REQUEST_TIMEOUT_S="2",
                  **_tier_env(tmp_path)) as d:
-        v = (np.arange(8192) % 64).astype(np.int32)
         with client.ServeClient(d.sock, timeout_s=60) as c:
-            c.next_request_id = "mesh-overdue"
-            with pytest.raises(client.ServeError, match="past its grace"):
-                c.dispatch("histogram", v, nbins=64)
-        # the next mesh request waits for the rebuilt group (its wait is
-        # half the request timeout: retry until the group is back)
+            first = c.stats()["mesh_tier"]
+        v = (np.arange(8192) % 64).astype(np.int32)
+        res = {}
+
+        def overdue():
+            res["got"] = _raw(d.sock, "histogram", [v], nbins=64)
+
+        t = threading.Thread(target=overdue)
+        t.start()
+        _until(lambda: d.events("fault_injected"), "no wedge")
+        os.kill(first["followers"][0], signal.SIGKILL)
+        t.join(120)
+        kind, got = res["got"]
+        assert kind == "ok", res
+        np.testing.assert_array_equal(got[0], np.bincount(v, minlength=64))
         x, want = _scan(32768)
-        deadline = time.monotonic() + 60
-        while True:
-            with client.ServeClient(d.sock, timeout_s=60) as c:
-                try:
-                    np.testing.assert_array_equal(c.dispatch("scan", x),
-                                                  want)
-                    break
-                except client.ServeError as e:
-                    assert "no group" in str(e), e
-                    assert time.monotonic() < deadline
-                    time.sleep(0.5)
-    assert not d.events("serve_request_requeued")
-    fires = [e for e in d.events("watchdog_fire")
-             if e.get("mechanism") == "serve-mesh-break"]
-    assert len(fires) == 1, fires
-    assert len(d.events("serve_mesh_up")) == 2
+        with client.ServeClient(d.sock, timeout_s=60) as c:
+            np.testing.assert_array_equal(c.dispatch("scan", x), want)
+            now = c.stats()["mesh_tier"]
+    assert now["generation"] == first["generation"] + 1 and now["up"], now
+    (req,) = d.events("serve_request_requeued")
+    assert req["kernel"] == "histogram", req
+    (fire,) = d.events("watchdog_fire")
+    assert fire["mechanism"] == "serve-abandon", fire
+    assert [e["verdict"] for e in d.events("wedge_classification")] == [
+        "wedged"]
+    (broken,) = d.events("serve_mesh_broken")
+    assert broken["exited"][0] == {"pid": first["followers"][0], "rc": -9}
+    assert [e["generation"] for e in d.events("serve_mesh_up")] == [1, 2]
+    served = [e for e in d.events("serve_request")
+              if e["kernel"] == "histogram"]
+    assert [(e["ok"], e["requeues"]) for e in served] == [(True, 1)], served
+    # the wedged order never unwinds: nothing of it reached generation 2
+    assert not d.events("serve_mesh_stale_order")
+
+
+# the reference daemon under JAX on the CPU with 4 fake devices, and the
+# port's with a tier of 4 ranks: one wedge plan, one request sequence
+WEDGE_T = "2"
+
+
+@contextlib.contextmanager
+def _ref_daemon(base, plan):
+    d = base / "ref"
+    d.mkdir()
+    sock = str(d / "s.sock")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPKT_", "TPK_"))}
+    env.update(JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT),
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               TPK_SERVE_DIR=str(d), TPK_HEALTH_JOURNAL=str(d / "j.jsonl"),
+               TPK_AOT_CACHE="0", TPK_SERVE_BUCKETS=json.dumps(SMALL),
+               TPK_SERVE_BATCH_WINDOW_MS="0",
+               TPK_SERVE_REQUEST_TIMEOUT_S=WEDGE_T,
+               TPK_FAULT_PLAN=json.dumps(plan))
+    with open(d / "stderr.txt", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpukernels.serve", "--socket", sock],
+            cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        _wait_ping(sock, proc, d)
+        yield sock, d / "j.jsonl"
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(10)
+
+
+def _wedge_sequence(sock, x, out):
+    """The wedged request, then a later one over the avatar."""
+    out["first"] = _raw(sock, "scan", [x])
+    out["later"] = _raw(sock, "scan", [x])
+
+
+@pytest.mark.parametrize("times", [1, 2])
+def test_a_wedged_mesh_order_is_handled_as_the_reference_does(tmp_path,
+                                                             times):
+    """``wedge_dispatch`` on the mesh key ``times`` times: answered
+    after one requeue (1), or ``wedged`` after the requeued attempt
+    wedged too (2), in both daemons; the same counts of requeues and
+    watchdog fires; a later over-avatar request answered in both."""
+    plan = {"wedge_dispatch": {"kernel": "scan", "times": times}}
+    x = np.random.default_rng(25 + times).integers(
+        0, 1 << 10, 32768).astype(np.int32)
+    want = np.cumsum(x, dtype=np.int64).astype(np.int32)
+    got = {"ref": {}, "port": {}}
+    with _ref_daemon(tmp_path, plan) as (rsock, rjournal), \
+            _daemon(tmp_path, TPKT_FAULT_PLAN=json.dumps(plan),
+                    TPKT_SERVE_REQUEST_TIMEOUT_S=WEDGE_T,
+                    **_tier_env(tmp_path)) as d:
+        threads = [threading.Thread(target=_wedge_sequence,
+                                    args=(sock, x, got[k]))
+                   for k, sock in (("ref", rsock), ("port", d.sock))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(240)
+        assert not any(t.is_alive() for t in threads), got
+        with client.ServeClient(d.sock, timeout_s=60) as c:
+            tier_now = c.stats()["mesh_tier"]
+    ref_events = _events(rjournal)
+    counts = {}
+    for k, evs in (("ref", ref_events), ("port", d.events())):
+        counts[k] = {kind: sum(e.get("kind") == kind for e in evs)
+                     for kind in ("serve_request_requeued", "watchdog_fire")}
+        kind, out = got[k]["first"]
+        if times == 1:
+            assert kind == "ok", (k, got[k]["first"])
+            np.testing.assert_array_equal(out[0], want)
+        else:
+            assert kind == "wedged", (k, got[k]["first"])
+            assert out.startswith("request wedged twice"), out
+        kind, out = got[k]["later"]
+        assert kind == "ok", (k, got[k]["later"])
+        np.testing.assert_array_equal(out[0], want)
+    assert counts["port"] == counts["ref"] == {
+        "serve_request_requeued": 1, "watchdog_fire": times}, counts
+    if times == 1:
+        np.testing.assert_array_equal(got["port"]["first"][1][0],
+                                      got["ref"]["first"][1][0])
+    else:
+        assert got["port"]["first"][1] == got["ref"]["first"][1], got
+    # each wedge broke its generation; the next one served what followed
+    assert tier_now["generation"] == 1 + times and tier_now["up"], tier_now
+    assert len(d.events("serve_mesh_broken")) == times
+    mesh_served = [e for e in d.events("serve_request")
+                   if e["mesh_shape"] == [4]]
+    assert [e["ok"] for e in mesh_served] == [times == 1, True]
+
+
+def test_a_late_unwind_reaches_no_later_generation(tmp_path):
+    """Rank 0's order sleeps in its fault point past its grace, the
+    break and the rebuild (``slow_dispatch`` on every 2nd histogram:
+    the first is a warm-up, the third the retry). The retry is answered
+    on generation 2; when the abandoned order wakes, its pinned mesh's
+    group is left and it raises on that, issuing no collective on
+    generation 2: generation 2 answers a later request and is never
+    broken."""
+    plan = {"slow_dispatch": {"kernel": "histogram", "delay_s": 20.0,
+                              "every": 2}}
+    v = (np.arange(8192) % 64).astype(np.int32)
+    want = np.bincount(v, minlength=64)
+    with _daemon(tmp_path, TPKT_FAULT_PLAN=json.dumps(plan),
+                 TPKT_SERVE_REQUEST_TIMEOUT_S="2",
+                 **_tier_env(tmp_path)) as d:
+        with client.ServeClient(d.sock, timeout_s=120) as c:
+            np.testing.assert_array_equal(c.dispatch("histogram", v,
+                                                     nbins=64), want)
+            c.next_request_id = "late"
+            np.testing.assert_array_equal(c.dispatch("histogram", v,
+                                                     nbins=64), want)
+            (slow,) = [e for e in d.events("fault_injected")
+                       if e.get("fault") == "slow_dispatch"]
+            # the abandoned order wakes 20 s after it slept
+            _until(lambda: d.events("serve_mesh_stale_order"),
+                   "the abandoned order never unwound", timeout=60)
+            x, want_x = _scan(32768)
+            c.next_request_id = "after-unwind"
+            np.testing.assert_array_equal(c.dispatch("scan", x), want_x)
+            now = c.stats()["mesh_tier"]
+    (stale,) = d.events("serve_mesh_stale_order")
+    assert stale["generation"] == 1 and stale["current"] == 2, stale
+    assert "GroupLeft" in stale["error"], stale
+    assert stale["t"] >= slow["t"] + 20.0 - 0.5
+    assert len(d.events("serve_mesh_broken")) == 1
+    assert [e["generation"] for e in d.events("serve_mesh_up")] == [1, 2]
+    assert now["generation"] == 2 and now["up"] and now["rebuilds"] == 1
+    assert len(d.events("serve_request_requeued")) == 1
+    # one answer a request: the retry's (the unwind was discarded)
+    served = [e["request_id"] for e in d.events("serve_request")]
+    assert served.count("late") == 1 and served.count("after-unwind") == 1
+    assert all(e["ok"] for e in d.events("serve_request"))
+
+
+def test_fleet_fails_a_twice_wedged_mesh_bucket_over(tmp_path,
+                                                     monkeypatch):
+    """A mesh bucket that wedges twice on its home worker's tier is
+    answered ``wedged`` there; the router fails it over to the sibling,
+    whose tier answers it, and cools the home."""
+    from tpukernels_torch.serve import bucketing, router
+
+    x, want = _scan(32768, 31)
+    monkeypatch.setenv("TPKT_SERVE_BUCKETS", json.dumps(SMALL))
+    spec, _ = bucketing.bucket_for("scan", [x], {})
+    bucket = bucketing.bucket_id("scan", spec, {}, [x])
+    home, sib = router.ring_order(bucket, 2)[:2]
+    d = tmp_path / "f"
+    d.mkdir()
+    plan = {"wedge_dispatch": {"kernel": "scan", "times": 2,
+                               "env": {"TPKT_SERVE_WORKER_ID": str(home)}}}
+    env = _env(d, TPKT_SERVE_MESH="2", TPKT_SERVE_BATCH_WINDOW_MS="0",
+               TPKT_AOT_DIR=str(d / "aot"), TPKT_COORDINATOR_TIMEOUT_S="120",
+               TPKT_SERVE_REQUEST_TIMEOUT_S=WEDGE_T,
+               TPKT_ROUTE_COOLDOWN_S="120", TPKT_FAULT_PLAN=json.dumps(plan))
+    r = _ctl(env, "start-fleet", "2", "--wait", "120")
+    assert r.returncode == 0, r.stdout + r.stderr
+    try:
+        with client.ServeClient(str(d / "fleet" / "front.sock"),
+                                timeout_s=180) as c:
+            np.testing.assert_array_equal(c.dispatch("scan", x), want)
+            np.testing.assert_array_equal(c.dispatch("scan", x), want)
+    finally:
+        r = _ctl(env, "stop-fleet", "--wait", "60")
+        assert r.returncode == 0, r.stdout + r.stderr
+    events = _events(d / "journal.jsonl")
+    spills = [e for e in events if e["kind"] == "serve_spill"]
+    assert [(e["reason"], e["from_worker"], e["to_worker"])
+            for e in spills] == [("wedged", home, sib)]
+    routes = [e for e in events if e["kind"] == "serve_route"]
+    assert [(e["ok"], e["worker"], e["spilled_from"]) for e in routes] == [
+        (True, sib, home), (True, sib, None)]
+    served = [e for e in events if e.get("kind") == "serve_request"
+              and e.get("kernel") == "scan"]
+    assert [(e["ok"], e["mesh_shape"], e["worker_id"]) for e in served] == [
+        (False, [2], str(home)), (True, [2], str(sib)),
+        (True, [2], str(sib))], served
+    assert sum(e["kind"] == "serve_request_requeued" for e in events) == 1
+    ups = [e for e in events if e.get("kind") == "serve_mesh_up"]
+    _gone([p for e in ups for p in e["followers"]])
 
 
 def test_no_follower_outlives_its_daemon(tmp_path):

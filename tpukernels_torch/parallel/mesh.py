@@ -33,13 +33,22 @@ once per process:
 A spec is a tuple of mesh axis names a dimension, as the reference's
 ``PartitionSpec``: ``("x",)`` splits dim 0 over axis x, ``(("x", "y"),)``
 over both axes of a 2-D mesh, ``()`` is replicated. Only dim 0 is split.
+
+A mesh belongs to the group it was made on. :func:`leave` marks every
+mesh of the group it destroys as left (:data:`LEFT` for its groups), so a
+collective on a mesh of a left group raises :class:`GroupLeft` instead of
+reaching the group joined after it; :func:`pinned` binds a thread's
+:func:`make_mesh` to one mesh, so that a caller that resolved its group's
+mesh first (the serving daemon's mesh tier) never runs on a later group.
 """
 
 from __future__ import annotations
 
 import atexit
+import contextlib
 import datetime
 import os
+import threading
 from dataclasses import dataclass, field
 
 import torch
@@ -48,6 +57,27 @@ from tpukernels_torch.utils import pick_device
 
 _MESHES: dict = {}  # (axes, shape, device, group) -> Mesh
 _LEAVE_AT_EXIT: list = []  # [True] once leave() is registered at exit
+_PINNED = threading.local()  # .mesh: this thread's pinned mesh (pinned())
+
+
+class GroupLeft(RuntimeError):
+    """A mesh's process group was left (:func:`leave`) before its use."""
+
+
+class _Left:
+    """A left mesh's group: never None (a collective given None runs on
+    the group that is current, the one joined since), and any use of it
+    raises :class:`GroupLeft`."""
+
+    def __getattr__(self, name):
+        raise GroupLeft("this mesh's process group was left; a mesh of the "
+                        "current group is needed")
+
+    def __repr__(self):
+        return "<left process group>"
+
+
+LEFT = _Left()
 
 
 def P(*axes) -> tuple:
@@ -161,16 +191,35 @@ def leave() -> None:
     group aborted a two-rank process at exit ("terminate called without
     an active exception") about once in 600 runs. A C host never
     finalises the interpreter, so it never tears the group down
-    either."""
+    either. Each of those groups becomes :data:`LEFT`, so a caller
+    still holding such a mesh raises :class:`GroupLeft` at its next
+    collective, whatever group is up by then."""
     dist = _dist()
     if not dist.is_initialized():
         return
     for mesh in _MESHES.values():
-        object.__setattr__(mesh, "group", None)
+        if mesh.group is not None:
+            object.__setattr__(mesh, "group", LEFT)
         for ax in mesh.axes.values():
-            object.__setattr__(ax, "group", None)
+            if ax.group is not None:
+                object.__setattr__(ax, "group", LEFT)
     _MESHES.clear()
     dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def pinned(mesh: "Mesh"):
+    """Within the block, this thread's :func:`make_mesh` returns ``mesh``
+    (and raises ValueError for a mesh of another shape or device), never
+    a mesh of the group current at the call; once this process has left
+    ``mesh``'s group it raises :class:`GroupLeft` instead. Resolved
+    before a call that may run late, it ties the call to its group."""
+    prev = getattr(_PINNED, "mesh", None)
+    _PINNED.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _PINNED.mesh = prev
 
 
 def world() -> tuple:
@@ -257,14 +306,29 @@ def make_mesh(n_devices=None, axis: str = "x", axes=("x", "y"),
     are kept per process, so a caller asking again (the C entry, once a
     call) gets the same groups."""
     dev = local_device(device)
-    maybe_distributed_init(dev)
-    rank, have = world()
+    pin = getattr(_PINNED, "mesh", None)
+    if pin is None:
+        maybe_distributed_init(dev)
+        rank, have = world()
+    else:
+        rank, have = pin.rank, pin.size
     if isinstance(n_devices, (tuple, list)):
         r, c = (int(d) for d in n_devices)
         names, shape = tuple(axes), (r, c)
     else:
         n = have if n_devices is None else int(n_devices)
         names, shape = (axis,), (n,)
+    if pin is not None:
+        if pin.group is LEFT:
+            raise GroupLeft(f"the pinned mesh's process group was left; "
+                            f"no mesh {shape} of a later group is taken")
+        if (names != pin.axis_names or dev != pin.device
+                or shape != tuple(pin.shape[a] for a in names)):
+            raise ValueError(f"a mesh {names}={shape} on {dev} asked for "
+                             f"where the mesh {pin.axis_names}="
+                             f"{tuple(pin.shape.values())} on {pin.device} "
+                             "is pinned")
+        return pin
     want = 1
     for d in shape:
         want *= d

@@ -21,14 +21,15 @@ is rank 0, and it spawns and supervises n - 1 follower processes
   ``dist.host_staged_bytes``).
 - **An order.** Under the tier lock (one order at a time, whatever the
   bucket or worker thread: two interleaved orders would pair one's
-  collectives with the other's), rank 0 writes the order (kernel,
-  statics, each operand's dtype and shape) as one JSON line to every
-  follower's stdin, broadcasts the operands as host tensors on the
-  group, and every rank calls ``registry.dispatch_mesh(kernel,
-  *operands, mesh_shape=(n,), **statics)``; rank 0's full result is the
-  reply. The order goes through a pipe and not the group because a
-  gloo receive times out (``TPKT_COORDINATOR_TIMEOUT_S``) and a tier
-  may stay idle for hours.
+  collectives with the other's), rank 0 resolves its generation's mesh,
+  writes the order (kernel, statics, each operand's dtype and shape) as
+  one JSON line to every follower's stdin, broadcasts the operands as
+  host tensors on that mesh's group, and every rank calls
+  ``registry.dispatch_mesh(kernel, *operands, mesh_shape=(n,),
+  **statics)``, rank 0 with the mesh pinned (``mesh.pinned``); rank 0's
+  full result is the reply. The order goes through a pipe and not the
+  group because a gloo receive times out (``TPKT_COORDINATOR_TIMEOUT_S``)
+  and a tier may stay idle for hours.
 - **Refusals** are decided on rank 0 before an order goes out
   (``registry.check_mesh``: the mesh shape, the key and the call's
   route; an expired deadline), so no follower enters a collective that
@@ -39,11 +40,21 @@ is rank 0, and it spawns and supervises n - 1 follower processes
 - **Recovery.** A follower that dies, an order whose collectives raise
   or outrun the group's timeout, or a follower that fails its call (it
   then exits) breaks the group: the request in flight gets an error
-  reply and is never run on one device or requeued; the keeper thread
-  stops the remaining followers, waits for the tier lock, leaves the
-  group and forms a new generation (``serve_mesh_broken``, then
-  ``serve_mesh_up``); a later mesh request waits for it within its
-  deadline. In-avatar requests never touch the tier.
+  reply and is never run on one device or requeued. An order past the
+  daemon's grace is the watchdog's, as any request is: a live device
+  and every follower running earn it one more grace; then the watchdog
+  breaks the group (:meth:`MeshTier.abandon`), abandons the worker and
+  requeues the request once (a second wedge answers ``wedged``). The
+  lock of an abandoned order is retired: the keeper and later orders
+  take a fresh one, and the abandoned thread's late release lets go of
+  its own. On a break the keeper stops the remaining followers, takes
+  the tier lock, leaves the group and forms a new generation
+  (``serve_mesh_broken``, then ``serve_mesh_up``); a later mesh request
+  waits for it within its deadline. An order is tied to its
+  generation: its mesh is pinned, and leaving the group marks that mesh
+  left, so an abandoned order that unwinds late raises on its own group
+  (``serve_mesh_stale_order``) and never reaches the next one. In-avatar
+  requests never touch the tier.
 - **Lifetime.** A follower dies with its daemon: it asks the kernel for
   SIGKILL when its parent dies (``prctl(PR_SET_PDEATHSIG)``), and an
   end of file on its stdin ends it too. The daemon spawns followers
@@ -160,11 +171,14 @@ class MeshTier:
         self.rebuild_s = None    # the last break to the group up again
         self._why = "an order failed"
         self._procs: list = []
-        self._op = threading.Lock()          # the tier lock
+        self._op = threading.Lock()          # the tier lock (retired and
+        self._holder = None                  # replaced: abandon()); the
+        #                                      order thread holding it
         self._ready = threading.Event()      # a group is up
         self._broken = threading.Event()     # wakes the keeper
         self._stopping = threading.Event()
-        self._state_lock = threading.Lock()  # _procs, _spawned
+        # _procs, _spawned, _op, _holder, and generation with _broken
+        self._state_lock = threading.Lock()
         # (rendezvous, t0, followers) of the next generation, which
         # spawn() started and _form() has not joined yet
         self._spawned = None
@@ -196,19 +210,23 @@ class MeshTier:
 
         self._stopping.set()
         self._broken.set()
-        held = self._op.acquire(timeout=5.0)
-        if held:
-            self._order_all({"op": "stop"})
-        self._reap(grace_s=10.0 if held else 0.0)
-        if not held:
+        lock = self._take(5.0)
+        if lock is not None:
+            try:
+                self._order_all({"op": "stop"})
+            except BrokenPipeError:
+                pass  # a follower already gone: reaped below
+        self._reap(grace_s=10.0 if lock is not None else 0.0)
+        if lock is None:
             # an order still in flight unwinds once its peers are gone
-            held = self._op.acquire(timeout=self.timeout_s)
+            # (an abandoned one's lock was retired: _take has the fresh)
+            lock = self._take(self.timeout_s)
         try:
-            if held:
+            if lock is not None:
                 mesh.leave()
         finally:
-            if held:
-                self._op.release()
+            if lock is not None:
+                lock.release()
         self._ready.clear()
 
     def stats(self) -> dict:
@@ -216,7 +234,7 @@ class MeshTier:
             pids = [p.pid for p in self._procs]
         return {"ranks": self.n, "backend": self.backend,
                 "device": str(self.device), "generation": self.generation,
-                "up": self._ready.is_set() and not self._broken.is_set(),
+                "up": self.up(),
                 "followers": pids, "rebuilds": self.rebuilds,
                 "start_s": self.start_s, "rebuild_s": self.rebuild_s}
 
@@ -288,8 +306,9 @@ class MeshTier:
         self.start_s = round(now - t0, 3)
         if since is not None:
             self.rebuild_s = round(now - since, 3)
-        self.generation = gen
-        self._broken.clear()
+        with self._state_lock:
+            self.generation = gen
+            self._broken.clear()
         self._ready.set()
         journal.emit("serve_mesh_up", ranks=self.n, backend=self.backend,
                      device=str(self.device), generation=gen,
@@ -376,7 +395,12 @@ class MeshTier:
             # the next generation starts while it unwinds
             self._reap(grace_s=0.0)
             self.spawn()
-            with self._op:
+            lock = None
+            while lock is None:
+                if self._stopping.is_set():
+                    return
+                lock = self._take(1.0)
+            try:
                 mesh.leave()
                 for attempt in range(1 << 30):
                     if self._stopping.is_set():
@@ -394,59 +418,124 @@ class MeshTier:
                         time.sleep(BACKOFF_S[min(attempt,
                                                  len(BACKOFF_S) - 1)])
                 self.rebuilds += 1
+            finally:
+                lock.release()
             print(f"# serve: mesh tier generation {self.generation} up "
                   f"after {self.rebuild_s:.2f} s", file=sys.stderr,
                   flush=True)
 
-    def _break(self, why: str):
-        self._why = why
-        self._broken.set()
-
-    def break_group(self, why: str):
-        """Break the group from outside an order (the daemon's watchdog,
-        on a mesh request past its grace): the followers are killed at
-        once, so an order stuck in a collective raises."""
-        self._break(why)
+    def _break(self, why: str, gen: int) -> list:
+        """Mark generation ``gen`` broken for the keeper, unless it
+        already is or a later one is up; returns its followers when this
+        call broke it, else []."""
         with self._state_lock:
-            procs = list(self._procs)
-        for p in procs:
+            if self._broken.is_set() or gen != self.generation:
+                return []
+            self._why = why
+            self._broken.set()
+            return list(self._procs)
+
+    def abandon(self, ident: int, gen: int, why: str):
+        """The daemon's watchdog abandoned the order of thread ``ident``
+        on generation ``gen``: break that generation, its followers
+        killed at once so that an order stuck in a collective raises (a
+        generation already broken or over is left alone), and retire the
+        tier lock if that thread holds it (the reference's rule for a
+        bucket lock): the keeper and later orders take a fresh lock, and
+        the thread's late :meth:`release` lets go of its own. A lock held
+        by a live order is never replaced."""
+        for p in self._break(why, gen):
             if p.poll() is None:
                 p.kill()
+        with self._state_lock:
+            if self._holder == ident:
+                self._op, self._holder = threading.Lock(), None
+
+    def alive(self, gen: int) -> bool:
+        """Whether generation ``gen`` is still up with every follower
+        running: the tier's part of the watchdog's liveness, beside the
+        device probe."""
+        with self._state_lock:
+            if gen != self.generation or self._broken.is_set():
+                return False
+        return not self._exited()
+
+    def up(self) -> bool:
+        return self._ready.is_set() and not self._broken.is_set()
 
     # -------------------------------------------------------------- order
 
-    def acquire(self, wait_s: float) -> bool:
-        """Take the tier lock with the group up, waiting at most
-        ``wait_s``; False when that was not possible."""
-        end = time.monotonic() + max(0.0, wait_s)
+    def _take(self, timeout_s: float):
+        """The current tier lock, taken within ``timeout_s`` (None when
+        not): a lock retired while this waited on it is let go and the
+        fresh one taken."""
+        end = time.monotonic() + timeout_s
         while True:
+            lock = self._op
             left = end - time.monotonic()
-            if left <= 0 or not self._op.acquire(timeout=left):
-                return False
-            if self._ready.is_set() and not self._broken.is_set():
-                return True
-            self._op.release()
-            if not self._ready.wait(max(0.0, end - time.monotonic())):
-                return False
-            # a rebuild may still hold the lock; look again
-            time.sleep(0.001)
+            if lock.acquire(timeout=max(0.0, min(POLL_S, left))):
+                with self._state_lock:
+                    if lock is self._op:
+                        return lock
+                lock.release()
+            elif left <= 0:
+                return None
 
-    def release(self):
-        self._op.release()
+    def acquire(self, wait_s: float, rebuild_s: float):
+        """Take the tier lock with the group up: an order in flight is
+        waited for at most ``wait_s``, a group that is down (a rebuild in
+        flight) up to ``rebuild_s`` in all. Returns the lock taken, for
+        :meth:`release`; None when neither was possible."""
+        t0 = time.monotonic()
+        while True:
+            left = (t0 + (wait_s if self.up() else max(wait_s, rebuild_s))
+                    - time.monotonic())
+            if left <= 0:
+                return None
+            lock = self._take(min(left, POLL_S))
+            if lock is None:
+                continue
+            with self._state_lock:
+                if lock is self._op and self.up():
+                    self._holder = threading.get_ident()
+                    return lock
+            lock.release()
+            # the group is down: the keeper takes the lock to rebuild it
+            time.sleep(0.01)
+
+    def rebuild_wait_s(self) -> float:
+        """The most a rebuild may take: its followers' start and the
+        group's rendezvous."""
+        return START_TIMEOUT_S + self.timeout_s
+
+    def release(self, lock):
+        """Let go of ``lock``, the one :meth:`acquire` returned (a
+        retired lock leaves the current one alone)."""
+        with self._state_lock:
+            if lock is self._op:
+                self._holder = None
+        lock.release()
 
     def run(self, kernel: str, arrays, dev_args, statics: dict):
         """One order, the tier lock held (:meth:`acquire`): ``arrays``
         the request's numpy operands (broadcast from here), ``dev_args``
         rank 0's operands on its device. Returns ``(outputs, wire)``,
-        ``wire`` the order's broadcast and host-staged bytes. An
-        exception after the order went out breaks the group."""
+        ``wire`` the order's broadcast and host-staged bytes. The order
+        runs on this generation's mesh, pinned, whenever it gets there.
+        An exception after the order went out breaks its generation,
+        unless the order was abandoned (:meth:`abandon`): that is
+        journaled as ``serve_mesh_stale_order``."""
         import torch
         import torch.distributed as dist
 
         from tpukernels_torch import registry
         from tpukernels_torch.obs import metrics as obs_metrics
         from tpukernels_torch.obs import trace
+        from tpukernels_torch.parallel import mesh
+        from tpukernels_torch.resilience import journal
 
+        gen = self.generation
+        ring = mesh.make_mesh(self.n, device=self.device)
         order = {"kernel": kernel, "statics": statics,
                  "args": [[a.dtype.name, list(a.shape)] for a in arrays]}
         staged0 = obs_metrics.counters("dist.host_staged_bytes").get(
@@ -454,15 +543,25 @@ class MeshTier:
         nbytes = int(sum(a.nbytes for a in arrays))
         try:
             self._order_all(order)
-            with trace.span("mesh/broadcast", bytes=nbytes,
-                            ranks=self.n):
-                for a in arrays:
-                    dist.broadcast(torch.from_numpy(a), src=0)
-            obs_metrics.inc("serve.mesh.broadcast_bytes", nbytes)
-            out = registry.dispatch_mesh(kernel, *dev_args,
-                                         mesh_shape=(self.n,), **statics)
+            with mesh.pinned(ring):
+                with trace.span("mesh/broadcast", bytes=nbytes,
+                                ranks=self.n):
+                    for a in arrays:
+                        dist.broadcast(torch.from_numpy(a), src=0,
+                                       group=ring.group)
+                obs_metrics.inc("serve.mesh.broadcast_bytes", nbytes)
+                out = registry.dispatch_mesh(kernel, *dev_args,
+                                             mesh_shape=(self.n,),
+                                             **statics)
         except BaseException as e:
-            self._break(f"an order failed: {e!r}"[:300])
+            with self._state_lock:
+                stale = self._holder != threading.get_ident()
+            if stale:
+                journal.emit("serve_mesh_stale_order", ranks=self.n,
+                             generation=gen, current=self.generation,
+                             kernel=kernel, error=repr(e)[:300])
+            else:
+                self._break(f"an order failed: {e!r}"[:300], gen)
             raise
         staged = obs_metrics.counters("dist.host_staged_bytes").get(
             "dist.host_staged_bytes", 0) - staged0

@@ -46,8 +46,11 @@ Everything above the dispatch is the reference's logic:
   kernel's distributed twin, ``registry.dispatch_mesh``, over a standing
   group of follower ranks the daemon keeps beside it
   (``serve/mesh_tier.py``), under its own bucket (``...|mesh<n>``); it
-  never falls back to one device, and a broken group fails it with an
-  error reply and is rebuilt.
+  never falls back to one device. A broken group (a follower's death, a
+  collective that raises) fails it with an error reply and is rebuilt;
+  past its grace it is the watchdog's, as any request is (the tier's
+  followers are part of its liveness), and the group is broken before
+  the request is requeued onto the next generation.
 - **Replay memo** (the port's own): a successful answer of a request that
   carries a request_id is kept (``REPLAY_MEMO_*``: small answers, for a
   while), and a replay of that request_id (``replay`` > 0, from a fleet
@@ -164,7 +167,7 @@ class _Request:
                  "t_start", "requeues", "patience", "done", "lock",
                  "worker_ident", "tenant", "shm_ok", "request_id",
                  "shapes", "dtypes", "replayed", "deadline_at",
-                 "mesh_shape", "mesh_bytes")
+                 "mesh_shape", "mesh_bytes", "mesh_gen")
 
     def __init__(self, serial, rid, kernel, statics, arrays, spec,
                  pad_frac, bucket, conn, tenant=None, shm_ok=False,
@@ -202,6 +205,7 @@ class _Request:
         # a non-None shape runs this over-avatar request on the tier
         self.mesh_shape = tuple(mesh_shape) if mesh_shape else None
         self.mesh_bytes = None     # the tier's wire bytes, once it ran
+        self.mesh_gen = None       # the tier generation of its order
         self.shm_ok = shm_ok       # client negotiated the shm lane
         self.t_enq = time.perf_counter()
         self.t_start = None
@@ -1161,6 +1165,13 @@ class Server:
             self._expire(req, where="mesh", queue_wait=queue_wait)
             return
         except Exception as e:  # noqa: BLE001 — reported to the client
+            if req.mesh_shape is not None:
+                with self._lock:
+                    if threading.get_ident() in self._abandoned:
+                        # its order raised on the group the watchdog
+                        # broke under it: the retry (or the watchdog's
+                        # "wedged") is the answer
+                        return
             if req.claim_done():
                 self._finish(req, None, error=repr(e),
                              wall=time.perf_counter() - t_start)
@@ -1192,9 +1203,17 @@ class Server:
     def _run_mesh(self, req: _Request):
         """One request on the mesh tier (``serve/mesh_tier.py``): the
         refusals on this rank before any order (``registry.check_mesh``,
-        the deadline), a wait for the tier lock with the group up (at
-        most half the request timeout, and never past the deadline),
-        then the order. Its outputs are rank 0's, on the device."""
+        the deadline), a wait for the tier lock with the group up (an
+        order in flight at most half the request timeout, a rebuild in
+        flight as long as the tier may take to form, never past the
+        deadline), then the order, tied to the generation it starts on
+        (``MeshTier.run``). The wait is not the watchdog's: the grace
+        runs from the order's start. A lock this attempt holds when the
+        watchdog abandons it is retired (``MeshTier.abandon``), so it
+        never blocks the rebuild or a later order; if the attempt
+        unwinds late, its order raises on its own group and the answer
+        the watchdog already gave stands. Its outputs are rank 0's, on
+        the device."""
         from tpukernels_torch import registry
         from tpukernels_torch.serve.mesh_tier import MeshTierUnavailable
 
@@ -1202,33 +1221,54 @@ class Server:
         dev_args = self._upload(req.kernel, req.arrays)
         registry.check_mesh(req.kernel, *dev_args,
                             mesh_shape=req.mesh_shape, **req.statics)
-        wait = self.request_timeout_s * 0.5
+        wait, rebuild = self.request_timeout_s * 0.5, tier.rebuild_wait_s()
         if req.deadline_at is not None:
-            wait = min(wait, req.deadline_at - time.monotonic())
+            left = req.deadline_at - time.monotonic()
+            wait, rebuild = min(wait, left), min(rebuild, left)
+        me = threading.get_ident()
         w0 = time.perf_counter()
-        if not tier.acquire(wait):
+        with self._lock:
+            # an attempt abandoned before its order touches no field of
+            # the request its retry now owns
+            if me in self._abandoned:
+                raise RuntimeError("mesh tier: the attempt was abandoned "
+                                   "before its order")
+            req.t_start = None
+        lock = tier.acquire(wait, rebuild)
+        with self._lock:
+            abandoned = me in self._abandoned
+            if not abandoned:
+                req.t_start = time.perf_counter()
+        if abandoned:
+            if lock is not None:
+                tier.release(lock)
+            raise RuntimeError("mesh tier: the attempt was abandoned "
+                               "before its order")
+        if lock is None:
             if (req.deadline_at is not None
                     and time.monotonic() >= req.deadline_at):
                 raise _MeshExpired
             raise MeshTierUnavailable(
-                f"mesh tier: no group of {tier.n} ranks within {wait:.1f} "
-                f"s (generation {tier.generation})")
+                f"mesh tier: no group of {tier.n} ranks within "
+                f"{time.perf_counter() - w0:.1f} s (generation "
+                f"{tier.generation})")
         try:
             trace.emit_span("mesh/wait", time.perf_counter() - w0,
                             bucket=req.bucket)
             if (req.deadline_at is not None
                     and time.monotonic() >= req.deadline_at):
                 raise _MeshExpired
+            req.mesh_gen = gen = tier.generation
             try:
                 out, req.mesh_bytes = tier.run(req.kernel, req.arrays,
                                                dev_args, req.statics)
             except Exception as e:
                 raise RuntimeError(
-                    f"mesh tier: generation {tier.generation} broke during "
-                    f"the request ({e!r}); it is rebuilt and the request "
-                    "is not run again") from e
+                    f"mesh tier: generation {gen} broke during the "
+                    f"request ({e!r}); it is rebuilt and the request is "
+                    "not run again") from e
         finally:
-            tier.release()
+            tier.release(lock)
         return out
 
     def _finish(self, req: _Request, outs, error=None,
@@ -1422,46 +1462,24 @@ class Server:
             # on the rescue
             self._q.put_nowait(rest, force=True)
 
-    def _handle_mesh_wedge(self, req: _Request):
-        """A mesh request past its grace: no second grace and no requeue
-        (its group is suspect). The group is broken at once, so an order
-        stuck in a collective raises and the keeper rebuilds; the worker
-        is abandoned and the request answered with an error."""
-        with self._lock:
-            if self._inflight.pop(req.serial, None) is None:
-                return
-        obs_metrics.inc("watchdog.kills")
-        journal.emit(
-            "watchdog_fire", mechanism="serve-mesh-break", site="serve",
-            timeout_s=self.request_timeout_s, kernel=req.kernel,
-            request=req.rid,
-        )
-        self._tier.break_group(f"request {req.rid} past its grace")
-        self._abandon(req)
-        if req.claim_done():
-            self._finish(
-                req, None,
-                error=(f"mesh tier: request past its grace (> "
-                       f"{self.request_timeout_s * 1.5:.1f}s); the group "
-                       "is rebuilt and the request not run again"))
-
     def _handle_wedge(self, req: _Request):
         with self._lock:
             if self._inflight.get(req.serial) is not req:
                 return
-        if req.mesh_shape is not None:
-            self._handle_mesh_wedge(req)
-            return
         # classify BEFORE abandoning: a live device means this may be
         # a legitimately slow attempt — a first request that builds a
         # library can outlast any fixed grace — and abandoning it would
         # replace the bucket lock under a live attempt, putting a second
         # one of the same bucket in flight. One doubled grace beats
         # that; an attempt still overdue at 2x grace is treated as
-        # wedged regardless of the probe.
+        # wedged regardless of the probe. A mesh order is alive only
+        # while its generation is up with every follower running: a
+        # follower that has exited makes it wedged at once.
+        gen = req.mesh_gen
+        alive = self._probe_alive() and (gen is None
+                                         or self._tier.alive(gen))
         verdict = watchdog.classify_timeout(
-            self._probe_alive(), site="serve", kernel=req.kernel,
-            request=req.rid,
+            alive, site="serve", kernel=req.kernel, request=req.rid,
         )
         if verdict == "slow" and req.patience == 0:
             req.patience = 1
@@ -1480,11 +1498,18 @@ class Server:
             timeout_s=self.request_timeout_s, kernel=req.kernel,
             request=req.rid,
         )
+        if gen is not None and req.worker_ident is not None:
+            # its followers are killed, so an order stuck in a
+            # collective raises, and its tier lock is retired: the
+            # keeper forms the next generation, which the retry waits for
+            self._tier.abandon(req.worker_ident, gen,
+                               f"request {req.rid} wedged")
         self._abandon(req)
         if req.requeues < 1:
             req.requeues += 1
             req.t_start = None
             req.worker_ident = None
+            req.mesh_gen = None
             # the retry's queue wait measures ITS queueing, not the
             # failed attempt it replaces (~grace worth of wedge time
             # would dominate the serve.queue_wait_s tail otherwise)
